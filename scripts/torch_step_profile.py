@@ -1,0 +1,116 @@
+#!/usr/bin/env python3
+"""Where the time of one PHub train step of the PyTorch port goes on the card.
+
+    python3 scripts/torch_step_profile.py [--workers 4] [--batch 8] [--seq 512]
+
+Runs the port's main path (full llama3.2-1b, sharded_ps, W workers stacked
+on one card, Nesterov at the TrainConfig defaults) for one warm-up step, one
+timed step, and one step under torch.profiler.  Prints the timed step's
+wall time, the profiled step's device time by kernel class and by kernel
+(top 15), and the device busy share: kernel time over the timed (not the
+profiled) step's wall time, since the profiler slows the host; kernels of
+one stream do not overlap.  Needs a CUDA card; imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+CLASSES = (                      # first match wins
+    ("agg_opt update kernel", ("agg_opt_kernel",)),
+    ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "sm90_")),
+    ("reduction", ("reduce",)),
+    ("index / gather / scatter", ("index", "gather", "scatter", "embedding")),
+    ("copy / fill", ("copy", "memcpy", "memset", "fill", "cat")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def classify(name: str) -> str:
+    low = name.lower()
+    for cls, keys in CLASSES:
+        if any(k in low for k in keys):
+            return cls
+    return "other"
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=512)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_step_profile: no CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.core import PHubEngine, StackedComm
+    from repro_torch.data import SyntheticTokens
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+    cfg = get_arch("llama3.2-1b")
+    tc = TrainConfig(loss_chunk=min(1024, args.seq))
+    engine = PHubEngine(cfg, tc, StackedComm(args.workers), device="cuda")
+    model, opt = engine.init_state()
+    step = engine.make_train_step()
+    data = SyntheticTokens(cfg, args.batch, args.seq, seed=tc.seed)
+    model, opt, _ = step(model, opt, data.torch_batch(0))      # warm-up
+    torch.cuda.synchronize()
+    batch = data.torch_batch(1)
+    t0 = time.perf_counter()
+    model, opt, _ = step(model, opt, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    batch = data.torch_batch(2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        model, opt, metrics = step(model, opt, batch)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    loss = float(metrics["loss"])
+
+    by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        by_name[evt.name][0] += us / 1e3
+        by_name[evt.name][1] += 1
+    dev_ms = sum(v[0] for v in by_name.values())
+    by_class: dict[str, float] = defaultdict(float)
+    for name, (ms, _) in by_name.items():
+        by_class[classify(name)] += ms
+    print(f"step: {args.workers} workers, batch {args.batch} x {args.seq}, "
+          f"wall {step_ms:.1f} ms; profiled step: loss {loss:.6f}, wall "
+          f"{prof_ms:.1f} ms, device kernel time {dev_ms:.1f} ms; busy share "
+          f"{dev_ms / step_ms:.3f} of the unprofiled step "
+          f"({dev_ms / prof_ms:.3f} of the profiled one)")
+    if dev_ms == 0:
+        raise SystemExit("the profiler recorded no device time")
+    print("device time by kernel class:")
+    for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {cls:<26} {ms:10.2f} ms  {ms / dev_ms:6.1%}")
+    print("top kernels by device time:")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (ms, n) in top:
+        print(f"  {ms:10.2f} ms  {n:5d} calls  {name[:110]}")
+
+
+if __name__ == "__main__":
+    main()

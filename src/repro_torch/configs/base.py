@@ -1,0 +1,128 @@
+"""Configuration dataclasses for the PyTorch port.
+
+``ModelConfig`` is the reference's (``repro/configs/base.py``) field for
+field, so one architecture means the same widths in both packages.
+``TrainConfig`` keeps only the fields this port implements: the
+sharded_ps exchange with one window, tree residency and the Nesterov
+rule without weight decay, whose fused aggregate+update always runs
+through the CUDA kernel (the reference's ``use_pallas``/``fused_agg_opt`` switches have no
+counterpart).  The reference's other knobs (wire formats, pipeline
+windows, flat residency, microbatching, the other strategies and
+optimizers, weight decay) are queued in ROADMAP.md and are not fields here, so a config
+cannot ask for them and be silently ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str                       # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int                      # attention query heads (0 for attn-free)
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    dense_residual: bool = False
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+    # --- SSM / RWKV ---
+    ssm_state: int = 0
+    rwkv_decay_lora: int = 64
+
+    # --- attention variants ---
+    sliding_window: int = 0           # 0 = full attention
+    global_layer_every: int = 0
+
+    # --- misc ---
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"           # activation dtype
+    param_dtype: str = "float32"      # parameter storage dtype
+
+    # --- modality frontend ---
+    frontend: Optional[str] = None
+    frontend_tokens: int = 0
+
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    def n_params(self) -> int:
+        """Total parameter count (analytic), as the reference counts it."""
+        d, ff, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab_size
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            per_layer = 4 * d * d + 2 * d * self.rwkv_decay_lora + 2 * d * ff + 2 * d
+        else:
+            nh, kv, hd = self.n_heads, self.n_kv_heads, self.hd
+            attn = d * nh * hd + 2 * d * kv * hd + nh * hd * d
+            if self.family == "hybrid":
+                dssm = nh * hd
+                attn += d * 2 * dssm + 2 * d * self.ssm_state + dssm + dssm * d
+            if self.n_experts:
+                mlp = self.n_experts * 3 * d * ff + d * self.n_experts
+                if self.dense_residual:
+                    mlp += 3 * d * ff
+            else:
+                mlp = 3 * d * ff
+            per_layer = attn + mlp + 2 * d
+        return emb + L * per_layer + d
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimization + parameter-exchange (PHub) configuration."""
+    optimizer: str = "nesterov"       # the paper's rule; sgd/adam: ROADMAP
+    lr: float = 1e-2
+    momentum: float = 0.9             # weight decay: ROADMAP, with sgd/adam
+
+    # --- PHub exchange (the paper's contribution) ---
+    strategy: str = "sharded_ps"      # the other strategies: ROADMAP A7
+    chunk_size_bytes: int = 32 * 1024 # paper default: 32 KB (§3.2.3)
+
+    # --- memory policy ---
+    remat: bool = True                # activation checkpointing on blocks
+    loss_chunk: int = 1024            # chunked cross-entropy block (tokens)
+
+    seed: int = 0
+
+
+def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 256,
+            n_experts: int = 4) -> ModelConfig:
+    """The reference's reduced same-family variant (<=2 layers,
+    d_model<=512, <=4 experts), field for field."""
+    nh = max(2, min(cfg.n_heads, 4)) if cfg.n_heads else 0
+    kv = max(1, min(cfg.n_kv_heads, 2)) if cfg.n_kv_heads else 0
+    hd = d_model // nh if nh else 64
+    return dataclasses.replace(
+        cfg,
+        n_layers=layers,
+        d_model=d_model,
+        n_heads=nh,
+        n_kv_heads=kv,
+        head_dim=hd,
+        d_ff=d_model * 3,
+        vocab_size=min(cfg.vocab_size, 512),
+        n_experts=min(cfg.n_experts, n_experts) if cfg.n_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        rwkv_decay_lora=16,
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        frontend_tokens=min(cfg.frontend_tokens, 16) if cfg.frontend_tokens else 0,
+        param_dtype="float32",
+    )

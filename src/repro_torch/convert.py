@@ -1,0 +1,57 @@
+"""Carry state over from the JAX package: numpy in, the port's tensors out.
+
+``params_from_numpy`` takes the reference's parameter tree as a nested
+dict of numpy arrays (as ``jax.device_get`` returns it) and builds the
+port's model from it; ``opt_from_numpy`` takes the reference's optimizer
+slots (``{dtype: {slot: array}}`` of shape ``(mo, S, Lr)`` or
+``(mo, padded)``, ``repro/core/engine.py`` ``opt_state_shapes``) and lays
+them out as the port's ``(S, state_len)``.  Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .configs.base import ModelConfig
+from .core.chunking import ChunkPlan, leaf_paths
+from .models import DecoderLM, param_specs
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict, *,
+                      device="cuda") -> DecoderLM:
+    """The reference's parameter tree -> the port's DecoderLM."""
+    want = dict(leaf_paths(param_specs(cfg)))
+    got = dict(leaf_paths(tree))
+    if set(want) != set(got):
+        raise ValueError(f"parameter paths differ: missing "
+                         f"{sorted(set(want) - set(got))}, extra "
+                         f"{sorted(set(got) - set(want))}")
+    for path, spec in want.items():
+        if tuple(np.shape(got[path])) != tuple(spec.shape):
+            raise ValueError(f"{path}: shape {np.shape(got[path])} != "
+                             f"{tuple(spec.shape)}")
+
+    def convert(node):
+        return {k: convert(v) if isinstance(v, dict)
+                else _tensor(v, device) for k, v in node.items()}
+    return DecoderLM(cfg, device=device, params=convert(tree))
+
+
+def opt_from_numpy(plan: ChunkPlan, opt: dict, *, device="cuda") -> dict:
+    """The reference's optimizer slots -> {dtype: {slot: (S, L) tensor}}."""
+    out = {}
+    for g in plan.groups:
+        slots = {}
+        for name, a in opt[g.key].items():
+            a = np.asarray(a)
+            if a.shape[0] != 1 or a[0].size != g.padded:
+                raise ValueError(
+                    f"{g.key}/{name}: shape {a.shape} is not (1, S, Lr) or "
+                    f"(1, padded) with padded={g.padded}")
+            slots[name] = _tensor(a.reshape(g.n_shards, g.shard_len), device)
+        out[g.key] = slots
+    return out

@@ -1,0 +1,135 @@
+"""PHubEngine: the PHub train step on one device (``repro/core/engine.py``).
+
+The step for W workers stacked on one card (``core/comm.py``):
+
+1. each worker runs forward and backward on its slice B/W of the batch
+   (``torch.autograd.grad`` on the shared parameters) and its gradient is
+   flattened into row w of a ``(W, padded)`` buffer per dtype group — one
+   worker's autograd gradients are freed before the next worker runs;
+2. the exchange (``core/exchange.py``) runs the fused aggregate + Nesterov
+   update over that buffer: W == 1 through ``agg_opt_chunks``, W > 1
+   through ``multi_agg_opt_chunks``, which folds the reduce-scatter's sum
+   and the /W into the update;
+3. the new parameters are unflattened back into the module in place (the
+   all-gather is a no-op on one card).
+
+The reported loss is the mean over the workers, as the reference's
+``pmean``.  Tree residency and one window only; the reference's flat
+residency, windows, wire formats, sanity gate and elastic membership are
+queued in ROADMAP.md.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig, TrainConfig
+from ..models import DecoderLM, chunked_cross_entropy, param_specs
+from ..optim.protocol import make_sharded_optimizer
+from . import chunking
+from .comm import StackedComm
+from .exchange import check_strategy, exchange_group
+
+
+class PHubEngine:
+    def __init__(self, cfg: ModelConfig, tc: TrainConfig, comm: StackedComm,
+                 *, device="cuda"):
+        check_strategy(tc.strategy)
+        self.cfg, self.tc, self.comm = cfg, tc, comm
+        self.device = torch.device(device)
+        self.sopt = make_sharded_optimizer(tc)
+        self.chunk_plan = chunking.build_plan(
+            param_specs(cfg), chunk_bytes=tc.chunk_size_bytes,
+            n_shards=comm.n_shards(tc.strategy))
+
+    # ------------------------------------------------------------------ state
+
+    def init_opt(self) -> dict:
+        """Zero optimizer slots: {dtype_name: {slot_name: (S, state_len)}},
+        row s the state of the chunks shard s owns."""
+        st = self.tc.strategy
+        S = self.comm.n_shards(st)
+        return {g.key: {s.name: torch.zeros(
+                            (S, self.comm.state_len(st, g.padded)),
+                            dtype=s.resolve_dtype(g.dtype), device=self.device)
+                        for s in self.sopt.slots}
+                for g in self.chunk_plan.groups}
+
+    def init_state(self, seed: int | None = None):
+        """(model, opt): fresh weights drawn from ``seed`` (default
+        ``tc.seed``) and zero optimizer slots."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.tc.seed if seed is None else seed)
+        model = DecoderLM(self.cfg, device=self.device, generator=gen)
+        return model, self.init_opt()
+
+    # ------------------------------------------------------------ train step
+
+    def build_loss_fn(self):
+        """Per-worker loss: forward + chunked cross-entropy."""
+        tc = self.tc
+
+        def loss_fn(model: DecoderLM, tokens, labels):
+            x = model(tokens, remat=tc.remat)
+            return chunked_cross_entropy(x, model.lm_head_weight(), labels,
+                                         chunk=tc.loss_chunk)
+        return loss_fn
+
+    def update_fn(self, group):
+        """The fused agg+opt for one dtype group, through the rule's CUDA
+        kernel."""
+        return self.sopt.kernel_update(group.chunk_elems,
+                                       self.sopt.coefs(self.tc))
+
+    def exchange_stage(self, gbuf: dict, model: DecoderLM, opt: dict):
+        """Flatten the parameters into the chunk domain, run the exchange
+        per dtype group on the stacked gradients ``gbuf`` ({dtype_name:
+        (W, padded)}), and write the new parameters back into ``model``.
+        Returns the new optimizer state."""
+        cp = self.chunk_plan
+        leaves = dict(chunking.leaf_paths(model.param_tree()))
+        names = self.sopt.slot_names
+        new_opt = {}
+        with torch.no_grad():
+            flats_p = chunking.flatten_leaves(cp, leaves)
+            for g in cp.groups:
+                slots = tuple(opt[g.key][n].view(-1) for n in names)
+                p2, s2 = exchange_group(self.tc.strategy, self.comm,
+                                        gbuf[g.key], flats_p.pop(g.key),
+                                        slots, self.update_fn(g))
+                new_opt[g.key] = {n: v.view(opt[g.key][n].shape)
+                                  for n, v in zip(names, s2)}
+                for path, new in chunking.group_leaves(g, p2).items():
+                    leaves[path].copy_(new)
+        return new_opt
+
+    def make_train_step(self):
+        """``step(model, opt, batch) -> (model, opt, metrics)``.  The model
+        is updated in place (saves a second copy of the weights); ``opt``
+        is replaced.  The step owns the (W, padded) gradient buffers."""
+        W = self.comm.n_workers
+        cp = self.chunk_plan
+        loss_fn = self.build_loss_fn()
+        gbuf = {g.key: torch.zeros((W, g.padded), dtype=g.dtype,
+                                   device=self.device) for g in cp.groups}
+
+        def step(model: DecoderLM, opt: dict, batch: dict):
+            tokens, labels = batch["tokens"], batch["labels"]
+            B = tokens.shape[0]
+            if B % W:
+                raise ValueError(f"global batch {B} does not split over "
+                                 f"{W} workers")
+            bw = B // W
+            paths, leaves = zip(*chunking.leaf_paths(model.param_tree()))
+            losses = []
+            for w in range(W):
+                sl = slice(w * bw, (w + 1) * bw)
+                loss = loss_fn(model, tokens[sl], labels[sl])
+                grads = torch.autograd.grad(loss, leaves)
+                chunking.flatten_leaves(cp, dict(zip(paths, grads)),
+                                        out={k: v[w] for k, v in gbuf.items()})
+                del grads
+                losses.append(loss.detach())
+            new_opt = self.exchange_stage(gbuf, model, opt)
+            return model, new_opt, {"loss": torch.stack(losses).mean()}
+
+        return step

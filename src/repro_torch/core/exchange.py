@@ -1,0 +1,55 @@
+"""Exchange strategies over a Comm (``repro/core/exchange.py``).
+
+The port has sharded_ps on the stacked-worker Comm: PHub's chunk-balanced
+reduce-scatter, the fused agg+opt on the chunks each shard owns, and the
+all-gather of the updated chunks.  On one card the W workers' gradients
+are the rows of one ``(W, padded)`` tensor and every shard lives there
+too, so the three steps collapse into one pass over the whole domain.
+The other strategies are ROADMAP.md queue A item 7.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .comm import StackedComm
+
+STRATEGIES = ("allreduce", "sharded_ps", "centralized_ps", "hierarchical",
+              "fsdp_stream")
+
+# update_fn(p, g, slots) -> (p', slots'): the protocol's fused rule, taking
+# g pre-aggregated or stacked (W, n) (optim/protocol.py)
+UpdateFn = Callable[..., tuple[torch.Tensor, tuple]]
+
+
+def check_strategy(strategy: str) -> None:
+    """Raise unless ``strategy`` is one the port runs."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown exchange strategy {strategy!r}; "
+                         f"expected one of {STRATEGIES}")
+    if strategy != "sharded_ps":
+        raise NotImplementedError(
+            f"strategy {strategy!r} is not ported yet (ROADMAP.md queue A "
+            f"item 7)")
+
+
+def exchange_group(strategy: str, comm: StackedComm, g: torch.Tensor,
+                   p: torch.Tensor, slots: tuple, update_fn: UpdateFn
+                   ) -> tuple[torch.Tensor, tuple]:
+    """One dtype group's exchange.  g: (W, padded) stacked worker
+    gradients; p: (padded,); ``slots``: the optimizer's (padded,) state
+    buffers, shard s's state at [s*L, (s+1)*L).  Returns (p', slots')."""
+    check_strategy(strategy)
+    W = comm.n_workers
+    if tuple(g.shape) != (W, p.numel()):
+        raise ValueError(f"g {tuple(g.shape)} is not (n_workers={W}, "
+                         f"{p.numel()})")
+    if W == 1:
+        # the reduce-scatter over one worker is the identity, and /1 is
+        # exact: the reference's path into agg_opt_chunks
+        return update_fn(p, g[0], slots)
+    # shard s owns the contiguous run [s*L, (s+1)*L) of every row, so one
+    # tall-aggregation pass over the whole domain equals the S per-shard
+    # (sum over workers, /W, update) passes of the reference
+    return update_fn(p, g, slots)

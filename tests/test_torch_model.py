@@ -1,0 +1,115 @@
+"""The port's dense model, loss and data against the JAX package's, on
+reduced llama3.2-1b (d_model=128, 2 layers) with the reference's own
+weights carried over by ``params_from_numpy``.
+
+Tolerances: with float32 activations the two differ only in the order
+f32 products and sums are taken (XLA:CPU vs PyTorch's CPU kernels), so the
+loss agrees to rtol 1e-5 and every gradient leaf to 1e-4 of its largest
+entry.  With the default bf16 activations a residual value that lands near
+a bf16 rounding boundary can round to the neighbouring bf16 in one
+framework and not the other (a 2^-8 relative step), so the bound is rtol
+1e-3 on the loss and 2e-2 of each leaf's largest entry on the gradients.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS, reduced
+from repro.data import SyntheticTokens as JaxTokens
+from repro.models import (blockwise_attention as jax_attention,
+                          chunked_cross_entropy as jax_ce, forward,
+                          init as jax_init, lm_head_weight)
+from repro_torch.configs import get_arch, reduced as port_reduced
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.chunking import leaf_paths
+from repro_torch.data import SyntheticTokens
+from repro_torch.models import blockwise_attention, chunked_cross_entropy
+
+B, T, CHUNK = 2, 40, 16          # 3 loss chunks, the last one padded
+
+TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-3, 2e-2)}
+
+
+def _cfgs(dtype):
+    jcfg = dataclasses.replace(reduced(ARCHS["llama3.2-1b"], d_model=128),
+                               dtype=dtype)
+    pcfg = dataclasses.replace(port_reduced(get_arch("llama3.2-1b"),
+                                            d_model=128), dtype=dtype)
+    return jcfg, pcfg
+
+
+def test_synthetic_batches_bitwise():
+    jcfg, pcfg = _cfgs("bfloat16")
+    for step in (0, 1, 7):
+        a = JaxTokens(jcfg, 4, 64, seed=3).batch_at(step)
+        b = SyntheticTokens(pcfg, 4, 64, seed=3).batch_at(step)
+        for k in ("tokens", "labels"):
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
+        t = SyntheticTokens(pcfg, 4, 64, seed=3).torch_batch(step, "cpu")
+        np.testing.assert_array_equal(t["tokens"].numpy(), a["tokens"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_loss_and_grads_match_reference(dtype):
+    jcfg, pcfg = _cfgs(dtype)
+    params = jax_init(jcfg, jax.random.PRNGKey(0))
+    batch = JaxTokens(jcfg, B, T, seed=1).batch_at(0)
+
+    def jloss(p):
+        x = forward(jcfg, p, jnp.asarray(batch["tokens"]), remat=False)["x"]
+        return jax_ce(x, lm_head_weight(jcfg, p), jnp.asarray(batch["labels"]),
+                      chunk=CHUNK)
+    ref_loss, ref_grads = jax.jit(jax.value_and_grad(jloss))(params)
+
+    model = params_from_numpy(pcfg, jax.device_get(params), device="cpu")
+    tb = SyntheticTokens(pcfg, B, T, seed=1).torch_batch(0, "cpu")
+    loss = chunked_cross_entropy(model(tb["tokens"], remat=True),
+                                 model.lm_head_weight(), tb["labels"],
+                                 chunk=CHUNK)
+    paths, leaves = zip(*leaf_paths(model.param_tree()))
+    grads = torch.autograd.grad(loss, leaves)
+
+    rtol, gtol = TOL[dtype]
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=rtol)
+    ref = dict(leaf_paths(jax.device_get(ref_grads)))
+    assert set(paths) == set(ref)
+    for path, g in zip(paths, grads):
+        r = np.asarray(ref[path])
+        err = np.abs(g.numpy() - r).max()
+        assert err <= gtol * np.abs(r).max(), (path, err, np.abs(r).max())
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_blockwise_attention_matches_reference(window):
+    """Several KV blocks, a padded last block, empty (-1) slots, GQA."""
+    rng = np.random.default_rng(window)
+    Bq, Tq, nh, kv, hd = 2, 40, 4, 2, 16
+    q = rng.standard_normal((Bq, Tq, nh, hd)).astype(np.float32)
+    k = rng.standard_normal((Bq, Tq, kv, hd)).astype(np.float32)
+    v = rng.standard_normal((Bq, Tq, kv, hd)).astype(np.float32)
+    k_pos = np.tile(np.arange(Tq, dtype=np.int32), (Bq, 1))
+    k_pos[1, :5] = -1
+    ref = jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        q_pos=jnp.arange(Tq, dtype=jnp.int32),
+                        k_pos=jnp.asarray(k_pos), window=window, block_kv=16)
+    got = blockwise_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), q_pos=torch.arange(Tq),
+                              k_pos=torch.from_numpy(k_pos).long(),
+                              window=window, block_kv=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_unported_families_raise():
+    from repro_torch.models import DecoderLM
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_arch("rwkv6-3b")
+    moe = dataclasses.replace(get_arch("llama3.2-1b"), family="moe",
+                              n_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DecoderLM(moe, device="cpu")
