@@ -6,19 +6,32 @@
 1. Prints the card's name and power limit and builds the CUDA kernels from
    the sources in this checkout (one nvcc per source, all started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (full llama3.2-1b, 32 KB chunks, 4 workers: p/m
-   (150860, 8192) f32, g (4, 150860, 8192)), bitwise, and times kernel,
-   plain version, HBM bound and the torch.optim.SGD(nesterov, fused) step
-   that computes the same update (a yardstick the port never calls).
-   Small bf16 and W=3 cases are held bitwise too.
+   main paths' shapes (full llama3.2-1b, 32 KB chunks: p (150860, 8192) f32,
+   g (4, 150860, 8192) for 4 workers; (150857, 8192) for 1), bitwise, and
+   times kernel, plain version, HBM bound and the torch.optim step closest
+   to the same update (a yardstick the port never calls):
+   - Nesterov (agg_opt_chunks W=1, multi_agg_opt_chunks W=4) against
+     torch.optim.SGD(nesterov, fused);
+   - sgd_opt_chunks and adam_opt_chunks, W=4 and W=1, against
+     torch.optim.SGD(fused) and torch.optim.Adam(fused).  Adam updates its
+     slots in place, so its inputs are drawn span by span from seeds and
+     drawn again for the comparison, which runs span by span.
+   Small bf16, W=3 and ragged cases are held bitwise too.
 3. Holds one 4-worker step of a reduced llama3.2-1b on the card against
-   the same step on the CPU (plain versions), from the same weights.
-4. Main path: PHubEngine + fit, sharded_ps, full-width full-depth
-   llama3.2-1b, 4 stacked workers, global batch 8 x 512 tokens, 3 steps,
-   Nesterov at the TrainConfig defaults.  Checks finite losses, changed
-   parameters, and that every step's update launched multi_agg_opt_chunks.
-5. The same with 1 worker, 1 step, through agg_opt_chunks.
-6. Prints the kernels line, then the device line last.
+   the same step on the CPU (plain versions), from the same weights, under
+   Nesterov and under Adam (eps 1e-3, where the step is Lipschitz in the
+   gradient: |dp| <= lr * |dg| / eps).
+4. Main paths: PHubEngine + fit, sharded_ps, full-width full-depth
+   llama3.2-1b, global batch 8 x 512 tokens:
+   - Nesterov at the TrainConfig defaults, 4 stacked workers, 3 steps
+     (multi_agg_opt_chunks), and 1 worker, 1 step (agg_opt_chunks);
+   - Adam at lr 3e-4, 4 workers, 3 steps, and 1 worker, 1 step
+     (adam_opt_chunks);
+   - SGD at lr 1e-2, 4 workers, 1 step, and 1 worker, 1 step
+     (sgd_opt_chunks).
+   Each checks finite losses, changed parameters, and that every step's
+   update launched its kernel while every other launch count stayed 0.
+5. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 card and refuses to run without one.
@@ -41,9 +54,14 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 CARD_SOURCE = "src/repro_torch/kernels/agg_opt/csrc/agg_opt.cu"
 REPLACES = {"agg_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:38",
-            "multi_agg_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:187"}
+            "multi_agg_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:187",
+            "sgd_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:60",
+            "adam_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:100"}
 
 ARCH, WORKERS, BATCH, SEQ, STEPS = "llama3.2-1b", 4, 8, 512, 3
+ADAM_LR, SGD_LR = 3e-4, 1e-2
+ADAM_REF_EPS = 1e-3              # card-vs-CPU Adam step (docstring, 3.)
+SPAN = 1 << 26                   # elements per span of the Adam/SGD checks
 
 
 def log(msg: str) -> None:
@@ -97,6 +115,14 @@ def compare(torch, got, want) -> tuple[float, int]:
     return err, ulp
 
 
+def bound(n: int, n_bytes_per: int, n_ops_per: int) -> tuple[float, str]:
+    """(least ms, what bounds it) for n elements."""
+    t_bytes = n * n_bytes_per / HBM_BYTES_PER_S
+    t_ops = n * n_ops_per / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def kernel_phase(torch, sizes: dict, lr: float, mu: float) -> dict:
     """Kernels vs plain versions at the main path's shapes ({kernel name:
     padded domain length}); timings."""
@@ -146,13 +172,11 @@ def kernel_phase(torch, sizes: dict, lr: float, mu: float) -> dict:
         del lp, sgd
         gc.collect()
         torch.cuda.empty_cache()
-        n_bytes = (W + 4) * pp.numel() * pp.element_size()
-        n_ops = (W - 1 + 7) * pp.numel()
-        bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS_PER_S) * 1e3
-        bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S
-                    >= n_ops / F32_FLOPS_PER_S else "operations")
+        n_bytes = (W + 4) * pp.element_size()
+        bound_ms, bound_by = bound(pp.numel(), n_bytes, W - 1 + 7)
         log(f"{name}: kernel {kernel_ms:.3f} ms, bound {bound_ms:.3f} ms "
-            f"({bound_by}, {n_bytes / 1e9:.2f} GB), plain {plain_ms:.3f} ms, "
+            f"({bound_by}, {n_bytes * pp.numel() / 1e9:.2f} GB), plain "
+            f"{plain_ms:.3f} ms, "
             f"library {library_ms:.3f} ms (SGD nesterov fused"
             f"{' after g.mean(0)' if W > 1 else ''})")
         out[name] = {"name": name, "route": "cuda", "source": CARD_SOURCE,
@@ -184,12 +208,203 @@ def kernel_phase(torch, sizes: dict, lr: float, mu: float) -> dict:
     return out
 
 
+def draw(torch, kind: str, n: int, seed: int):
+    """``n`` f32 values of one kernel-phase input, from their own seed, so
+    a span drawn into a full vector can be drawn again to compare it.
+    Gradients have exact zeros (every 17th entry) and k1/k2 dead runs
+    (every 11th), so Adam's alive gate and its k1' == 0 mask both fire."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.empty(n, device="cuda")
+    if kind == "p":
+        x.normal_(0, 0.02, generator=gen)
+    elif kind in ("g", "m"):
+        x.normal_(0, 1e-3, generator=gen)
+    elif kind == "v":
+        x.uniform_(0, 1e-6, generator=gen)
+    else:                                       # k1, k2
+        x.uniform_(0, 1, generator=gen)
+    if kind in ("g", "k1", "k2"):
+        x[::17 if kind == "g" else 11] = 0
+    return x
+
+
+KINDS = ("p", "g", "m", "v", "k1", "k2")
+
+
+def span_seed(kind: str, w: int, i: int) -> int:
+    return 1_000_000 + 1000 * i + 10 * KINDS.index(kind) + w
+
+
+def spans(n: int):
+    return [(i, lo, min(lo + SPAN, n)) for i, lo in enumerate(range(0, n,
+                                                                    SPAN))]
+
+
+def fill(torch, t, kind: str, w: int = 0) -> None:
+    for i, lo, hi in spans(t.numel()):
+        t[lo:hi].copy_(draw(torch, kind, hi - lo, span_seed(kind, w, i)))
+
+
+def rule_kernel_phase(torch, sizes: dict) -> dict:
+    """sgd_opt_chunks and adam_opt_chunks against their plain versions at
+    the main paths' shapes (W=4 over ``sizes[4]`` elements, W=1 over
+    ``sizes[1]``), span by span; timings.  Returns the kernels-line
+    entries, with the W=4 numbers at the top level and the W=1 ones under
+    "w1"."""
+    from repro_torch.kernels.agg_opt import (adam_opt_ref, fused_adam_opt,
+                                             fused_sgd_opt, sgd_opt_ref)
+    n4 = sizes[WORKERS]
+    check(sizes[1] <= n4, "the stacked domain is the largest")
+    adam_kw = dict(lr=ADAM_LR, b1=0.9, b2=0.999, eps=1e-8)
+    p = torch.empty(n4, device="cuda")
+    g = torch.empty(WORKERS, n4, device="cuda")
+    slots = [torch.empty(n4, device="cuda") for _ in range(4)]
+    fill(torch, p, "p")
+    for w in range(WORKERS):
+        fill(torch, g[w], "g", w)
+
+    def fill_slots():
+        for t, kind in zip(slots, KINDS[2:]):
+            fill(torch, t, kind)
+
+    def drawn(i, lo, hi, W):
+        """The inputs of span i, drawn again: p, g ((W, len) or (len,)),
+        m, v, k1, k2."""
+        gs = torch.stack([draw(torch, "g", hi - lo, span_seed("g", w, i))
+                          for w in range(W)])
+        return (draw(torch, "p", hi - lo, span_seed("p", 0, i)),
+                gs if W > 1 else gs[0],
+                *(draw(torch, k, hi - lo, span_seed(k, 0, i))
+                  for k in KINDS[2:]))
+
+    def held(name, W, n, run, plain, n_bytes, n_ops, state):
+        """Run the kernel once over n elements, hold every output against
+        ``plain`` on the span's inputs drawn again, then time both (the
+        plain version span by span over the current ``state``)."""
+        got = run()
+        torch.cuda.synchronize()
+        err, ulp = 0.0, 0
+        for i, lo, hi in spans(n):
+            e, u = compare(torch, [t[lo:hi] for t in got],
+                           plain(*drawn(i, lo, hi, W)))
+            err, ulp = max(err, e), max(ulp, u)
+        del got
+        log(f"{name} W={W}: p ({n // 8192}, 8192) f32, g "
+            f"{(W, n // 8192, 8192) if W > 1 else (n // 8192, 8192)}: "
+            f"max_abs {err:.3e} max_ulp {ulp}")
+        check(ulp == 0, f"{name} W={W} differs from its plain version "
+                        f"(max_ulp {ulp}); the kernel claims bitwise")
+        kernel_ms = median_ms(torch, run, reps=10)
+
+        def plain_spans():
+            for _, lo, hi in spans(n):
+                plain(*(t[..., lo:hi] for t in state))
+        plain_ms = median_ms(torch, plain_spans, reps=3, warmup=1)
+        bound_ms, bound_by = bound(n, n_bytes, n_ops)
+        return {"max_abs_err": err, "max_ulp": ulp, "ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+
+    out = {name: {"name": name, "route": "cuda", "source": CARD_SOURCE,
+                  "replaces": REPLACES[name], "launches": 0}
+           for name in ("adam_opt_chunks", "sgd_opt_chunks")}
+    for W in (WORKERS, 1):
+        n = sizes[W]
+        pp, gg = p[:n], (g[:, :n] if W > 1 else g[0, :n])
+        check(gg.is_contiguous(), "the gradients are whole rows")
+        ss = [t[:n] for t in slots]
+        fill_slots()          # Adam updates them in place: draw them afresh
+        nums = {
+            "adam_opt_chunks": held(
+                "adam_opt_chunks", W, n,
+                lambda: (fused_adam_opt(pp, gg, *ss, **adam_kw)[0], *ss),
+                lambda *a: adam_opt_ref(*a, **adam_kw),
+                4 * (W + 10), W + 22, (pp, gg, *ss)),
+            "sgd_opt_chunks": held(
+                "sgd_opt_chunks", W, n,
+                lambda: (fused_sgd_opt(pp, gg, lr=SGD_LR),),
+                lambda p_, g_, *_: (sgd_opt_ref(p_, g_, lr=SGD_LR),),
+                4 * (W + 2), W + 2, (pp, gg))}
+        for name, e in nums.items():
+            if W > 1:
+                out[name].update(e)
+            else:
+                out[name]["w1"] = e
+    del slots, ss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the closest torch.optim steps: textbook Adam (scalar bias correction,
+    # eps outside the root) moves 7 arrays, not 11; SGD without momentum
+    for W in (WORKERS, 1):
+        n = sizes[W]
+        gg = g[:, :n] if W > 1 else g[0, :n]
+        for name, make in (
+                ("adam_opt_chunks", lambda ps: torch.optim.Adam(
+                    ps, lr=ADAM_LR, fused=True)),
+                ("sgd_opt_chunks", lambda ps: torch.optim.SGD(
+                    ps, lr=SGD_LR, fused=True))):
+            lp = torch.nn.Parameter(p[:n].clone())
+            opt = make([lp])
+
+            def library_step():
+                lp.grad = gg.mean(0) if W > 1 else gg
+                opt.step()
+            library_ms = median_ms(torch, library_step, reps=5)
+            del lp, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+            nums = out[name] if W > 1 else out[name]["w1"]
+            nums["library_ms"] = library_ms
+    for name, e in out.items():
+        for W, nums in ((WORKERS, e), (1, e["w1"])):
+            log(f"{name} W={W}: kernel {nums['ms']:.3f} ms, bound "
+                f"{nums['bound_ms']:.3f} ms ({nums['bound_by']}), plain "
+                f"{nums['plain_ms']:.3f} ms, library {nums['library_ms']:.3f}"
+                f" ms (torch.optim.{'Adam' if 'adam' in name else 'SGD'} "
+                f"fused{' after g.mean(0)' if W > 1 else ''})")
+    del p, g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # small bitwise cases: bf16, W=3 (division, not 1/W), ragged tails
+    # (the wrapper pads copies of the slots and copies them back)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for dtype, W, n in ((torch.bfloat16, 1, 8192 * 37 + 100),
+                        (torch.bfloat16, 4, 8192 * 37),
+                        (torch.float32, 3, 8192 * 37 + 100)):
+        pp = torch.randn(n, device="cuda", generator=gen).to(dtype)
+        gs = (torch.randn(W, n, device="cuda", generator=gen) * 1e-2)
+        gs[:, ::13] = 0
+        gs = gs.to(dtype)
+        gg = gs if W > 1 else gs[0]
+        m = (torch.randn(n, device="cuda", generator=gen) * 1e-2).to(dtype)
+        v = (torch.rand(n, device="cuda", generator=gen) * 1e-4).to(dtype)
+        k1, k2 = (torch.rand(n, device="cuda", generator=gen)
+                  for _ in range(2))
+        k1[::7] = 0
+        k2[::7] = 0
+        want = adam_opt_ref(pp, gg, m, v, k1, k2, **adam_kw)
+        got = fused_adam_opt(pp, gg, m, v, k1, k2, **adam_kw)
+        check(all(a is b for a, b in zip(got[1:], (m, v, k1, k2))),
+              "fused_adam_opt returns its slots, updated in place")
+        err, ulp = compare(torch, got, want)
+        e2, u2 = compare(torch, (fused_sgd_opt(pp, gg, lr=SGD_LR),),
+                         (sgd_opt_ref(pp, gg, lr=SGD_LR),))
+        log(f"small case {dtype} W={W} n={n}: adam max_abs {err:.3e} "
+            f"max_ulp {ulp}; sgd max_abs {e2:.3e} max_ulp {u2}")
+        check(ulp == 0 and u2 == 0, f"small case {dtype} W={W} not bitwise")
+    return out
+
+
 def tree_to(tree: dict, device) -> dict:
     return {k: tree_to(v, device) if isinstance(v, dict)
             else v.detach().clone().to(device) for k, v in tree.items()}
 
 
-def reference_phase(torch) -> None:
+def reference_phase(torch, optimizer: str) -> None:
     """One 4-worker step of a reduced model: card (kernel) vs CPU (plain
     versions), same weights and batch."""
     from repro_torch.configs import TrainConfig, get_arch, reduced
@@ -199,7 +414,11 @@ def reference_phase(torch) -> None:
     from repro_torch.models import DecoderLM
 
     cfg = reduced(get_arch(ARCH))
-    tc = TrainConfig(loss_chunk=64)
+    if optimizer == "adam":
+        tc = TrainConfig(loss_chunk=64, optimizer="adam", lr=ADAM_LR,
+                         adam_eps=ADAM_REF_EPS)
+    else:
+        tc = TrainConfig(loss_chunk=64)
     eng_cpu = PHubEngine(cfg, tc, StackedComm(WORKERS), device="cpu")
     eng_gpu = PHubEngine(cfg, tc, StackedComm(WORKERS), device="cuda")
     model_c, opt_c = eng_cpu.init_state()
@@ -215,21 +434,37 @@ def reference_phase(torch) -> None:
     dparam = max(float((a.detach().cpu() - b.detach()).abs().max())
                  for (_, a), (_, b) in zip(leaf_paths(model_g.param_tree()),
                                            leaf_paths(model_c.param_tree())))
-    dmom = float((opt_g["float32"]["m"].cpu() - opt_c["float32"]["m"])
-                 .abs().max())
+    dslot = {n: float((t.cpu().float() - opt_c["float32"][n].float())
+                      .abs().max()) for n, t in opt_g["float32"].items()}
     log(f"reduced {ARCH} (d_model={cfg.d_model}, {cfg.n_layers} layers), "
-        f"{WORKERS} workers, 1 step, card vs CPU: loss {float(met_g['loss']):.6f}"
-        f" |dloss| {dloss:.3e}, max |dparam| {dparam:.3e}, "
-        f"max |dmomentum| {dmom:.3e}")
+        f"{WORKERS} workers, 1 {optimizer} step, card vs CPU: loss "
+        f"{float(met_g['loss']):.6f} |dloss| {dloss:.3e}, max |dparam| "
+        f"{dparam:.3e}, "
+        + ", ".join(f"max |d{n}| {d:.3e}" for n, d in dslot.items()))
     # f32 products summed in another order on each device, bf16 activations
     check(dloss <= 1e-3, f"card loss differs from CPU loss by {dloss}")
-    check(dparam <= 1e-4 and dmom <= 1e-2,
-          f"card step differs from CPU step: params {dparam}, momentum {dmom}")
+    if optimizer == "nesterov":
+        dmom = dslot["m"]
+        check(dparam <= 1e-4 and dmom <= 1e-2,
+              f"card step differs from CPU step: params {dparam}, "
+              f"momentum {dmom}")
+        return
+    # from zero slots m' = (1-b1) g, and the first Adam step is
+    # lr * g / (|g| + eps): |dp| <= lr * |dg| / eps, |dg| = |dm'| / (1-b1)
+    dg = dslot["m"] / (1 - tc.adam_b1)
+    bound = tc.lr * dg / tc.adam_eps * 1.01 + 1e-6
+    k1_c, k1_g = opt_c["float32"]["k1"], opt_g["float32"]["k1"].cpu()
+    log(f"  Adam bound: |dg| {dg:.3e} -> |dparam| <= {bound:.3e}; k1 "
+        f"differs at {int((k1_c != k1_g).sum())} of {k1_c.numel()} positions")
+    check(dg <= 1e-2, f"card gradients differ from CPU gradients by {dg}")
+    check(dparam <= bound, f"card Adam step differs from CPU step: params "
+                           f"{dparam} > {bound}")
 
 
-def main_path(torch, workers: int, steps: int, kernel: str) -> int:
-    """PHubEngine + fit on the full model; returns how often ``kernel``
-    launched in that run."""
+def main_path(torch, workers: int, steps: int, kernel: str,
+              optimizer: str = "nesterov") -> int:
+    """PHubEngine + fit on the full model under ``optimizer``; returns how
+    often ``kernel`` launched in that run (every other count must be 0)."""
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.core import PHubEngine, StackedComm
     from repro_torch.core.chunking import leaf_paths
@@ -238,14 +473,22 @@ def main_path(torch, workers: int, steps: int, kernel: str) -> int:
     from repro_torch.training import TrainState, fit
 
     cfg = get_arch(ARCH)
-    tc = TrainConfig(loss_chunk=min(1024, SEQ))
+    lr = {"adam": ADAM_LR, "sgd": SGD_LR}.get(optimizer)
+    tc = TrainConfig(loss_chunk=min(1024, SEQ), optimizer=optimizer,
+                     **({"lr": lr} if lr else {}))
     engine = PHubEngine(cfg, tc, StackedComm(workers), device="cuda")
     model, opt = engine.init_state()
+    state = TrainState(params=model, opt=opt)
+    del opt          # fit replaces state.opt; a second reference would
+    #                  keep the first step's slots alive through the run
     groups = engine.chunk_plan.groups
+    rule = {"nesterov": f"momentum {tc.momentum}",
+            "adam": f"b1 {tc.adam_b1}, b2 {tc.adam_b2}, eps {tc.adam_eps}",
+            "sgd": "no momentum"}[optimizer]
     log(f"main path: {ARCH} {cfg.n_params():,} params, {cfg.n_layers} "
         f"layers, d_model {cfg.d_model}; sharded_ps, {workers} stacked "
-        f"worker(s), batch {BATCH} x {SEQ}, {steps} step(s), lr {tc.lr}, "
-        f"momentum {tc.momentum}; groups "
+        f"worker(s), batch {BATCH} x {SEQ}, {steps} step(s), {optimizer} at "
+        f"lr {tc.lr}, {rule}; groups "
         + ", ".join(f"{g.key}: {g.total:,} -> {g.padded:,} "
                     f"({g.n_chunks} chunks of {g.chunk_elems})"
                     for g in groups))
@@ -266,8 +509,8 @@ def main_path(torch, workers: int, steps: int, kernel: str) -> int:
         torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
-    state = fit(engine, TrainState(params=model, opt=opt), data,
-                steps=steps, log_every=0, hooks=[on_step])
+    state = fit(engine, state, data, steps=steps, log_every=0,
+                hooks=[on_step])
     launches = dict(LAUNCHES)
     check(all(math.isfinite(x) for x in state.losses),
           f"non-finite loss {state.losses}")
@@ -278,11 +521,12 @@ def main_path(torch, workers: int, steps: int, kernel: str) -> int:
     want = steps * len(groups)
     check(launches[kernel] == want,
           f"{kernel} launched {launches[kernel]} times, want {want}")
-    other = ({"agg_opt_chunks", "multi_agg_opt_chunks"} - {kernel}).pop()
-    check(launches[other] == 0, f"{other} launched {launches[other]} times")
-    log(f"{workers}-worker path: every update through {kernel} "
+    for other, count in launches.items():
+        check(other == kernel or count == 0,
+              f"{other} launched {count} times on the {kernel} path")
+    log(f"{workers}-worker {optimizer} path: every update through {kernel} "
         f"({launches[kernel]} launches), parameters changed, losses finite")
-    del model, opt, state, engine
+    del model, state, engine
     gc.collect()
     torch.cuda.empty_cache()
     return launches[kernel]
@@ -313,17 +557,27 @@ def main() -> None:
                 log(f"{name} ptxas: {line.strip()}")
 
     tc = TrainConfig()
-    sizes = {}
-    for name, W in (("agg_opt_chunks", 1), ("multi_agg_opt_chunks", WORKERS)):
+    padded = {}
+    for W in (1, WORKERS):
         (group,) = PHubEngine(get_arch(ARCH), tc, StackedComm(W),
                               device="cuda").chunk_plan.groups
-        sizes[name] = group.padded
-    kernels = kernel_phase(torch, sizes, tc.lr, tc.momentum)
-    reference_phase(torch)
+        padded[W] = group.padded
+    kernels = kernel_phase(torch, {"agg_opt_chunks": padded[1],
+                                   "multi_agg_opt_chunks": padded[WORKERS]},
+                           tc.lr, tc.momentum)
+    kernels.update(rule_kernel_phase(torch, padded))
+    reference_phase(torch, "nesterov")
+    reference_phase(torch, "adam")
     kernels["multi_agg_opt_chunks"]["launches"] = main_path(
         torch, WORKERS, STEPS, "multi_agg_opt_chunks")
     kernels["agg_opt_chunks"]["launches"] = main_path(
         torch, 1, 1, "agg_opt_chunks")
+    for name, optimizer, w4_steps in (("adam_opt_chunks", "adam", STEPS),
+                                      ("sgd_opt_chunks", "sgd", 1)):
+        w4 = main_path(torch, WORKERS, w4_steps, name, optimizer)
+        w1 = main_path(torch, 1, 1, name, optimizer)
+        kernels[name]["launches"] = w4 + w1
+        kernels[name]["launches_by_path"] = {f"W={WORKERS}": w4, "W=1": w1}
     for k in kernels.values():
         k["verdict"] = "bitwise" if k["max_ulp"] == 0 else "differs"
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -2,9 +2,11 @@
 """Where the time of one PHub train step of the PyTorch port goes on the card.
 
     python3 scripts/torch_step_profile.py [--workers 4] [--batch 8] [--seq 512]
+        [--optimizer nesterov|adam|sgd] [--lr LR]
 
 Runs the port's main path (full llama3.2-1b, sharded_ps, W workers stacked
-on one card, Nesterov at the TrainConfig defaults) for one warm-up step, one
+on one card, Nesterov at the TrainConfig defaults unless another rule is
+asked for) for one warm-up step, one
 timed step, and one step under torch.profiler.  Prints the timed step's
 wall time, the profiled step's device time by kernel class and by kernel
 (top 15), and the device busy share: kernel time over the timed (not the
@@ -24,7 +26,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
 CLASSES = (                      # first match wins
-    ("agg_opt update kernel", ("agg_opt_kernel",)),
+    ("update kernel", ("agg_opt_kernel", "sgd_opt_kernel",
+                       "adam_opt_kernel")),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "sm90_")),
     ("reduction", ("reduce",)),
     ("index / gather / scatter", ("index", "gather", "scatter", "embedding")),
@@ -46,6 +49,9 @@ def main(argv=None) -> None:
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--optimizer", default="nesterov")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="default: the TrainConfig's")
     args = ap.parse_args(argv)
 
     import torch
@@ -62,7 +68,9 @@ def main(argv=None) -> None:
                          text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
     cfg = get_arch("llama3.2-1b")
-    tc = TrainConfig(loss_chunk=min(1024, args.seq))
+    tc = TrainConfig(loss_chunk=min(1024, args.seq),
+                     optimizer=args.optimizer,
+                     **({} if args.lr is None else {"lr": args.lr}))
     engine = PHubEngine(cfg, tc, StackedComm(args.workers), device="cuda")
     model, opt = engine.init_state()
     step = engine.make_train_step()
@@ -96,10 +104,12 @@ def main(argv=None) -> None:
     by_class: dict[str, float] = defaultdict(float)
     for name, (ms, _) in by_name.items():
         by_class[classify(name)] += ms
-    print(f"step: {args.workers} workers, batch {args.batch} x {args.seq}, "
-          f"wall {step_ms:.1f} ms; profiled step: loss {loss:.6f}, wall "
-          f"{prof_ms:.1f} ms, device kernel time {dev_ms:.1f} ms; busy share "
-          f"{dev_ms / step_ms:.3f} of the unprofiled step "
+    print(f"step: {args.optimizer} at lr {tc.lr}, {args.workers} workers, "
+          f"batch {args.batch} x {args.seq}, wall {step_ms:.1f} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; profiled "
+          f"step: loss {loss:.6f}, wall {prof_ms:.1f} ms, device kernel time "
+          f"{dev_ms:.1f} ms; busy share {dev_ms / step_ms:.3f} of the "
+          f"unprofiled step "
           f"({dev_ms / prof_ms:.3f} of the profiled one)")
     if dev_ms == 0:
         raise SystemExit("the profiler recorded no device time")

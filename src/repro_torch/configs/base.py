@@ -3,13 +3,14 @@
 ``ModelConfig`` is the reference's (``repro/configs/base.py``) field for
 field, so one architecture means the same widths in both packages.
 ``TrainConfig`` keeps only the fields this port implements: the
-sharded_ps exchange with one window, tree residency and the Nesterov
-rule without weight decay, whose fused aggregate+update always runs
-through the CUDA kernel (the reference's ``use_pallas``/``fused_agg_opt`` switches have no
+sharded_ps exchange with one window, tree residency and the three rules
+of the sharded-optimizer protocol (Nesterov, SGD, Adam) without weight
+decay, whose fused aggregate+update always runs through the rule's CUDA
+kernel (the reference's ``use_pallas``/``fused_agg_opt`` switches have no
 counterpart).  The reference's other knobs (wire formats, pipeline
-windows, flat residency, microbatching, the other strategies and
-optimizers, weight decay) are queued in ROADMAP.md and are not fields here, so a config
-cannot ask for them and be silently ignored.
+windows, flat residency, microbatching, the other strategies, weight
+decay, ``grad_clip``) are queued in ROADMAP.md and are not fields here, so
+a config cannot ask for them and be silently ignored.
 """
 from __future__ import annotations
 
@@ -87,9 +88,12 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Optimization + parameter-exchange (PHub) configuration."""
-    optimizer: str = "nesterov"       # the paper's rule; sgd/adam: ROADMAP
+    optimizer: str = "nesterov"       # nesterov (the paper's) | sgd | adam
     lr: float = 1e-2
-    momentum: float = 0.9             # weight decay: ROADMAP, with sgd/adam
+    momentum: float = 0.9             # nesterov only; weight decay: ROADMAP
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
 
     # --- PHub exchange (the paper's contribution) ---
     strategy: str = "sharded_ps"      # the other strategies: ROADMAP A7

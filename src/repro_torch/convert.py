@@ -5,7 +5,10 @@ dict of numpy arrays (as ``jax.device_get`` returns it) and builds the
 port's model from it; ``opt_from_numpy`` takes the reference's optimizer
 slots (``{dtype: {slot: array}}`` of shape ``(mo, S, Lr)`` or
 ``(mo, padded)``, ``repro/core/engine.py`` ``opt_state_shapes``) and lays
-them out as the port's ``(S, state_len)``.  Nothing here imports JAX.
+them out as the port's ``(S, state_len)``, any slots in their own dtypes
+(Adam's m/v in the group dtype, k1/k2 f32 in every group).  bfloat16
+arrays (numpy's ``ml_dtypes`` extension type) are carried bit for bit.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -18,7 +21,11 @@ from .models import DecoderLM, param_specs
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":        # torch.from_numpy has no bf16
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, *,

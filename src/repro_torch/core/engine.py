@@ -6,10 +6,12 @@ The step for W workers stacked on one card (``core/comm.py``):
    (``torch.autograd.grad`` on the shared parameters) and its gradient is
    flattened into row w of a ``(W, padded)`` buffer per dtype group — one
    worker's autograd gradients are freed before the next worker runs;
-2. the exchange (``core/exchange.py``) runs the fused aggregate + Nesterov
-   update over that buffer: W == 1 through ``agg_opt_chunks``, W > 1
-   through ``multi_agg_opt_chunks``, which folds the reduce-scatter's sum
-   and the /W into the update;
+2. the exchange (``core/exchange.py``) runs the rule's fused aggregate +
+   update over that buffer, through its CUDA kernel: Nesterov through
+   ``agg_opt_chunks`` (W == 1) or ``multi_agg_opt_chunks`` (W > 1), SGD
+   through ``sgd_opt_chunks`` and Adam through ``adam_opt_chunks`` (any W);
+   for W > 1 the kernel folds the reduce-scatter's sum and the /W into the
+   update;
 3. the new parameters are unflattened back into the module in place (the
    all-gather is a no-op on one card).
 
@@ -45,7 +47,9 @@ class PHubEngine:
 
     def init_opt(self) -> dict:
         """Zero optimizer slots: {dtype_name: {slot_name: (S, state_len)}},
-        row s the state of the chunks shard s owns."""
+        row s the state of the chunks shard s owns; as many slots as the
+        rule declares (Nesterov 1, SGD 0, Adam 4), each in its own dtype
+        (Adam's k1/k2 are f32 in every group)."""
         st = self.tc.strategy
         S = self.comm.n_shards(st)
         return {g.key: {s.name: torch.zeros(
@@ -84,7 +88,9 @@ class PHubEngine:
         """Flatten the parameters into the chunk domain, run the exchange
         per dtype group on the stacked gradients ``gbuf`` ({dtype_name:
         (W, padded)}), and write the new parameters back into ``model``.
-        Returns the new optimizer state."""
+        Returns the new optimizer state.  A rule whose kernel updates its
+        slots in place (Adam) returns the tensors of ``opt`` themselves:
+        four model-sized vectors that are never allocated twice."""
         cp = self.chunk_plan
         leaves = dict(chunking.leaf_paths(model.param_tree()))
         names = self.sopt.slot_names
@@ -93,9 +99,9 @@ class PHubEngine:
             flats_p = chunking.flatten_leaves(cp, leaves)
             for g in cp.groups:
                 slots = tuple(opt[g.key][n].view(-1) for n in names)
-                p2, s2 = exchange_group(self.tc.strategy, self.comm,
-                                        gbuf[g.key], flats_p.pop(g.key),
-                                        slots, self.update_fn(g))
+                p2, s2 = exchange_group(self.comm, gbuf[g.key],
+                                        flats_p.pop(g.key), slots,
+                                        self.update_fn(g))
                 new_opt[g.key] = {n: v.view(opt[g.key][n].shape)
                                   for n, v in zip(names, s2)}
                 for path, new in chunking.group_leaves(g, p2).items():

@@ -34,13 +34,14 @@ def check_strategy(strategy: str) -> None:
             f"item 7)")
 
 
-def exchange_group(strategy: str, comm: StackedComm, g: torch.Tensor,
-                   p: torch.Tensor, slots: tuple, update_fn: UpdateFn
+def exchange_group(comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
+                   slots: tuple, update_fn: UpdateFn
                    ) -> tuple[torch.Tensor, tuple]:
-    """One dtype group's exchange.  g: (W, padded) stacked worker
-    gradients; p: (padded,); ``slots``: the optimizer's (padded,) state
-    buffers, shard s's state at [s*L, (s+1)*L).  Returns (p', slots')."""
-    check_strategy(strategy)
+    """One dtype group's sharded_ps exchange (the engine has checked the
+    strategy).  g: (W, padded) stacked worker gradients; p: (padded,);
+    ``slots``: the optimizer's (padded,) state buffers, shard s's state at
+    [s*L, (s+1)*L), any number of them (0 for SGD, 4 for Adam).  Returns
+    (p', slots'); the rule may update ``slots`` in place and return them."""
     W = comm.n_workers
     if tuple(g.shape) != (W, p.numel()):
         raise ValueError(f"g {tuple(g.shape)} is not (n_workers={W}, "

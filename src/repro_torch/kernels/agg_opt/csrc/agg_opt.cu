@@ -1,32 +1,50 @@
-// Fused tall aggregation + Nesterov update (PHub §3.2.2) for sm_90a.
+// Fused tall aggregation + optimizer updates (PHub §3.2.2) for sm_90a.
 //
 // Replaces the Pallas kernels in src/repro/kernels/agg_opt/kernel.py:
 //   agg_opt_chunks       (kernel.py:38, body _agg_opt_body at :26), W = 1
 //   multi_agg_opt_chunks (kernel.py:187), W workers stacked on dim 0
-// One __global__ kernel serves both; W is a runtime loop bound.
+//   sgd_opt_chunks       (kernel.py:60, body _sgd_body at :54)
+//   adam_opt_chunks      (kernel.py:100, body _adam_body at :75)
+// Each rule is one __global__ kernel; W is a runtime loop bound, so W = 1
+// is exactly the TPU kernel and W > 1 folds the stacked workers' sum and
+// the /W (on one card, the whole reduce-scatter + mean) into the pass.
 //
-// Per element, in f32, exactly as _agg_opt_body:
-//   g  = (g_0 + g_1 + ... + g_{W-1}) / W     summed in worker order, divided
-//   m2 = mu * m + g
-//   p2 = p - lr * (g + mu * m2)
-// then p2 and m2 are stored in the p and m dtype (f32 or bf16, RNE).  Every
-// operation is an explicitly rounded intrinsic (__fadd_rn, __fmul_rn,
-// __fdiv_rn), so no FMA contraction happens whatever the flags, and the
-// kernel equals the plain PyTorch version (kernels/agg_opt/ref.py) bitwise.
+// Per element, in f32, with g = (g_0 + g_1 + ... + g_{W-1}) / W summed in
+// worker order and then divided:
+//   Nesterov  m2 = mu * m + g;  p2 = p - lr * (g + mu * m2)
+//   SGD       p2 = p - lr * g
+//   Adam      alive = g != 0 || k1 != 0
+//             k1n = alive ? b1 * k1 + c1 : k1    (c1 = 1 - b1, from the host)
+//             k2n = alive ? b2 * k2 + c2 : k2    (c2 = 1 - b2, from the host)
+//             m2 = b1 * m + c1 * g;  v2 = b2 * v + (c2 * g) * g
+//             rk2 = sqrt(k2n)
+//             step = ((lr * (1 / k1n)) * rk2 * m2) / (sqrt(v2) + eps * rk2)
+//             p2 = p - (k1n > 0 ? step : +0)
+// then every result is stored in its input's dtype (f32 or bf16, RNE; Adam's
+// k1/k2 are always f32).  Every operation is an explicitly rounded
+// intrinsic (__fadd_rn, __fmul_rn, __fdiv_rn, __fsqrt_rn), in the order the
+// Python expression evaluates, so no FMA contraction happens whatever the
+// flags, and each kernel equals its plain PyTorch version
+// (kernels/agg_opt/ref.py) bitwise.  The constants, 1 - b included, are
+// rounded to f32 on the host: 1.0f - 0.9f is 3 ulp from (float)(1 - 0.9).
 //
-// Bound: HBM bytes.  The pass does about W + 7 flops per element against
-// (W + 4) * itemsize bytes (read p, m and W gradients; write p and m): 5
-// arrays for W = 1, W + 4 arrays in the stacked case.  At 3.35 TB/s that is
-// about 7.4 ms for W = 1 and 11.8 ms for W = 4 over the 1.24 G f32
-// parameters of llama3.2-1b; the arithmetic is under 0.2 ms at 67 TFLOP/s.
+// Bound: HBM bytes.  Per element the passes read W gradients and the state
+// and write the state: Nesterov W + 4 arrays, SGD W + 2, Adam W + 10 (p, m,
+// v, k1, k2 read; p, m, v, k1, k2 written).  Over the 1.24 G f32 parameters
+// of llama3.2-1b at 3.35 TB/s that is 7.4 / 11.8 ms (Nesterov W = 1 / 4),
+// 4.4 / 8.9 ms (SGD) and 16.2 / 20.7 ms (Adam).  Adam's arithmetic, two IEEE
+// divisions and two square roots an element, stays under 1 ms at 67 TFLOP/s.
 //
 // Design: one block per chunk (chunk_elems a multiple of 128), 256 threads,
 // vector loads of 4 elements (16-byte float4 for f32, 8 bytes for bf16), each
 // element read and written once, nothing staged in shared memory: the TPU
 // kernel's VMEM staging of a chunk has no counterpart to win here, since the
-// pass reuses nothing.  A later PR may move the streams through TMA bulk copies
-// into a shared-memory ring, or use wider (32-byte) vectors and a
-// persistent grid, to get closer to the HBM rate.
+// pass reuses nothing.  Adam's slots m, v, k1, k2 are updated in place (one
+// in-out pointer each; every thread reads and writes only its own
+// elements), which keeps four model-sized vectors off the card at W = 4; p
+// is written to a new buffer.  A later PR may move the streams through TMA
+// bulk copies into a shared-memory ring, or use wider (32-byte) vectors and
+// a persistent grid, to get closer to the HBM rate.
 //
 // Launches on the caller's stream and allocates nothing.  Each entry point
 // returns cudaGetLastError() so the caller sees a refused launch.
@@ -66,6 +84,24 @@ __device__ __forceinline__ void store4(__nv_bfloat16* ptr, const float v[4]) {
   *reinterpret_cast<uint2*>(ptr) = t;
 }
 
+// g = (g_0 + ... + g_{W-1}) / W for the 4 elements at off, in worker order.
+template <typename T>
+__device__ __forceinline__ void worker_mean4(const T* __restrict__ g,
+                                             int64_t off,
+                                             int64_t worker_stride,
+                                             int n_workers, float acc[4]) {
+  float gw[4];
+  load4(g + off, acc);
+  for (int w = 1; w < n_workers; ++w) {
+    load4(g + w * worker_stride + off, gw);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = __fadd_rn(acc[k], gw[k]);
+  }
+  const float divisor = static_cast<float>(n_workers);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[k] = __fdiv_rn(acc[k], divisor);
+}
+
 // p, m, p_out, m_out: (n_chunks, chunk_elems); g: (n_workers, n_chunks,
 // chunk_elems), worker w at g + w * n_chunks * chunk_elems.
 template <typename T>
@@ -75,28 +111,85 @@ agg_opt_kernel(const T* __restrict__ p, const T* __restrict__ g,
                T* __restrict__ m_out, int64_t worker_stride, int n_workers,
                int chunk_elems, float lr, float mu) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
-  const float divisor = static_cast<float>(n_workers);
   for (int i = threadIdx.x * kVec; i < chunk_elems; i += kThreads * kVec) {
     const int64_t off = base + i;
-    float acc[4], gw[4], mv[4], pv[4];
-    load4(g + off, acc);
-    for (int w = 1; w < n_workers; ++w) {
-      load4(g + w * worker_stride + off, gw);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[k] = __fadd_rn(acc[k], gw[k]);
-    }
+    float gg[4], mv[4], pv[4];
+    worker_mean4(g, off, worker_stride, n_workers, gg);
     load4(m + off, mv);
     load4(p + off, pv);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float gg = __fdiv_rn(acc[k], divisor);
-      const float m2 = __fadd_rn(__fmul_rn(mu, mv[k]), gg);
-      const float step = __fmul_rn(lr, __fadd_rn(gg, __fmul_rn(mu, m2)));
+      const float m2 = __fadd_rn(__fmul_rn(mu, mv[k]), gg[k]);
+      const float step = __fmul_rn(lr, __fadd_rn(gg[k], __fmul_rn(mu, m2)));
       pv[k] = __fadd_rn(pv[k], -step);
       mv[k] = m2;
     }
     store4(p_out + off, pv);
     store4(m_out + off, mv);
+  }
+}
+
+// p, p_out: (n_chunks, chunk_elems); g as for agg_opt_kernel.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sgd_opt_kernel(const T* __restrict__ p, const T* __restrict__ g,
+               T* __restrict__ p_out, int64_t worker_stride, int n_workers,
+               int chunk_elems, float lr) {
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
+  for (int i = threadIdx.x * kVec; i < chunk_elems; i += kThreads * kVec) {
+    const int64_t off = base + i;
+    float gg[4], pv[4];
+    worker_mean4(g, off, worker_stride, n_workers, gg);
+    load4(p + off, pv);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) pv[k] = __fsub_rn(pv[k], __fmul_rn(lr, gg[k]));
+    store4(p_out + off, pv);
+  }
+}
+
+// p, p_out, m, v: (n_chunks, chunk_elems) of T; k1, k2 the same shape in
+// f32; m, v, k1, k2 are read and overwritten in place.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+adam_opt_kernel(const T* __restrict__ p, const T* __restrict__ g,
+                T* __restrict__ m, T* __restrict__ v, float* __restrict__ k1,
+                float* __restrict__ k2, T* __restrict__ p_out,
+                int64_t worker_stride, int n_workers, int chunk_elems,
+                float lr, float b1, float c1, float b2, float c2, float eps) {
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
+  for (int i = threadIdx.x * kVec; i < chunk_elems; i += kThreads * kVec) {
+    const int64_t off = base + i;
+    float gg[4], pv[4], mv[4], vv[4], k1v[4], k2v[4];
+    worker_mean4(g, off, worker_stride, n_workers, gg);
+    load4(m + off, mv);
+    load4(v + off, vv);
+    load4(k1 + off, k1v);
+    load4(k2 + off, k2v);
+    load4(p + off, pv);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool alive = (gg[k] != 0.0f) || (k1v[k] != 0.0f);
+      const float k1n = alive ? __fadd_rn(__fmul_rn(b1, k1v[k]), c1) : k1v[k];
+      const float k2n = alive ? __fadd_rn(__fmul_rn(b2, k2v[k]), c2) : k2v[k];
+      const float m2 = __fadd_rn(__fmul_rn(b1, mv[k]), __fmul_rn(c1, gg[k]));
+      const float v2 = __fadd_rn(__fmul_rn(b2, vv[k]),
+                                 __fmul_rn(__fmul_rn(c2, gg[k]), gg[k]));
+      const float rk2 = __fsqrt_rn(k2n);
+      const float num = __fmul_rn(
+          __fmul_rn(__fmul_rn(lr, __fdiv_rn(1.0f, k1n)), rk2), m2);
+      const float den = __fadd_rn(__fsqrt_rn(v2), __fmul_rn(eps, rk2));
+      const float step = k1n > 0.0f ? __fdiv_rn(num, den) : 0.0f;
+      pv[k] = __fsub_rn(pv[k], step);
+      mv[k] = m2;
+      vv[k] = v2;
+      k1v[k] = k1n;
+      k2v[k] = k2n;
+    }
+    store4(p_out + off, pv);
+    store4(m + off, mv);
+    store4(v + off, vv);
+    store4(k1 + off, k1v);
+    store4(k2 + off, k2v);
   }
 }
 
@@ -126,6 +219,32 @@ int dispatch(const void* p, const void* g, const void* m, void* p_out,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T>
+int launch_sgd(const void* p, const void* g, void* p_out, long long n_chunks,
+               int chunk_elems, int n_workers, float lr, void* stream) {
+  const int64_t stride = static_cast<int64_t>(n_chunks) * chunk_elems;
+  sgd_opt_kernel<T><<<static_cast<unsigned>(n_chunks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(p), static_cast<const T*>(g),
+      static_cast<T*>(p_out), stride, n_workers, chunk_elems, lr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_adam(const void* p, const void* g, void* m, void* v, void* k1,
+                void* k2, void* p_out, long long n_chunks, int chunk_elems,
+                int n_workers, float lr, float b1, float c1, float b2,
+                float c2, float eps, void* stream) {
+  const int64_t stride = static_cast<int64_t>(n_chunks) * chunk_elems;
+  adam_opt_kernel<T><<<static_cast<unsigned>(n_chunks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(p), static_cast<const T*>(g), static_cast<T*>(m),
+      static_cast<T*>(v), static_cast<float*>(k1), static_cast<float*>(k2),
+      static_cast<T*>(p_out), stride, n_workers, chunk_elems, lr, b1, c1, b2,
+      c2, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int agg_opt_chunks(const void* p, const void* g, const void* m,
@@ -143,4 +262,36 @@ extern "C" int multi_agg_opt_chunks(const void* p, const void* g,
                                     float mu, void* stream) {
   return dispatch(p, g, m, p_out, m_out, n_chunks, chunk_elems, n_workers,
                   dtype, lr, mu, stream);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 for p, g (and Adam's m, v); Adam's k1 and
+// k2 are float32 always.  The wrapper has checked everything else.
+extern "C" int sgd_opt_chunks(const void* p, const void* g, void* p_out,
+                              long long n_chunks, int chunk_elems,
+                              int n_workers, int dtype, float lr,
+                              void* stream) {
+  if (dtype == 0)
+    return launch_sgd<float>(p, g, p_out, n_chunks, chunk_elems, n_workers,
+                             lr, stream);
+  if (dtype == 1)
+    return launch_sgd<__nv_bfloat16>(p, g, p_out, n_chunks, chunk_elems,
+                                     n_workers, lr, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int adam_opt_chunks(const void* p, const void* g, void* m, void* v,
+                               void* k1, void* k2, void* p_out,
+                               long long n_chunks, int chunk_elems,
+                               int n_workers, int dtype, float lr, float b1,
+                               float c1, float b2, float c2, float eps,
+                               void* stream) {
+  if (dtype == 0)
+    return launch_adam<float>(p, g, m, v, k1, k2, p_out, n_chunks,
+                              chunk_elems, n_workers, lr, b1, c1, b2, c2, eps,
+                              stream);
+  if (dtype == 1)
+    return launch_adam<__nv_bfloat16>(p, g, m, v, k1, k2, p_out, n_chunks,
+                                      chunk_elems, n_workers, lr, b1, c1, b2,
+                                      c2, eps, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,11 +1,20 @@
-"""Wrappers of the fused agg+opt CUDA kernel over flat vectors.
+"""Wrappers of the fused agg+opt CUDA kernels over flat vectors.
 
-The counterpart of ``repro/kernels/agg_opt/ops.py``: vectors are padded to
-whole chunks (chunk_elems rounded down to a multiple of 128, at least 128)
-and handed to the kernel as (n_chunks, chunk_elems).  A CPU tensor takes the
-plain version in ``ref.py``; a CUDA tensor launches the kernel, and a
-library that cannot be built or loaded raises.  ``LAUNCHES`` counts the
-kernel launches of each entry point (plain-version calls do not count).
+The counterpart of ``repro/kernels/agg_opt/ops.py``, one wrapper per TPU
+kernel: ``fused_agg_opt`` (``agg_opt_chunks``, Nesterov),
+``fused_multi_agg_opt`` (``multi_agg_opt_chunks``, Nesterov over stacked
+workers), ``fused_sgd_opt`` (``sgd_opt_chunks``) and ``fused_adam_opt``
+(``adam_opt_chunks``); the last two take ``g`` pre-aggregated ``(n,)`` or
+stacked ``(W, n)`` and fold the worker mean into the pass.  Vectors are
+padded to whole chunks (chunk_elems rounded down to a multiple of 128, at
+least 128) and handed to the kernel as (n_chunks, chunk_elems).
+
+A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
+the kernel, and a library that cannot be built or loaded raises.
+``LAUNCHES`` counts the kernel launches of each entry point (plain-version
+calls do not count).  Adam's slots m, v, k1, k2 are updated in place on
+both devices (as PyTorch's own optimizers do; at W = 4 on llama3.2-1b that
+keeps four 4.9 GB vectors off the card) and returned; p' is a new tensor.
 """
 from __future__ import annotations
 
@@ -15,12 +24,13 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .ref import agg_opt_ref, multi_agg_opt_ref
+from .ref import adam_opt_ref, agg_opt_ref, multi_agg_opt_ref, sgd_opt_ref
 
 _LANE = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = {"agg_opt_chunks": 0, "multi_agg_opt_chunks": 0}
+LAUNCHES = {"agg_opt_chunks": 0, "multi_agg_opt_chunks": 0,
+            "sgd_opt_chunks": 0, "adam_opt_chunks": 0}
 
 
 def reset_launches() -> None:
@@ -32,41 +42,61 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("agg_opt")
     if not getattr(lib, "_declared", False):
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.agg_opt_chunks.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong,
-                                       i32, i32, f32, f32, vp]
-        lib.agg_opt_chunks.restype = i32
-        lib.multi_agg_opt_chunks.argtypes = [vp, vp, vp, vp, vp,
-                                             ctypes.c_longlong, i32, i32, i32,
-                                             f32, f32, vp]
-        lib.multi_agg_opt_chunks.restype = i32
+        i64 = ctypes.c_longlong
+        for name, args in (
+                ("agg_opt_chunks", [vp] * 5 + [i64, i32, i32, f32, f32, vp]),
+                ("multi_agg_opt_chunks",
+                 [vp] * 5 + [i64, i32, i32, i32, f32, f32, vp]),
+                ("sgd_opt_chunks", [vp] * 3 + [i64, i32, i32, i32, f32, vp]),
+                ("adam_opt_chunks",
+                 [vp] * 7 + [i64, i32, i32, i32] + [f32] * 6 + [vp])):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, i32
         lib._declared = True
     return lib
 
 
-def _check(p, g, m, stacked: bool) -> None:
+def _check_vec(name: str, t: torch.Tensor, p: torch.Tensor, dtype) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device != p.device:
+        raise ValueError(f"{name} is on {t.device}, p on {p.device}")
+
+
+def _check(p, g, state=(), f32_state=()) -> bool:
+    """Check p (n,), g (n,) or (W, n), the group-dtype state vectors and
+    the f32 state vectors; return whether g is stacked."""
     if p.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {p.device}")
-    for name, t in (("p", p), ("g", g), ("m", m)):
-        if t.dtype not in _DTYPE_CODE:
-            raise TypeError(f"{name}: dtype {t.dtype} is not float32/bfloat16")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != p.device:
-            raise ValueError(f"{name} is on {t.device}, p on {p.device}")
-    if g.dtype != p.dtype or m.dtype != p.dtype:
-        raise TypeError(f"p/g/m dtypes differ: {p.dtype}/{g.dtype}/{m.dtype}")
-    if p.dim() != 1 or m.shape != p.shape:
-        raise ValueError(f"p and m must be equal flat vectors: "
-                         f"{tuple(p.shape)} vs {tuple(m.shape)}")
-    if stacked and (g.dim() != 2 or g.shape[0] < 1):
-        raise ValueError(f"g must be (W, n), got {tuple(g.shape)}")
-    want = (g.shape[0], *p.shape) if stacked else tuple(p.shape)
-    if tuple(g.shape) != want:
-        raise ValueError(f"g shape {tuple(g.shape)} != {want}")
+    if p.dtype not in _DTYPE_CODE:
+        raise TypeError(f"p: dtype {p.dtype} is not float32/bfloat16")
+    _check_vec("p", p, p, p.dtype)
+    if p.dim() != 1:
+        raise ValueError(f"p must be a flat vector, got {tuple(p.shape)}")
+    _check_vec("g", g, p, p.dtype)
+    stacked = g.dim() == 2
+    if (tuple(g.shape[1:] if stacked else g.shape) != tuple(p.shape)
+            or g.shape[0] < 1):
+        raise ValueError(f"g shape {tuple(g.shape)} is neither "
+                         f"{tuple(p.shape)} nor (W, {p.numel()})")
+    for i, t in enumerate(state):
+        _check_vec(f"state[{i}]", t, p, p.dtype)
+    for i, t in enumerate(f32_state):
+        _check_vec(f"f32 state[{i}]", t, p, torch.float32)
+    for t in (*state, *f32_state):
+        if t.shape != p.shape:
+            raise ValueError(f"state {tuple(t.shape)} != p {tuple(p.shape)}")
+    ptrs = [t.data_ptr() for t in (p, *state, *f32_state)]
+    if len(set(ptrs)) != len(ptrs):
+        raise ValueError("p and the state vectors must not alias")
+    return stacked
 
 
 def _chunked(v: torch.Tensor, ce: int) -> torch.Tensor:
-    """(..., n) -> (..., n_chunks, ce), zero-padded to whole chunks."""
+    """(..., n) -> (..., n_chunks, ce), zero-padded to whole chunks (a
+    copy when n is not whole chunks, else a view)."""
     n = v.shape[-1]
     pad = -(-n // ce) * ce - n
     if pad:
@@ -77,32 +107,41 @@ def _chunked(v: torch.Tensor, ce: int) -> torch.Tensor:
     return out
 
 
+def _lane(chunk_elems: int) -> int:
+    return max(_LANE, (chunk_elems // _LANE) * _LANE)
+
+
+def _call(name: str, device, *args) -> None:
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
 def _launch(name: str, pc, gc, mc, lr: float, momentum: float,
             n_workers: int):
     nc, ce = pc.shape
     p2, m2 = torch.empty_like(pc), torch.empty_like(mc)
-    lib = _lib()
     args = [pc.data_ptr(), gc.data_ptr(), mc.data_ptr(), p2.data_ptr(),
             m2.data_ptr(), nc, ce]
     if name == "multi_agg_opt_chunks":
         args.append(n_workers)
-    with torch.cuda.device(pc.device):
-        stream = torch.cuda.current_stream(pc.device).cuda_stream
-        err = getattr(lib, name)(*args, _DTYPE_CODE[pc.dtype], lr, momentum,
-                                 stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    _call(name, pc.device, *args, _DTYPE_CODE[pc.dtype], lr, momentum)
     return p2, m2
 
 
 def fused_agg_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
                   lr: float, momentum: float, chunk_elems: int = 8192):
     """Flat fused Nesterov update. p/g/m: (n,). Returns (p', m')."""
-    _check(p, g, m, stacked=False)
+    if _check(p, g, (m,)):
+        raise ValueError("fused_agg_opt takes a pre-aggregated g; stacked "
+                         "workers go to fused_multi_agg_opt")
     if p.device.type == "cpu":
         return agg_opt_ref(p, g, m, lr=lr, momentum=momentum)
-    ce = max(_LANE, (chunk_elems // _LANE) * _LANE)
+    ce = _lane(chunk_elems)
     n = p.numel()
     p2, m2 = _launch("agg_opt_chunks", _chunked(p, ce), _chunked(g, ce),
                      _chunked(m, ce), lr, momentum, 1)
@@ -113,12 +152,62 @@ def fused_multi_agg_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
                         lr: float, momentum: float, chunk_elems: int = 8192):
     """Tall aggregation: g is (W, n) worker gradients; the worker mean and
     the Nesterov update run in one pass per chunk. Returns (p', m')."""
-    _check(p, g, m, stacked=True)
+    if not _check(p, g, (m,)):
+        raise ValueError(f"g must be (W, n), got {tuple(g.shape)}")
     if p.device.type == "cpu":
         return multi_agg_opt_ref(p, g, m, lr=lr, momentum=momentum)
-    ce = max(_LANE, (chunk_elems // _LANE) * _LANE)
+    ce = _lane(chunk_elems)
     n = p.numel()
     p2, m2 = _launch("multi_agg_opt_chunks", _chunked(p, ce),
                      _chunked(g, ce), _chunked(m, ce), lr, momentum,
                      g.shape[0])
     return p2.view(-1)[:n], m2.view(-1)[:n]
+
+
+def fused_sgd_opt(p: torch.Tensor, g: torch.Tensor, *, lr: float,
+                  chunk_elems: int = 8192) -> torch.Tensor:
+    """Flat fused SGD update; g is (n,) or stacked (W, n), averaged over
+    the workers in the same pass. Returns p'."""
+    stacked = _check(p, g)
+    if p.device.type == "cpu":
+        return sgd_opt_ref(p, g, lr=lr)
+    ce = _lane(chunk_elems)
+    n = p.numel()
+    pc, gc = _chunked(p, ce), _chunked(g, ce)
+    p2 = torch.empty_like(pc)
+    _call("sgd_opt_chunks", p.device, pc.data_ptr(), gc.data_ptr(),
+          p2.data_ptr(), pc.shape[0], ce, g.shape[0] if stacked else 1,
+          _DTYPE_CODE[p.dtype], lr)
+    return p2.view(-1)[:n]
+
+
+def fused_adam_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                   v: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor, *,
+                   lr: float, b1: float = 0.9, b2: float = 0.999,
+                   eps: float = 1e-8, chunk_elems: int = 8192):
+    """Flat fused Adam update with per-position bias-correction state
+    k1/k2 (f32); g is (n,) or stacked (W, n), averaged over the workers in
+    the same pass.  m, v, k1, k2 are updated in place.  Returns
+    (p', m, v, k1, k2)."""
+    stacked = _check(p, g, (m, v), (k1, k2))
+    slots = (m, v, k1, k2)
+    if p.device.type == "cpu":
+        new = adam_opt_ref(p, g, m, v, k1, k2, lr=lr, b1=b1, b2=b2, eps=eps)
+        for s, s2 in zip(slots, new[1:]):
+            s.copy_(s2)
+        return (new[0], *slots)
+    ce = _lane(chunk_elems)
+    n = p.numel()
+    pc, gc = _chunked(p, ce), _chunked(g, ce)
+    # whole chunks: views the kernel updates in place; else padded copies,
+    # copied back below
+    sc = [_chunked(s, ce) for s in slots]
+    p2 = torch.empty_like(pc)
+    _call("adam_opt_chunks", p.device, pc.data_ptr(), gc.data_ptr(),
+          *(s.data_ptr() for s in sc), p2.data_ptr(), pc.shape[0], ce,
+          g.shape[0] if stacked else 1, _DTYPE_CODE[p.dtype], lr, b1, 1 - b1,
+          b2, 1 - b2, eps)
+    if pc.numel() != n:
+        for s, c in zip(slots, sc):
+            s.copy_(c.view(-1)[:n])
+    return (p2.view(-1)[:n], *slots)

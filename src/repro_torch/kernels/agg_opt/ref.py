@@ -1,10 +1,20 @@
-"""Plain PyTorch versions of the fused agg+opt kernel.
+"""Plain PyTorch versions of the fused agg+opt kernels.
 
-They repeat the kernel's arithmetic operation for operation: f32 compute,
+They repeat the kernels' arithmetic operation for operation: f32 compute,
 the worker sum taken in worker order and then divided by W, each product
-and sum rounded on its own (no FMA), and the results cast back to the p
-and m dtypes.  CPU tensors take these in ``ops.py``; on the card they are
-what the CUDA kernel is held against, bitwise.
+and sum rounded on its own (no FMA), and the results cast back to each
+input's dtype.  CPU tensors take these in ``ops.py``; on the card they are
+what the CUDA kernels are held against, bitwise.  Every division is a
+tensor/tensor division: PyTorch's CUDA division by a Python number
+multiplies by its reciprocal.  The rules' constants are Python floats that
+PyTorch rounds to f32 once, as the wrappers round them for the kernels;
+``1 - b`` is formed in Python (double), never in f32.  Square roots go
+through ``sqrt_rn``: PyTorch's vectorised CPU square root (AVX-512) is one
+ulp off the IEEE root on some inputs.
+
+Each function takes ``g`` pre-aggregated (same shape as ``p``) or stacked
+``(W, *p.shape)``; the stacked form is averaged with ``worker_mean`` first.
+They are functional: the slots they are given are not written.
 """
 from __future__ import annotations
 
@@ -20,6 +30,17 @@ def worker_mean(g: torch.Tensor) -> torch.Tensor:
     for w in range(1, g.shape[0]):
         acc = acc + g[w].float()
     return acc / acc.new_tensor(float(g.shape[0]))
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The IEEE (correctly rounded) f32 square root of ``x``, returned in
+    ``x``'s dtype (a bf16 input is rounded from the f32 root, as XLA does):
+    the f64 root rounded once to f32 is the f32 root, on either device."""
+    return torch.sqrt(x.double()).float().to(x.dtype)
+
+
+def _grad32(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return worker_mean(g) if g.dim() == p.dim() + 1 else g.float()
 
 
 def _nesterov(p, g32, m, lr, momentum):
@@ -40,3 +61,33 @@ def multi_agg_opt_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
     """Tall aggregation: g is (W, *p.shape) worker gradients, averaged over
     dim 0, then the same update.  Returns (p', m')."""
     return _nesterov(p, worker_mean(g), m, lr, momentum)
+
+
+def sgd_opt_ref(p: torch.Tensor, g: torch.Tensor, *, lr: float):
+    """``sgd_opt_chunks``' body: p' = p - lr * g in f32.  Returns p'."""
+    return (p.float() - lr * _grad32(p, g)).to(p.dtype)
+
+
+def adam_opt_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                 v: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor, *,
+                 lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+    """``adam_opt_chunks``' body: the textbook EMAs ``b*m + (1-b)*g``, the
+    k1/k2 bias-correction tick gated to positions that have seen gradient
+    (``alive``, taken on the aggregated g), the epsilon-hat step
+    ``((lr*(1/k1'))*sqrt(k2')*m') / (sqrt(v') + eps*sqrt(k2'))`` and its
+    mask to +0 where ``k1' == 0``.  Returns (p', m', v', k1', k2')."""
+    g32 = _grad32(p, g)
+    c1, c2 = 1 - b1, 1 - b2
+    m32, v32, k1f, k2f = m.float(), v.float(), k1.float(), k2.float()
+    alive = (g32 != 0) | (k1f != 0)
+    k1n = torch.where(alive, b1 * k1f + c1, k1f)
+    k2n = torch.where(alive, b2 * k2f + c2, k2f)
+    m2 = b1 * m32 + c1 * g32
+    v2 = b2 * v32 + c2 * g32 * g32
+    rk2 = sqrt_rn(k2n)
+    num = lr * (k1n.new_tensor(1.0) / k1n) * rk2 * m2
+    step = num / (sqrt_rn(v2) + eps * rk2)
+    step = torch.where(k1n > 0, step, torch.zeros_like(step))
+    return ((p.float() - step).to(p.dtype), m2.to(m.dtype), v2.to(v.dtype),
+            k1n.to(k1.dtype), k2n.to(k2.dtype))

@@ -1,2 +1,3 @@
-from .protocol import (NesterovOptimizer, ShardedOptimizer, SlotSpec,
+from .protocol import (OPTIMIZERS, AdamOptimizer, NesterovOptimizer,
+                       SGDOptimizer, ShardedOptimizer, SlotSpec,
                        make_sharded_optimizer, tuple_update)

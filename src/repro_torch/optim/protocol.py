@@ -3,18 +3,26 @@
 A ``ShardedOptimizer`` declares its per-dtype-group flat state ``slots``,
 its per-tenant coefficients ``coef_names``, and ``update(p, g, slots,
 coefs)``, the elementwise fused rule on flat vectors.  ``kernel_update`` is
-the counterpart of the reference's ``pallas_update``: the rule through the
-CUDA kernel at scalar coefficients.  Its ``update_fn(p, g, slots)`` takes
-``g`` either pre-aggregated (same shape as ``p``) or as stacked worker
-gradients ``(W, *p.shape)``, which the kernel averages over dim 0 (summed
-in worker order, divided by W) before the rule: that is the tall
-aggregation the stacked exchange fuses into the update
-(``core/exchange.py``).  ``tuple_update`` closes the plain rule over its
-coefficients, for a pre-aggregated ``g``.
+the counterpart of the reference's ``pallas_update``: the rule through its
+CUDA kernel at scalar coefficients, one kernel per TPU kernel --
+Nesterov through ``agg_opt_chunks`` (pre-aggregated g) or
+``multi_agg_opt_chunks`` (stacked g), SGD through ``sgd_opt_chunks`` and
+Adam through ``adam_opt_chunks`` (either g).  Its ``update_fn(p, g,
+slots)`` takes ``g`` either pre-aggregated (same shape as ``p``) or as
+stacked worker gradients ``(W, *p.shape)``, which the kernel averages over
+dim 0 (summed in worker order, divided by W) before the rule: that is the
+tall aggregation the stacked exchange fuses into the update
+(``core/exchange.py``).  It returns ``(p', slots')``; Adam's kernel updates
+its slots in place and returns the same tensors.  ``tuple_update`` closes
+the plain rule over its coefficients, for a pre-aggregated ``g``.
 
-Nesterov without weight decay is ported.  SGD and Adam are ROADMAP.md
-queue A item 3 (with their kernels, queue B); weight decay needs a term in
-the kernel and is queued with them.
+As in the reference, ``update`` is the protocol's body and the kernel
+computes the TPU kernel's body; they agree to rounding, not bitwise.  For
+Adam the protocol keeps the residual-form EMAs ``m + (1-b1)*(g-m)`` in the
+group dtype, the kernel the textbook ``b1*m + (1-b1)*g`` in f32.
+
+Weight decay is not ported: none of the kernels has a ``+wd*p`` term, and a
+rule without its kernel would leave the card's one route through them.
 """
 from __future__ import annotations
 
@@ -22,6 +30,15 @@ from dataclasses import dataclass
 from typing import Callable, ClassVar, Optional
 
 import torch
+
+from ..kernels.agg_opt.ref import sqrt_rn
+
+
+def _const(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python scalar in ``like``'s dtype, as JAX's weakly typed scalars
+    are: in a bf16 body the reference rounds 0.1 to bf16 before the
+    product, where PyTorch would keep it in f32."""
+    return torch.tensor(x, dtype=like.dtype)
 
 
 @dataclass(frozen=True)
@@ -88,16 +105,90 @@ class NesterovOptimizer(ShardedOptimizer):
         return upd
 
 
+@dataclass(frozen=True)
+class SGDOptimizer(ShardedOptimizer):
+    """Stateless SGD: zero slots, the exchange carries no optimizer state."""
+    name = "sgd"
+    slots = ()
+    coef_names = ("lr",)
+
+    def update(self, p, g, slots, coefs):
+        (lr,) = coefs
+        return p - (_const(lr, g) * g).to(p.dtype), ()
+
+    def kernel_update(self, chunk_elems, coefs):
+        from ..kernels.agg_opt.ops import fused_sgd_opt
+        (lr,) = coefs
+
+        def upd(p, g, slots):
+            return fused_sgd_opt(p, g, lr=lr, chunk_elems=chunk_elems), ()
+        return upd
+
+
+@dataclass(frozen=True)
+class AdamOptimizer(ShardedOptimizer):
+    """Adam with bias correction.  k1/k2 hold ``1 - b^t`` per position
+    (float32 whatever the group dtype), ticked as ``k' = b*k + (1-b)`` only
+    where the position has seen gradient, so that dead pad tails keep the
+    zero fixed point; the step is the epsilon-hat form
+    ``lr*(sqrt(k2')/k1')*m' / (sqrt(v') + eps*sqrt(k2'))``, masked to an
+    exact no-op where ``k1' == 0`` (the reference's module docstring says
+    why)."""
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    name = "adam"
+    slots = (SlotSpec("m"), SlotSpec("v"), SlotSpec("k1", "float32"),
+             SlotSpec("k2", "float32"))
+    coef_names = ("lr",)
+
+    def update(self, p, g, slots, coefs):
+        # the reference's protocol body: residual-form EMAs in the group
+        # dtype, then the fenced reciprocal and square root and one division
+        m, v, k1, k2 = slots
+        (lr,) = coefs
+        b1, b2 = self.b1, self.b2
+        g = g.to(m.dtype)
+        alive = (g != 0) | (k1 != 0)
+        k1n = torch.where(alive, b1 * k1 + (1 - b1), k1)
+        k2n = torch.where(alive, b2 * k2 + (1 - b2), k2)
+        m2 = m + _const(1 - b1, m) * (g - m)
+        v2 = v + _const(1 - b2, v) * (g * g - v)
+        k1m = k1n.to(m.dtype)
+        q1 = _const(1.0, k1m) / k1m
+        rk2 = sqrt_rn(k2n).to(m.dtype)
+        num = (_const(lr, q1) * q1) * rk2 * m2
+        step = num / (sqrt_rn(v2) + _const(self.eps, rk2) * rk2)
+        step = torch.where(k1n > 0, step, torch.zeros_like(step))
+        return p - step.to(p.dtype), (m2, v2, k1n, k2n)
+
+    def kernel_update(self, chunk_elems, coefs):
+        from ..kernels.agg_opt.ops import fused_adam_opt
+        (lr,) = coefs
+
+        def upd(p, g, slots):
+            p2, *slots2 = fused_adam_opt(p, g, *slots, lr=lr, b1=self.b1,
+                                         b2=self.b2, eps=self.eps,
+                                         chunk_elems=chunk_elems)
+            return p2, tuple(slots2)
+        return upd
+
+
+OPTIMIZERS = {"nesterov": NesterovOptimizer, "sgd": SGDOptimizer,
+              "adam": AdamOptimizer}
+
+
 def make_sharded_optimizer(tc) -> ShardedOptimizer:
-    """TrainConfig -> protocol instance."""
+    """TrainConfig -> protocol instance (static fields bound here)."""
     if tc.optimizer == "nesterov":
         return NesterovOptimizer()
-    if tc.optimizer in ("sgd", "adam"):
-        raise NotImplementedError(
-            f"optimizer {tc.optimizer!r} is not ported yet (ROADMAP.md "
-            f"queue A item 3; its kernel is in queue B)")
+    if tc.optimizer == "sgd":
+        return SGDOptimizer()
+    if tc.optimizer == "adam":
+        return AdamOptimizer(b1=tc.adam_b1, b2=tc.adam_b2, eps=tc.adam_eps)
     raise ValueError(f"unknown optimizer {tc.optimizer!r}; expected one of "
-                     f"('nesterov', 'sgd', 'adam')")
+                     f"{tuple(OPTIMIZERS)}")
 
 
 def tuple_update(opt: ShardedOptimizer, coefs: tuple) -> Callable:

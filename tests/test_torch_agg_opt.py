@@ -124,7 +124,7 @@ def test_fused_wrappers_ragged_n_match_reference(W):
         assert a.shape == (n,)
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     # a CPU tensor takes the plain version: no kernel launch is counted
-    assert ops.LAUNCHES == {"agg_opt_chunks": 0, "multi_agg_opt_chunks": 0}
+    assert all(c == 0 for c in ops.LAUNCHES.values())
 
 
 def test_bf16_plain_rounds_once_from_f32():

@@ -97,7 +97,7 @@ def test_w1_steps_match_jax_engine_with_pallas_kernel():
         np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]),
                                    rtol=LOSS_RTOL)
     # CPU tensors take the plain version: no kernel launch is counted
-    assert LAUNCHES == {"agg_opt_chunks": 0, "multi_agg_opt_chunks": 0}
+    assert all(c == 0 for c in LAUNCHES.values())
     _assert_trees_close(model.param_tree(), jax.device_get(params),
                         atol=PARAM_ATOL)
     jm_tree = jax.device_get(opt)["float32"]["m"]
