@@ -17,10 +17,20 @@
      slots in place, so its inputs are drawn span by span from seeds and
      drawn again for the comparison, which runs span by span.
    Small bf16, W=3 and ragged cases are held bitwise too.
+   The int8 wire's kernels at the int8 W=4 main path's shapes (the whole
+   stacked domain, 150860 chunks of 8192): quantize_chunks and
+   dequantize_chunks (payload and scales equal), and dequant_agg_opt_chunks
+   reading the owners' rows on the block diagonal of the (4, n) buffer,
+   each against its plain version span by span, timed beside its bound
+   and a PyTorch yardstick (torch.quantize_per_channel, QTensor.dequantize,
+   the fused nesterov SGD step on a decoded g: none the same function).
 3. Holds one 4-worker step of a reduced llama3.2-1b on the card against
    the same step on the CPU (plain versions), from the same weights, under
    Nesterov and under Adam (eps 1e-3, where the step is Lipschitz in the
-   gradient: |dp| <= lr * |dg| / eps).
+   gradient: |dp| <= lr * |dg| / eps), and under Nesterov over the int8
+   and the bf16 wires, within a bound built from the grid steps the
+   script measures (a card-vs-CPU difference of an ulp can move an encoded
+   entry by one step).
 4. Main paths: PHubEngine + fit, sharded_ps, full-width full-depth
    llama3.2-1b, global batch 8 x 512 tokens:
    - Nesterov at the TrainConfig defaults, 4 stacked workers, 3 steps
@@ -28,9 +38,14 @@
    - Adam at lr 3e-4, 4 workers, 3 steps, and 1 worker, 1 step
      (adam_opt_chunks);
    - SGD at lr 1e-2, 4 workers, 1 step, and 1 worker, 1 step
-     (sgd_opt_chunks).
-   Each checks finite losses, changed parameters, and that every step's
-   update launched its kernel while every other launch count stayed 0.
+     (sgd_opt_chunks);
+   - over the int8 wire: Nesterov, 4 workers, 3 steps (each step 4
+     quantize_chunks, 3 dequantize_chunks, 1 dequant_agg_opt_chunks) and
+     1 worker, 1 step (1, 1 and agg_opt_chunks); SGD and Adam, 4 workers,
+     1 step each (4 quantize, 4 dequantize and the rule's kernel).
+   Each checks finite losses, changed parameters, and that every kernel
+   launched as often as the path's expected counts say, every other count
+   staying 0.
 5. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
@@ -53,10 +68,15 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 CARD_SOURCE = "src/repro_torch/kernels/agg_opt/csrc/agg_opt.cu"
+QUANT_SOURCE = "src/repro_torch/kernels/quant/csrc/quant.cu"
 REPLACES = {"agg_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:38",
             "multi_agg_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:187",
             "sgd_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:60",
-            "adam_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:100"}
+            "adam_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:100",
+            "quantize_chunks": "src/repro/kernels/quant/kernel.py:34",
+            "dequantize_chunks": "src/repro/kernels/quant/kernel.py:55",
+            "dequant_agg_opt_chunks":
+                "src/repro/kernels/agg_opt/kernel.py:139"}
 
 ARCH, WORKERS, BATCH, SEQ, STEPS = "llama3.2-1b", 4, 8, 512, 3
 ADAM_LR, SGD_LR = 3e-4, 1e-2
@@ -115,9 +135,11 @@ def compare(torch, got, want) -> tuple[float, int]:
     return err, ulp
 
 
-def bound(n: int, n_bytes_per: int, n_ops_per: int) -> tuple[float, str]:
-    """(least ms, what bounds it) for n elements."""
-    t_bytes = n * n_bytes_per / HBM_BYTES_PER_S
+def bound(n: int, n_bytes_per: int, n_ops_per: int,
+          extra_bytes: int = 0) -> tuple[float, str]:
+    """(least ms, what bounds it) for n elements (and ``extra_bytes``
+    beside them, such as one scale a chunk)."""
+    t_bytes = (n * n_bytes_per + extra_bytes) / HBM_BYTES_PER_S
     t_ops = n * n_ops_per / F32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -399,6 +421,148 @@ def rule_kernel_phase(torch, sizes: dict) -> dict:
     return out
 
 
+def diag_span(torch, g, lo: int, hi: int):
+    """Elements [lo, hi) of the block diagonal of the stacked (S, n)
+    buffer g: element i of shard j = i // (n / S) lies in row j."""
+    S, n = g.shape
+    L = n // S
+    return torch.cat([g[j, max(lo, j * L):min(hi, (j + 1) * L)]
+                      for j in range(S) if j * L < hi and lo < (j + 1) * L])
+
+
+def wire_kernel_phase(torch, n: int, ce: int, lr: float, mu: float) -> dict:
+    """The int8 wire's kernels at the int8 W=4 main path's shapes: the
+    whole (n,) stacked domain in chunks of ``ce``; span by span against
+    their plain versions; timings.  Returns the kernels-line entries."""
+    from repro_torch.kernels.agg_opt import (dequant_agg_opt_ref,
+                                             fused_dequant_agg_opt)
+    from repro_torch.kernels.quant import (dequantize_int8,
+                                           dequantize_int8_ref,
+                                           quantize_int8, quantize_int8_ref)
+    check(SPAN % ce == 0, "spans are whole chunks")
+    nc = n // ce
+    x = torch.empty(n, device="cuda")
+    fill(torch, x, "g")
+    x[:ce] = 0                                 # an all-zero chunk: scale 1
+    q, s = quantize_int8(x, chunk_elems=ce)
+    d = dequantize_int8(q, s, chunk_elems=ce)
+    torch.cuda.synchronize()
+    q_err = s_ulp = d_err = d_ulp = 0
+    for _, lo, hi in spans(n):
+        qr, sr = quantize_int8_ref(x[lo:hi], ce)
+        q_err = max(q_err, int((q[lo:hi].int() - qr.int()).abs().max()))
+        s_ulp = max(s_ulp, compare(torch, [s[lo // ce:hi // ce]], [sr])[1])
+        e, u = compare(torch, [d[lo:hi]],
+                       [dequantize_int8_ref(q[lo:hi], s[lo // ce:hi // ce],
+                                            ce)])
+        d_err, d_ulp = max(d_err, e), max(d_ulp, u)
+    log(f"quantize_chunks: x ({nc}, {ce}) f32 -> q int8, scales ({nc},): "
+        f"max |dq| {q_err}, scales max_ulp {s_ulp}; scale of the zero chunk "
+        f"{float(s[0])}")
+    log(f"dequantize_chunks: ({nc}, {ce}) int8 -> f32: max_abs {d_err:.3e} "
+        f"max_ulp {d_ulp}")
+    check(q_err == 0 and s_ulp == 0 and float(s[0]) == 1.0,
+          "quantize_chunks differs from its plain version")
+    check(d_ulp == 0, "dequantize_chunks differs from its plain version")
+    del d
+    out = {}
+
+    def timed(name, run, plain_spans, library, library_label, n_bytes,
+              n_ops, extra_bytes, err, ulp, source):
+        kernel_ms = median_ms(torch, run, reps=10)
+        plain_ms = median_ms(torch, plain_spans, reps=3, warmup=1)
+        library_ms = median_ms(torch, library, reps=5)
+        bound_ms, bound_by = bound(n, n_bytes, n_ops, extra_bytes)
+        log(f"{name}: kernel {kernel_ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({bound_by}, {(n * n_bytes + extra_bytes) / 1e9:.2f} GB), "
+            f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms "
+            f"({library_label})")
+        out[name] = {"name": name, "route": "cuda", "source": source,
+                     "replaces": REPLACES[name], "launches": 0,
+                     "max_abs_err": err, "max_ulp": ulp, "ms": kernel_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "library": library_label}
+
+    def plain_quant():
+        for _, lo, hi in spans(n):
+            quantize_int8_ref(x[lo:hi], ce)
+
+    def plain_dequant():
+        for _, lo, hi in spans(n):
+            dequantize_int8_ref(q[lo:hi], s[lo // ce:hi // ce], ce)
+
+    zeros = torch.zeros(nc, dtype=torch.int64, device="cuda")
+    x2 = x.view(nc, ce)
+    # read 4 bytes and write 1 an element, one f32 scale a chunk; abs, max,
+    # divide, round, two clamps an element
+    timed("quantize_chunks", lambda: quantize_int8(x, chunk_elems=ce),
+          plain_quant,
+          lambda: torch.quantize_per_channel(x2, s, zeros, 0, torch.qint8),
+          "torch.quantize_per_channel qint8 at the kernel's scales: "
+          "multiplies by 1/scale and clamps to [-128, 127], not the same "
+          "function", 5, 6, 4 * nc, float(q_err), s_ulp, QUANT_SOURCE)
+    qt = torch.quantize_per_channel(x2, s, zeros, 0, torch.qint8)
+    del x, x2
+    timed("dequantize_chunks", lambda: dequantize_int8(q, s, chunk_elems=ce),
+          plain_dequant, lambda: qt.dequantize(),
+          "QTensor.dequantize of the per-channel qint8 tensor: "
+          "(q - 0) * scale, the same values", 5, 1, 4 * nc, d_err, d_ulp,
+          QUANT_SOURCE)
+    del qt, zeros
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the tail: p, m, the (4, n) stacked gradients read on the diagonal
+    p = torch.empty(n, device="cuda")
+    m = torch.empty(n, device="cuda")
+    g = torch.empty(WORKERS, n, device="cuda")
+    fill(torch, p, "p")
+    fill(torch, m, "m")
+    for w in range(WORKERS):
+        fill(torch, g[w], "g", w)
+    kw = dict(lr=lr, momentum=mu, inv_n=1.0 / WORKERS, chunk_elems=ce)
+    got = fused_dequant_agg_opt(p, q, s, g, m, **kw)
+    torch.cuda.synchronize()
+    err, ulp = 0.0, 0
+    for _, lo, hi in spans(n):
+        e, u = compare(torch, [t[lo:hi] for t in got], dequant_agg_opt_ref(
+            p[lo:hi], q[lo:hi], s[lo // ce:hi // ce],
+            diag_span(torch, g, lo, hi), m[lo:hi], **kw))
+        err, ulp = max(err, e), max(ulp, u)
+    del got
+    log(f"dequant_agg_opt_chunks: p/m ({nc}, {ce}) f32, q int8, g_own on "
+        f"the diagonal of g ({WORKERS}, {nc}, {ce}): max_abs {err:.3e} "
+        f"max_ulp {ulp}")
+    check(ulp == 0, f"dequant_agg_opt_chunks differs from its plain version "
+                    f"(max_ulp {ulp}); the kernel claims bitwise")
+
+    def plain_tail():
+        for _, lo, hi in spans(n):
+            dequant_agg_opt_ref(p[lo:hi], q[lo:hi], s[lo // ce:hi // ce],
+                                diag_span(torch, g, lo, hi), m[lo:hi], **kw)
+
+    lp = torch.nn.Parameter(p.clone())
+    sgd = torch.optim.SGD([lp], lr=lr, momentum=mu, nesterov=True,
+                          fused=True)
+    dq = dequantize_int8(q, s, chunk_elems=ce)
+
+    def library_step():
+        lp.grad = dq
+        sgd.step()
+    # read p, m, g_own (4 bytes each) and q (1), write p and m; per element
+    # a product, a sum and a product for g, then the 5 of Nesterov
+    timed("dequant_agg_opt_chunks",
+          lambda: fused_dequant_agg_opt(p, q, s, g, m, **kw), plain_tail,
+          library_step, "torch.optim.SGD nesterov fused, on the decoded "
+          "partial as g: not the same function (no own rows, no mean)",
+          21, 9, 4 * nc, err, ulp, CARD_SOURCE)
+    del p, m, g, q, s, lp, sgd, dq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def tree_to(tree: dict, device) -> dict:
     return {k: tree_to(v, device) if isinstance(v, dict)
             else v.detach().clone().to(device) for k, v in tree.items()}
@@ -461,21 +625,107 @@ def reference_phase(torch, optimizer: str) -> None:
                            f"{dparam} > {bound}")
 
 
-def main_path(torch, workers: int, steps: int, kernel: str,
-              optimizer: str = "nesterov") -> int:
-    """PHubEngine + fit on the full model under ``optimizer``; returns how
-    often ``kernel`` launched in that run (every other count must be 0)."""
+def wire_reference_phase(torch, wire_name: str) -> None:
+    """One 4-worker Nesterov step of a reduced model over an encoded wire:
+    card (kernels) vs CPU (plain versions), same weights and batch.  The
+    gradients differ by f32 summation order, and an ulp can move an
+    encoded entry across a rounding boundary: by one grid step of a pushed
+    partial, which moves p' by lr * (1 + mu) / N times it, or by one grid
+    step of the pull's delta.  The bound sums those steps, as measured
+    here on the CPU's run (for int8 a chunk's scale, max|x| / 127; for
+    bf16 an ulp, at most 2^-7 max|x|), plus the identity wire's 1e-4."""
+    from repro_torch.configs import TrainConfig, get_arch, reduced
+    from repro_torch.core import PHubEngine, StackedComm
+    from repro_torch.core.chunking import (flatten_groups, flatten_leaves,
+                                           leaf_paths)
+    from repro_torch.core.pipeline import add_ring_rows_, ring_rows
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import DecoderLM
+
+    cfg = reduced(get_arch(ARCH))
+    tc = TrainConfig(loss_chunk=64, wire_format=wire_name)
+    eng_cpu = PHubEngine(cfg, tc, StackedComm(WORKERS), device="cpu")
+    eng_gpu = PHubEngine(cfg, tc, StackedComm(WORKERS), device="cuda")
+    model_c, opt_c = eng_cpu.init_state()
+    model_g = DecoderLM(cfg, device="cuda",
+                        params=tree_to(model_c.param_tree(), "cuda"))
+    opt_g = eng_gpu.init_opt()
+    check(list(opt_g["float32"]) == ["m", "wire_ef"], "the wire_ef slot")
+    data = SyntheticTokens(cfg, BATCH, 64, seed=0)
+    batch = data.torch_batch(0, "cpu")
+    (group,) = eng_cpu.chunk_plan.groups
+    ce, wire = group.chunk_elems, eng_cpu.wire
+
+    def grid(x):
+        amax = float(x.detach().abs().max())
+        return amax / 127 if wire.has_scales else amax * 2.0 ** -7
+
+    # the CPU's stacked gradients, to measure the push's grid steps
+    loss_fn = eng_cpu.build_loss_fn()
+    paths, leaves = zip(*leaf_paths(model_c.param_tree()))
+    bw = BATCH // WORKERS
+    G = torch.empty(WORKERS, group.padded)
+    for w in range(WORKERS):
+        sl = slice(w * bw, (w + 1) * bw)
+        grads = torch.autograd.grad(loss_fn(model_c, batch["tokens"][sl],
+                                            batch["labels"][sl]), leaves)
+        (G[w],) = flatten_leaves(eng_cpu.chunk_plan,
+                                 dict(zip(paths, grads))).values()
+    acc = ring_rows(G, 1)
+    push = grid(acc)
+    for k in range(2, WORKERS):
+        acc = add_ring_rows_(wire.decode(wire.encode(acc, ce), ce), G, k)
+        push += grid(acc)
+    del acc, grads
+
+    (p_prev,) = flatten_groups(eng_cpu.chunk_plan,
+                               model_c.param_tree()).values()
+    p_prev = p_prev.clone()
+    _, opt_c, met_c = eng_cpu.make_train_step()(model_c, opt_c, batch)
+    _, opt_g, met_g = eng_gpu.make_train_step()(model_g, opt_g,
+                                                data.torch_batch(0, "cuda"))
+    (p_c,) = flatten_groups(eng_cpu.chunk_plan, model_c.param_tree()).values()
+    (p_g,) = flatten_groups(eng_gpu.chunk_plan, model_g.param_tree()).values()
+    ef_c = opt_c["float32"]["wire_ef"].reshape(-1)
+    ef_g = opt_g["float32"]["wire_ef"].reshape(-1).cpu()
+    pull = grid((p_c - p_prev) + ef_c)
+    limit = pull + tc.lr * (1 + tc.momentum) / WORKERS * push + 1e-4
+    dloss = abs(float(met_c["loss"]) - float(met_g["loss"]))
+    dparam = float((p_g.detach().cpu() - p_c.detach()).abs().max())
+    def_ = float((ef_g - ef_c).abs().max())
+    dmom = float((opt_g["float32"]["m"].cpu() - opt_c["float32"]["m"])
+                 .abs().max())
+    log(f"reduced {ARCH}, {WORKERS} workers, 1 nesterov step over the "
+        f"{wire_name} wire, card vs CPU: loss {float(met_g['loss']):.6f} "
+        f"|dloss| {dloss:.3e}, max |dparam| {dparam:.3e}, max |dwire_ef| "
+        f"{def_:.3e}, max |dm| {dmom:.3e}; grid steps: pull {pull:.3e}, "
+        f"push (sum over {WORKERS - 1} hops) {push:.3e} -> bound "
+        f"{limit:.3e}; max |wire_ef| {float(ef_c.abs().max()):.3e}")
+    check(dloss <= 1e-3, f"card loss differs from CPU loss by {dloss}")
+    check(float(ef_c.abs().max()) > 0, "error feedback did not engage")
+    check(dparam <= limit and def_ <= limit,
+          f"card {wire_name} step differs from CPU step: params {dparam}, "
+          f"wire_ef {def_} > {limit}")
+    # m' = g (from zero momentum), so |dm| <= one push grid step / N
+    check(dmom <= push / WORKERS + 1e-2, f"momentum differs by {dmom}")
+
+
+def main_path(torch, workers: int, steps: int, expect: dict,
+              optimizer: str = "nesterov", wire: str = "identity") -> dict:
+    """PHubEngine + fit on the full model under ``optimizer`` over
+    ``wire``; ``expect`` holds each kernel's launches per step and group
+    (every other count must stay 0).  Returns the run's launch counts."""
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.core import PHubEngine, StackedComm
     from repro_torch.core.chunking import leaf_paths
     from repro_torch.data import SyntheticTokens
-    from repro_torch.kernels.agg_opt import LAUNCHES, reset_launches
+    from repro_torch.kernels import agg_opt, quant
     from repro_torch.training import TrainState, fit
 
     cfg = get_arch(ARCH)
     lr = {"adam": ADAM_LR, "sgd": SGD_LR}.get(optimizer)
     tc = TrainConfig(loss_chunk=min(1024, SEQ), optimizer=optimizer,
-                     **({"lr": lr} if lr else {}))
+                     wire_format=wire, **({"lr": lr} if lr else {}))
     engine = PHubEngine(cfg, tc, StackedComm(workers), device="cuda")
     model, opt = engine.init_state()
     state = TrainState(params=model, opt=opt)
@@ -487,8 +737,8 @@ def main_path(torch, workers: int, steps: int, kernel: str,
             "sgd": "no momentum"}[optimizer]
     log(f"main path: {ARCH} {cfg.n_params():,} params, {cfg.n_layers} "
         f"layers, d_model {cfg.d_model}; sharded_ps, {workers} stacked "
-        f"worker(s), batch {BATCH} x {SEQ}, {steps} step(s), {optimizer} at "
-        f"lr {tc.lr}, {rule}; groups "
+        f"worker(s), {wire} wire, batch {BATCH} x {SEQ}, {steps} step(s), "
+        f"{optimizer} at lr {tc.lr}, {rule}; groups "
         + ", ".join(f"{g.key}: {g.total:,} -> {g.padded:,} "
                     f"({g.n_chunks} chunks of {g.chunk_elems})"
                     for g in groups))
@@ -508,28 +758,29 @@ def main_path(torch, workers: int, steps: int, kernel: str,
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.reset_peak_memory_stats()
 
-    reset_launches()
+    agg_opt.reset_launches()
+    quant.reset_launches()
     state = fit(engine, state, data, steps=steps, log_every=0,
                 hooks=[on_step])
-    launches = dict(LAUNCHES)
+    launches = {**agg_opt.LAUNCHES, **quant.LAUNCHES}
     check(all(math.isfinite(x) for x in state.losses),
           f"non-finite loss {state.losses}")
     check(len(state.losses) == steps, f"{len(state.losses)} losses")
     for p, t in leaf_paths(model.param_tree()):
         check(not torch.equal(before[p], t.detach().reshape(-1)[:4096]),
               f"parameter {p} did not change")
-    want = steps * len(groups)
-    check(launches[kernel] == want,
-          f"{kernel} launched {launches[kernel]} times, want {want}")
-    for other, count in launches.items():
-        check(other == kernel or count == 0,
-              f"{other} launched {count} times on the {kernel} path")
-    log(f"{workers}-worker {optimizer} path: every update through {kernel} "
-        f"({launches[kernel]} launches), parameters changed, losses finite")
+    for name, count in launches.items():
+        want = expect.get(name, 0) * steps * len(groups)
+        check(count == want, f"{name} launched {count} times on the "
+                             f"{workers}-worker {optimizer} {wire} path, "
+                             f"want {want}")
+    log(f"{workers}-worker {optimizer} {wire}-wire path: launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + " as expected; parameters changed, losses finite")
     del model, state, engine
     gc.collect()
     torch.cuda.empty_cache()
-    return launches[kernel]
+    return launches
 
 
 def main() -> None:
@@ -549,7 +800,7 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    logs = _build.build(["agg_opt"])
+    logs = _build.build(["agg_opt", "quant"])
     log(f"kernels built from source in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -562,22 +813,49 @@ def main() -> None:
         (group,) = PHubEngine(get_arch(ARCH), tc, StackedComm(W),
                               device="cuda").chunk_plan.groups
         padded[W] = group.padded
+    ce = group.chunk_elems
     kernels = kernel_phase(torch, {"agg_opt_chunks": padded[1],
                                    "multi_agg_opt_chunks": padded[WORKERS]},
                            tc.lr, tc.momentum)
     kernels.update(rule_kernel_phase(torch, padded))
+    kernels.update(wire_kernel_phase(torch, padded[WORKERS], ce, tc.lr,
+                                     tc.momentum))
     reference_phase(torch, "nesterov")
     reference_phase(torch, "adam")
-    kernels["multi_agg_opt_chunks"]["launches"] = main_path(
-        torch, WORKERS, STEPS, "multi_agg_opt_chunks")
-    kernels["agg_opt_chunks"]["launches"] = main_path(
-        torch, 1, 1, "agg_opt_chunks")
-    for name, optimizer, w4_steps in (("adam_opt_chunks", "adam", STEPS),
-                                      ("sgd_opt_chunks", "sgd", 1)):
-        w4 = main_path(torch, WORKERS, w4_steps, name, optimizer)
-        w1 = main_path(torch, 1, 1, name, optimizer)
-        kernels[name]["launches"] = w4 + w1
-        kernels[name]["launches_by_path"] = {f"W={WORKERS}": w4, "W=1": w1}
+    wire_reference_phase(torch, "int8")
+    wire_reference_phase(torch, "bf16")
+
+    # (label, workers, steps, rule, wire, launches per step)
+    paths = (
+        ("W=4", WORKERS, STEPS, "nesterov", "identity",
+         {"multi_agg_opt_chunks": 1}),
+        ("W=1", 1, 1, "nesterov", "identity", {"agg_opt_chunks": 1}),
+        ("W=4", WORKERS, STEPS, "adam", "identity", {"adam_opt_chunks": 1}),
+        ("W=1", 1, 1, "adam", "identity", {"adam_opt_chunks": 1}),
+        ("W=4", WORKERS, 1, "sgd", "identity", {"sgd_opt_chunks": 1}),
+        ("W=1", 1, 1, "sgd", "identity", {"sgd_opt_chunks": 1}),
+        ("int8 W=4", WORKERS, STEPS, "nesterov", "int8",
+         {"quantize_chunks": WORKERS, "dequantize_chunks": WORKERS - 1,
+          "dequant_agg_opt_chunks": 1}),
+        ("int8 W=1", 1, 1, "nesterov", "int8",
+         {"quantize_chunks": 1, "dequantize_chunks": 1,
+          "agg_opt_chunks": 1}),
+        ("int8 W=4", WORKERS, 1, "sgd", "int8",
+         {"quantize_chunks": WORKERS, "dequantize_chunks": WORKERS,
+          "sgd_opt_chunks": 1}),
+        ("int8 W=4", WORKERS, 1, "adam", "int8",
+         {"quantize_chunks": WORKERS, "dequantize_chunks": WORKERS,
+          "adam_opt_chunks": 1}),
+    )
+    for k in kernels.values():
+        k["launches_by_path"] = {}
+    for label, workers, steps, rule, wire, expect in paths:
+        launches = main_path(torch, workers, steps, expect, rule, wire)
+        for name, count in launches.items():
+            if count:
+                by = kernels[name]["launches_by_path"]
+                by[f"{rule} {label}"] = count
+                kernels[name]["launches"] += count
     for k in kernels.values():
         k["verdict"] = "bitwise" if k["max_ulp"] == 0 else "differs"
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -3,15 +3,21 @@
 
     python3 scripts/torch_step_profile.py [--workers 4] [--batch 8] [--seq 512]
         [--optimizer nesterov|adam|sgd] [--lr LR]
+        [--wire-format identity|bf16|f16|int8]
 
 Runs the port's main path (full llama3.2-1b, sharded_ps, W workers stacked
-on one card, Nesterov at the TrainConfig defaults unless another rule is
-asked for) for one warm-up step, one
+on one card, Nesterov at the TrainConfig defaults over the identity wire
+unless another rule or wire is asked for) for one warm-up step, one
 timed step, and one step under torch.profiler.  Prints the timed step's
 wall time, the profiled step's device time by kernel class and by kernel
 (top 15), and the device busy share: kernel time over the timed (not the
 profiled) step's wall time, since the profiler slows the host; kernels of
-one stream do not overlap.  Needs a CUDA card; imports no JAX.
+one stream do not overlap.  Where the device idles it also prints the
+caching allocator's activity in the timed step (segments taken with
+cudaMalloc and returned with cudaFree, and allocations retried after
+freeing the cache: each such retry synchronizes the card) and the host time of the
+CUDA runtime calls in the profiled step.  Needs a CUDA card; imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 CLASSES = (                      # first match wins
     ("update kernel", ("agg_opt_kernel", "sgd_opt_kernel",
-                       "adam_opt_kernel")),
+                       "adam_opt_kernel")),   # dequant_agg_opt_kernel too
+    ("wire codec", ("quantize_kernel",)),     # and dequantize_kernel
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "sm90_")),
     ("reduction", ("reduce",)),
     ("index / gather / scatter", ("index", "gather", "scatter", "embedding")),
@@ -52,6 +59,7 @@ def main(argv=None) -> None:
     ap.add_argument("--optimizer", default="nesterov")
     ap.add_argument("--lr", type=float, default=None,
                     help="default: the TrainConfig's")
+    ap.add_argument("--wire-format", default="identity")
     args = ap.parse_args(argv)
 
     import torch
@@ -69,7 +77,7 @@ def main(argv=None) -> None:
     print(smi.splitlines()[0])
     cfg = get_arch("llama3.2-1b")
     tc = TrainConfig(loss_chunk=min(1024, args.seq),
-                     optimizer=args.optimizer,
+                     optimizer=args.optimizer, wire_format=args.wire_format,
                      **({} if args.lr is None else {"lr": args.lr}))
     engine = PHubEngine(cfg, tc, StackedComm(args.workers), device="cuda")
     model, opt = engine.init_state()
@@ -78,10 +86,15 @@ def main(argv=None) -> None:
     model, opt, _ = step(model, opt, data.torch_batch(0))      # warm-up
     torch.cuda.synchronize()
     batch = data.torch_batch(1)
+    before = torch.cuda.memory_stats()
     t0 = time.perf_counter()
     model, opt, _ = step(model, opt, batch)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
+    after = torch.cuda.memory_stats()
+    alloc = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("segment.all.allocated", "segment.all.freed",
+                       "num_alloc_retries")}
     batch = data.torch_batch(2)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
@@ -92,8 +105,12 @@ def main(argv=None) -> None:
     loss = float(metrics["loss"])
 
     by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    runtime: dict[str, list] = defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            if evt.name.startswith("cuda"):
+                runtime[evt.name][0] += evt.cpu_time_total / 1e3
+                runtime[evt.name][1] += 1
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -104,7 +121,8 @@ def main(argv=None) -> None:
     by_class: dict[str, float] = defaultdict(float)
     for name, (ms, _) in by_name.items():
         by_class[classify(name)] += ms
-    print(f"step: {args.optimizer} at lr {tc.lr}, {args.workers} workers, "
+    print(f"step: {args.optimizer} at lr {tc.lr}, {args.wire_format} wire, "
+          f"{args.workers} workers, "
           f"batch {args.batch} x {args.seq}, wall {step_ms:.1f} ms, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; profiled "
           f"step: loss {loss:.6f}, wall {prof_ms:.1f} ms, device kernel time "
@@ -116,6 +134,13 @@ def main(argv=None) -> None:
     print("device time by kernel class:")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls:<26} {ms:10.2f} ms  {ms / dev_ms:6.1%}")
+    print(f"allocator in the timed step: {alloc['segment.all.allocated']} "
+          f"segments taken (cudaMalloc), {alloc['segment.all.freed']} given "
+          f"back (cudaFree), {alloc['num_alloc_retries']} allocations "
+          f"retried after freeing the cache")
+    print("host time of CUDA runtime calls in the profiled step:")
+    for name, (ms, n) in sorted(runtime.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"  {ms:10.2f} ms  {n:5d} calls  {name}")
     print("top kernels by device time:")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (ms, n) in top:

@@ -3,14 +3,15 @@
 ``ModelConfig`` is the reference's (``repro/configs/base.py``) field for
 field, so one architecture means the same widths in both packages.
 ``TrainConfig`` keeps only the fields this port implements: the
-sharded_ps exchange with one window, tree residency and the three rules
-of the sharded-optimizer protocol (Nesterov, SGD, Adam) without weight
-decay, whose fused aggregate+update always runs through the rule's CUDA
-kernel (the reference's ``use_pallas``/``fused_agg_opt`` switches have no
-counterpart).  The reference's other knobs (wire formats, pipeline
-windows, flat residency, microbatching, the other strategies, weight
-decay, ``grad_clip``) are queued in ROADMAP.md and are not fields here, so
-a config cannot ask for them and be silently ignored.
+sharded_ps exchange with one window, tree residency, the three rules of
+the sharded-optimizer protocol (Nesterov, SGD, Adam) without weight decay,
+whose fused aggregate+update always runs through the rule's CUDA kernel
+(the reference's ``use_pallas``/``fused_agg_opt`` switches have no
+counterpart), and the wire format of the exchange.  The reference's other
+knobs (the DCN tier's wire, pipeline windows, flat residency,
+microbatching, the other strategies, weight decay, ``grad_clip``) are
+queued in ROADMAP.md and are not fields here, so a config cannot ask for
+them and be silently ignored.
 """
 from __future__ import annotations
 
@@ -98,6 +99,9 @@ class TrainConfig:
     # --- PHub exchange (the paper's contribution) ---
     strategy: str = "sharded_ps"      # the other strategies: ROADMAP A7
     chunk_size_bytes: int = 32 * 1024 # paper default: 32 KB (§3.2.3)
+    # the dtype a chunk travels in (core/wire.py): identity | bf16 | f16 |
+    # int8; a non-identity wire adds the f32 ``wire_ef`` slot
+    wire_format: str = "identity"
 
     # --- memory policy ---
     remat: bool = True                # activation checkpointing on blocks

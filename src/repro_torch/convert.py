@@ -6,9 +6,11 @@ port's model from it; ``opt_from_numpy`` takes the reference's optimizer
 slots (``{dtype: {slot: array}}`` of shape ``(mo, S, Lr)`` or
 ``(mo, padded)``, ``repro/core/engine.py`` ``opt_state_shapes``) and lays
 them out as the port's ``(S, state_len)``, any slots in their own dtypes
-(Adam's m/v in the group dtype, k1/k2 f32 in every group).  bfloat16
-arrays (numpy's ``ml_dtypes`` extension type) are carried bit for bit.
-Nothing here imports JAX.
+(Adam's m/v in the group dtype, k1/k2 and an encoded wire's ``wire_ef``
+f32 in every group).  Given the engine's ``exchange_slots``, it checks
+that the reference's state holds exactly those slots, in those dtypes.
+bfloat16 arrays (numpy's ``ml_dtypes`` extension type) are carried bit for
+bit.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -48,17 +50,27 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, *,
     return DecoderLM(cfg, device=device, params=convert(tree))
 
 
-def opt_from_numpy(plan: ChunkPlan, opt: dict, *, device="cuda") -> dict:
-    """The reference's optimizer slots -> {dtype: {slot: (S, L) tensor}}."""
+def opt_from_numpy(plan: ChunkPlan, opt: dict, *, slots=None,
+                   device="cuda") -> dict:
+    """The reference's optimizer slots -> {dtype: {slot: (S, L) tensor}}.
+    ``slots``: the engine's ``exchange_slots`` (SlotSpecs) to check the
+    slot names and dtypes against, or None."""
     out = {}
     for g in plan.groups:
-        slots = {}
+        if slots is not None:
+            want = {s.name: s.resolve_dtype(g.dtype) for s in slots}
+            got = {n: _tensor(np.asarray(a).reshape(-1)[:1], "cpu").dtype
+                   for n, a in opt[g.key].items()}
+            if got != want:
+                raise ValueError(f"{g.key}: slots {got} are not the "
+                                 f"engine's {want}")
+        res = {}
         for name, a in opt[g.key].items():
             a = np.asarray(a)
             if a.shape[0] != 1 or a[0].size != g.padded:
                 raise ValueError(
                     f"{g.key}/{name}: shape {a.shape} is not (1, S, Lr) or "
                     f"(1, padded) with padded={g.padded}")
-            slots[name] = _tensor(a.reshape(g.n_shards, g.shard_len), device)
-        out[g.key] = slots
+            res[name] = _tensor(a.reshape(g.n_shards, g.shard_len), device)
+        out[g.key] = res
     return out

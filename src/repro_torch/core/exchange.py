@@ -5,7 +5,8 @@ reduce-scatter, the fused agg+opt on the chunks each shard owns, and the
 all-gather of the updated chunks.  On one card the W workers' gradients
 are the rows of one ``(W, padded)`` tensor and every shard lives there
 too, so the three steps collapse into one pass over the whole domain.
-The other strategies are ROADMAP.md queue A item 7.
+The other strategies are ROADMAP.md queue A item 7.  This is the identity
+wire's path; an encoded wire takes ``core/pipeline.py::run_wire_exchange``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Callable
 import torch
 
 from .comm import StackedComm
+from .pipeline import PIPELINED_STRATEGIES
 
 STRATEGIES = ("allreduce", "sharded_ps", "centralized_ps", "hierarchical",
               "fsdp_stream")
@@ -32,6 +34,17 @@ def check_strategy(strategy: str) -> None:
         raise NotImplementedError(
             f"strategy {strategy!r} is not ported yet (ROADMAP.md queue A "
             f"item 7)")
+
+
+def check_wire(strategy: str, wire) -> None:
+    """Raise unless ``strategy`` can carry ``wire``: an encoded wire needs
+    a chunk strategy with a shard dimension, whose ring it re-encodes at
+    every hop (``core/pipeline.py``)."""
+    if not wire.is_identity and strategy not in PIPELINED_STRATEGIES:
+        raise ValueError(
+            f"wire format {wire.name!r} needs a chunk strategy with a shard "
+            f"dimension {PIPELINED_STRATEGIES}; {strategy!r} exchanges "
+            f"leaves or full vectors in the state dtype")
 
 
 def exchange_group(comm: StackedComm, g: torch.Tensor, p: torch.Tensor,

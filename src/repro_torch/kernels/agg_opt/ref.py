@@ -12,9 +12,12 @@ PyTorch rounds to f32 once, as the wrappers round them for the kernels;
 through ``sqrt_rn``: PyTorch's vectorised CPU square root (AVX-512) is one
 ulp off the IEEE root on some inputs.
 
-Each function takes ``g`` pre-aggregated (same shape as ``p``) or stacked
-``(W, *p.shape)``; the stacked form is averaged with ``worker_mean`` first.
-They are functional: the slots they are given are not written.
+Each rule takes ``g`` pre-aggregated (same shape as ``p``, in ``p``'s
+dtype or f32) or stacked ``(W, *p.shape)``; the stacked form is averaged
+with ``worker_mean`` first.  ``dequant_agg_opt_ref``, the int8 wire's tail,
+takes the owner's own rows contiguous or as the block diagonal of the
+stacked buffer (``block_diagonal``).  They are functional: the slots they
+are given are not written.
 """
 from __future__ import annotations
 
@@ -91,3 +94,28 @@ def adam_opt_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     step = torch.where(k1n > 0, step, torch.zeros_like(step))
     return ((p.float() - step).to(p.dtype), m2.to(m.dtype), v2.to(v.dtype),
             k1n.to(k1.dtype), k2n.to(k2.dtype))
+
+
+def block_diagonal(g: torch.Tensor) -> torch.Tensor:
+    """(S, n) stacked rows -> (n,): shard j's run [j*L, (j+1)*L) of row j,
+    L = n / S.  On the stacked buffer that is every shard owner's own
+    gradient contribution."""
+    S, n = g.shape
+    L = n // S
+    if S * L != n:
+        raise ValueError(f"{n} elements do not split into {S} shards")
+    return torch.cat([g[j, j * L:(j + 1) * L] for j in range(S)])
+
+
+def dequant_agg_opt_ref(p: torch.Tensor, q: torch.Tensor,
+                        scales: torch.Tensor, g_own: torch.Tensor,
+                        m: torch.Tensor, *, lr: float, momentum: float,
+                        inv_n: float, chunk_elems: int):
+    """``dequant_agg_opt_chunks``' body: ``g = (q * s + g_own) * inv_n``
+    with ``s`` the chunk's scale, then the Nesterov update.  ``g_own`` is
+    (n,) or the stacked (S, n) buffer, read on its block diagonal.
+    Returns (p', m')."""
+    own = block_diagonal(g_own) if g_own.dim() == p.dim() + 1 else g_own
+    deq = (q.float().reshape(-1, chunk_elems)
+           * scales.float()[:, None]).reshape(-1)
+    return _nesterov(p, (deq + own.float()) * inv_n, m, lr, momentum)

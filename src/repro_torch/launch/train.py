@@ -26,6 +26,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--strategy", default="sharded_ps")
     ap.add_argument("--chunk-kb", type=int, default=32)
+    ap.add_argument("--wire-format", default="identity",
+                    help="identity | bf16 | f16 | int8 (core/wire.py)")
     ap.add_argument("--workers", type=int, default=1,
                     help="workers stacked on the one device")
     ap.add_argument("--device", default="cuda")
@@ -42,12 +44,14 @@ def main(argv=None):
         cfg = reduced(cfg)
     tc = TrainConfig(strategy=args.strategy, lr=args.lr,
                      chunk_size_bytes=args.chunk_kb * 1024,
+                     wire_format=args.wire_format,
                      loss_chunk=min(1024, args.seq))
     engine = PHubEngine(cfg, tc, StackedComm(args.workers), device=args.device)
     params, opt = engine.init_state()
     data = SyntheticTokens(cfg, args.batch, args.seq, seed=tc.seed)
     print(f"[train] arch={cfg.arch_id} params={cfg.n_params() / 1e6:.1f}M "
           f"workers={args.workers} strategy={tc.strategy} "
+          f"wire={tc.wire_format} "
           f"device={engine.device}")
     state = fit(engine, TrainState(params=params, opt=opt), data,
                 steps=args.steps, log_every=args.log_every)

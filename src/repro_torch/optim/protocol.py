@@ -15,6 +15,11 @@ tall aggregation the stacked exchange fuses into the update
 (``core/exchange.py``).  It returns ``(p', slots')``; Adam's kernel updates
 its slots in place and returns the same tensors.  ``tuple_update`` closes
 the plain rule over its coefficients, for a pre-aggregated ``g``.
+``kernel_dequant_update`` is the counterpart of ``pallas_dequant_update``:
+the int8 wire's tail (decode the ring partial, add the owner's own rows,
+take the mean, run the rule) in one kernel, ``dequant_agg_opt_chunks``
+for Nesterov and ``None`` for the rules that have no such kernel (the
+exchange then decodes and calls ``kernel_update``).
 
 As in the reference, ``update`` is the protocol's body and the kernel
 computes the TPU kernel's body; they agree to rounding, not bitwise.  For
@@ -76,6 +81,14 @@ class ShardedOptimizer:
         """The rule through its CUDA kernel at scalar coefficients."""
         raise NotImplementedError
 
+    def kernel_dequant_update(self, chunk_elems: int, coefs: tuple,
+                              inv_n: float) -> Optional[Callable]:
+        """``upd(p, (q, scales), g_own, slots) -> (p', slots')``: the int8
+        ring partial decoded, the owner's own rows ``g_own`` added, the
+        mean taken as ``* inv_n`` and the rule run, in one kernel; or
+        None where the rule has no such kernel."""
+        return None
+
 
 @dataclass(frozen=True)
 class NesterovOptimizer(ShardedOptimizer):
@@ -101,6 +114,18 @@ class NesterovOptimizer(ShardedOptimizer):
                      else fused_agg_opt)
             p2, m2 = fused(p, g, slots[0], lr=lr, momentum=mu,
                            chunk_elems=chunk_elems)
+            return p2, (m2,)
+        return upd
+
+    def kernel_dequant_update(self, chunk_elems, coefs, inv_n):
+        from ..kernels.agg_opt.ops import fused_dequant_agg_opt
+        lr, mu = coefs
+
+        def upd(p, parts, g_own, slots):
+            q, scales = parts
+            p2, m2 = fused_dequant_agg_opt(
+                p, q, scales, g_own, slots[0], lr=lr, momentum=mu,
+                inv_n=inv_n, chunk_elems=chunk_elems)
             return p2, (m2,)
         return upd
 
