@@ -16,7 +16,15 @@
      torch.optim.SGD(fused) and torch.optim.Adam(fused).  Adam updates its
      slots in place, so its inputs are drawn span by span from seeds and
      drawn again for the comparison, which runs span by span.
-   Small bf16, W=3 and ragged cases are held bitwise too.
+   Small bf16, W=3 and ragged cases are held bitwise too.  The stacked
+   rules (multi_agg_opt_chunks, and sgd/adam_opt_chunks at W=4) run again
+   with the mean's divisor read from the card (set to W: the same bits).
+   health_chunks (the sanity gate's sum of squares per chunk) at the
+   gated W=4 step's domain (4 x 150860 chunks of 8192) with a NaN, an Inf,
+   an overflowing (1e20) and an all-zero chunk in it, and at W=1 (150857
+   chunks), against its plain version (the kernel's order, step by step),
+   beside torch.linalg.vector_norm per chunk (it takes the root too: a
+   yardstick); a small bf16 case.
    The int8 wire's kernels at the int8 W=4 main path's shapes (the whole
    stacked domain, 150860 chunks of 8192): quantize_chunks and
    dequantize_chunks (payload and scales equal), and dequant_agg_opt_chunks
@@ -30,8 +38,20 @@
    gradient: |dp| <= lr * |dg| / eps), and under Nesterov over the int8
    and the bf16 wires, within a bound built from the grid steps the
    script measures (a card-vs-CPU difference of an ulp can move an encoded
-   entry by one step).
-4. Main paths: PHubEngine + fit, sharded_ps, full-width full-depth
+   entry by one step).  The sanity-gated step with worker 1 NaN-poisoned,
+   under Nesterov, SGD and Adam, at f32 activations (so the two devices'
+   gradients differ by summation order only): ok_mask [1, 0, 1, 1] and
+   n_live 3 exact, grad_norms within rtol 1e-5, parameters within the
+   rule's bound above (SGD's first step moves less than Nesterov's: the
+   Nesterov bound); on the card the gated step equals the static k-of-n
+   step with worker 1 dead, bitwise.
+4. Rollback, on a reduced llama3.2-1b (a full-model snapshot is 9.9 GB of
+   disk I/O, not device work): 4 workers, a snapshot every step, keep_k 2,
+   every worker NaN-pushing for divergence_patience steps and the newest
+   snapshot truncated: the supervisor skips the corrupt snapshot by name,
+   restores the last verified one (parameters and every slot bitwise
+   equal to load_checkpoint's) and finishes.
+5. Main paths: PHubEngine + fit, sharded_ps, full-width full-depth
    llama3.2-1b, global batch 8 x 512 tokens:
    - Nesterov at the TrainConfig defaults, 4 stacked workers, 3 steps
      (multi_agg_opt_chunks), and 1 worker, 1 step (agg_opt_chunks);
@@ -42,11 +62,16 @@
    - over the int8 wire: Nesterov, 4 workers, 3 steps (each step 4
      quantize_chunks, 3 dequantize_chunks, 1 dequant_agg_opt_chunks) and
      1 worker, 1 step (1, 1 and agg_opt_chunks); SGD and Adam, 4 workers,
-     1 step each (4 quantize, 4 dequantize and the rule's kernel).
+     1 step each (4 quantize, 4 dequantize and the rule's kernel);
+   - the self-healing path: fit(supervisor=TrainSupervisor), Nesterov, 4
+     workers, 4 steps, a FaultSchedule NaN-poisoning worker 1 at steps 1
+     and 2, demote_after 2: ok_mask [1,1,1,1], [1,0,1,1], [1,0,1,1], a
+     demotion at step 2, step 3 on the static 3-of-4 program (each step
+     one health_chunks and one multi_agg_opt_chunks launch).
    Each checks finite losses, changed parameters, and that every kernel
    launched as often as the path's expected counts say, every other count
    staying 0.
-5. Prints the kernels line, then the device line last.
+6. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 card and refuses to run without one.
@@ -76,12 +101,15 @@ REPLACES = {"agg_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:38",
             "quantize_chunks": "src/repro/kernels/quant/kernel.py:34",
             "dequantize_chunks": "src/repro/kernels/quant/kernel.py:55",
             "dequant_agg_opt_chunks":
-                "src/repro/kernels/agg_opt/kernel.py:139"}
+                "src/repro/kernels/agg_opt/kernel.py:139",
+            "health_chunks": "src/repro/kernels/agg_opt/kernel.py:173"}
 
 ARCH, WORKERS, BATCH, SEQ, STEPS = "llama3.2-1b", 4, 8, 512, 3
 ADAM_LR, SGD_LR = 3e-4, 1e-2
 ADAM_REF_EPS = 1e-3              # card-vs-CPU Adam step (docstring, 3.)
 SPAN = 1 << 26                   # elements per span of the Adam/SGD checks
+NORM_RTOL = 1e-5                 # card vs CPU grad_norms (f32 sums' order)
+POISONED = 1                     # the worker the gated phases poison
 
 
 def log(msg: str) -> None:
@@ -179,6 +207,17 @@ def kernel_phase(torch, sizes: dict, lr: float, mu: float) -> dict:
             f"max_abs {err:.3e} max_ulp {ulp}")
         check(ulp == 0, f"{name} differs from its plain version "
                         f"(max_ulp {ulp}); the kernel claims bitwise")
+        divisor_ms = None
+        if W > 1:
+            # the mean's divisor read from the card, set to W: same bits
+            d = torch.tensor([float(W)], device=dev)
+            got = kern(pp, gg, mm, lr=lr, momentum=mu)
+            got_d = kern(pp, gg, mm, lr=lr, momentum=mu, divisor=d)
+            check(all(torch.equal(a, b) for a, b in zip(got, got_d)),
+                  f"{name} with the device divisor {W} differs from /W")
+            del got, got_d
+            divisor_ms = median_ms(torch, lambda: kern(
+                pp, gg, mm, lr=lr, momentum=mu, divisor=d), reps=10)
         kernel_ms = median_ms(torch, lambda: kern(pp, gg, mm, lr=lr,
                                                   momentum=mu), reps=10)
         plain_ms = median_ms(torch, lambda: plain(pp, gg, mm, lr=lr,
@@ -196,7 +235,10 @@ def kernel_phase(torch, sizes: dict, lr: float, mu: float) -> dict:
         torch.cuda.empty_cache()
         n_bytes = (W + 4) * pp.element_size()
         bound_ms, bound_by = bound(pp.numel(), n_bytes, W - 1 + 7)
-        log(f"{name}: kernel {kernel_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        log(f"{name}: kernel {kernel_ms:.3f} ms"
+            + (f" ({divisor_ms:.3f} ms with the device divisor)"
+               if divisor_ms else "")
+            + f", bound {bound_ms:.3f} ms "
             f"({bound_by}, {n_bytes * pp.numel() / 1e9:.2f} GB), plain "
             f"{plain_ms:.3f} ms, "
             f"library {library_ms:.3f} ms (SGD nesterov fused"
@@ -206,6 +248,8 @@ def kernel_phase(torch, sizes: dict, lr: float, mu: float) -> dict:
                      "max_abs_err": err, "max_ulp": ulp, "ms": kernel_ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms}
+        if divisor_ms:
+            out[name]["divisor_ms"] = divisor_ms
     del p, m, g, pp, gg, mm, cases
     gc.collect()
     torch.cuda.empty_cache()
@@ -300,7 +344,7 @@ def rule_kernel_phase(torch, sizes: dict) -> dict:
                 *(draw(torch, k, hi - lo, span_seed(k, 0, i))
                   for k in KINDS[2:]))
 
-    def held(name, W, n, run, plain, n_bytes, n_ops, state):
+    def held(name, W, n, run, plain, n_bytes, n_ops, state, timed=True):
         """Run the kernel once over n elements, hold every output against
         ``plain`` on the span's inputs drawn again, then time both (the
         plain version span by span over the current ``state``)."""
@@ -313,11 +357,14 @@ def rule_kernel_phase(torch, sizes: dict) -> dict:
             err, ulp = max(err, e), max(ulp, u)
         del got
         log(f"{name} W={W}: p ({n // 8192}, 8192) f32, g "
-            f"{(W, n // 8192, 8192) if W > 1 else (n // 8192, 8192)}: "
+            f"{(W, n // 8192, 8192) if W > 1 else (n // 8192, 8192)}"
+            f"{'' if timed else ', divisor read from the card'}: "
             f"max_abs {err:.3e} max_ulp {ulp}")
         check(ulp == 0, f"{name} W={W} differs from its plain version "
                         f"(max_ulp {ulp}); the kernel claims bitwise")
         kernel_ms = median_ms(torch, run, reps=10)
+        if not timed:
+            return {"divisor_ms": kernel_ms}
 
         def plain_spans():
             for _, lo, hi in spans(n):
@@ -348,6 +395,22 @@ def rule_kernel_phase(torch, sizes: dict) -> dict:
                 lambda: (fused_sgd_opt(pp, gg, lr=SGD_LR),),
                 lambda p_, g_, *_: (sgd_opt_ref(p_, g_, lr=SGD_LR),),
                 4 * (W + 2), W + 2, (pp, gg))}
+        if W > 1:
+            # the mean's divisor read from the card, set to W: the plain
+            # version divides by W too, so the bits are the /W path's
+            d = torch.tensor([float(W)], device="cuda")
+            fill_slots()
+            nums["adam_opt_chunks"].update(held(
+                "adam_opt_chunks", W, n,
+                lambda: (fused_adam_opt(pp, gg, *ss, divisor=d,
+                                        **adam_kw)[0], *ss),
+                lambda *a: adam_opt_ref(*a, **adam_kw),
+                0, 0, (), timed=False))
+            nums["sgd_opt_chunks"].update(held(
+                "sgd_opt_chunks", W, n,
+                lambda: (fused_sgd_opt(pp, gg, lr=SGD_LR, divisor=d),),
+                lambda p_, g_, *_: (sgd_opt_ref(p_, g_, lr=SGD_LR),),
+                0, 0, (), timed=False))
         for name, e in nums.items():
             if W > 1:
                 out[name].update(e)
@@ -381,6 +444,9 @@ def rule_kernel_phase(torch, sizes: dict) -> dict:
             nums["library_ms"] = library_ms
     for name, e in out.items():
         for W, nums in ((WORKERS, e), (1, e["w1"])):
+            if "divisor_ms" in nums:
+                log(f"{name} W={W}: {nums['divisor_ms']:.3f} ms with the "
+                    f"device divisor")
             log(f"{name} W={W}: kernel {nums['ms']:.3f} ms, bound "
                 f"{nums['bound_ms']:.3f} ms ({nums['bound_by']}), plain "
                 f"{nums['plain_ms']:.3f} ms, library {nums['library_ms']:.3f}"
@@ -563,50 +629,210 @@ def wire_kernel_phase(torch, n: int, ce: int, lr: float, mu: float) -> dict:
     return out
 
 
+def health_kernel_phase(torch, sizes: dict, ce: int) -> dict:
+    """health_chunks at the gated steps' domains: the stacked (W, padded)
+    buffer's W * n_chunks rows at W=4 and the n_chunks rows at W=1, each a
+    chunk of ``ce`` f32; partials against the plain version span by span
+    (it does not write its input, so the same tensor is read again);
+    timings.  Returns the kernels-line entry (W=4 at the top, W=1 under
+    "w1")."""
+    from repro_torch.kernels.agg_opt import (fused_health_scan,
+                                             health_chunks_ref,
+                                             health_partials)
+    check(SPAN % ce == 0, "spans are whole chunks")
+    n4 = sizes[WORKERS]
+    g = torch.empty(WORKERS, n4, device="cuda")
+    for w in range(WORKERS):
+        fill(torch, g[w], "g", w)
+    rows4 = g.view(-1, ce)
+    # special chunks of worker 0: one NaN, one Inf, 1e20 values whose
+    # squares overflow, and all zeros
+    rows4[0, 7] = float("nan")
+    rows4[1, 100] = float("inf")
+    rows4[2] = 1e20
+    rows4[3] = 0
+    out = {"name": "health_chunks", "route": "cuda", "source": CARD_SOURCE,
+           "replaces": REPLACES["health_chunks"], "launches": 0}
+    for W, rows in ((WORKERS, rows4), (1, g[1, :sizes[1]].view(-1, ce))):
+        nc = rows.shape[0]
+        got = health_partials(rows)
+        torch.cuda.synchronize()
+        err, ulp, nonfinite_ok = 0.0, 0, True
+        for _, lo, hi in spans(nc * ce):
+            a, b = got[lo // ce:hi // ce], health_chunks_ref(
+                rows[lo // ce:hi // ce])
+            fin = torch.isfinite(b)
+            nonfinite_ok &= (torch.equal(torch.isnan(a), torch.isnan(b))
+                             and torch.equal(torch.isposinf(a),
+                                             torch.isposinf(b)))
+            e, u = compare(torch, [a[fin]], [b[fin]])
+            err, ulp = max(err, e), max(ulp, u)
+        if W == WORKERS:
+            special = got[:4].tolist()
+            check(math.isnan(special[0]) and special[1] == math.inf
+                  and special[2] == math.inf and special[3] == 0.0,
+                  f"special chunks: {special}, want [nan, inf, inf, 0]")
+            sums = fused_health_scan(g, chunk_elems=ce)
+            check(math.isnan(float(sums[0]))
+                  and bool(torch.isfinite(sums[1:]).all()),
+                  f"per-worker sums {sums.tolist()}")
+        log(f"health_chunks W={W}: g ({nc}, {ce}) f32 -> ({nc},) partials: "
+            f"max_abs {err:.3e} max_ulp {ulp}, NaN and Inf where the plain "
+            f"version has them: {nonfinite_ok}"
+            + (f"; special chunks {special}" if W == WORKERS else ""))
+        check(ulp == 0 and nonfinite_ok, f"health_chunks W={W} differs from "
+                                         f"its plain version (max_ulp {ulp})")
+        del got
+        kernel_ms = median_ms(torch, lambda: health_partials(rows), reps=10)
+
+        def plain_spans():
+            for _, lo, hi in spans(nc * ce):
+                health_chunks_ref(rows[lo // ce:hi // ce])
+        plain_ms = median_ms(torch, plain_spans, reps=3, warmup=1)
+        library_ms = median_ms(torch, lambda: torch.linalg.vector_norm(
+            rows, dim=1, dtype=torch.float32), reps=10)
+        # read 4 bytes an element, write 4 a chunk; a product and a sum
+        bound_ms, bound_by = bound(nc * ce, 4, 2, 4 * nc)
+        log(f"health_chunks W={W}: kernel {kernel_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by}, {(4 * nc * ce + 4 * nc) / 1e9:.2f}"
+            f" GB), plain {plain_ms:.3f} ms, library {library_ms:.3f} ms "
+            f"(torch.linalg.vector_norm per chunk: takes the root too)")
+        e = {"max_abs_err": err, "max_ulp": ulp, "ms": kernel_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": library_ms,
+             "library": "torch.linalg.vector_norm(rows, dim=1): the root of "
+                        "each chunk's sum of squares, not the same function"}
+        if W == WORKERS:
+            out.update(e)
+        else:
+            out["w1"] = e
+    del g, rows4, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a small bf16 case: a bf16 group's chunk (16384), a ragged tail
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    gb = torch.randn(2, 16384 * 5 + 77, device="cuda",
+                     generator=gen).bfloat16()
+    rows = torch.nn.functional.pad(gb, (0, -gb.shape[1] % 16384)) \
+        .reshape(-1, 16384)
+    got, want = health_partials(rows), health_chunks_ref(rows)
+    ulp = compare(torch, [got], [want])[1]
+    sums_ok = torch.equal(fused_health_scan(gb, chunk_elems=16384),
+                          want.view(2, -1).sum(1))
+    log(f"health_chunks small bf16 case {tuple(rows.shape)}: max_ulp {ulp}, "
+        f"sums equal {sums_ok}")
+    check(ulp == 0 and sums_ok, "health_chunks bf16 case not bitwise")
+    return out
+
+
 def tree_to(tree: dict, device) -> dict:
     return {k: tree_to(v, device) if isinstance(v, dict)
             else v.detach().clone().to(device) for k, v in tree.items()}
 
 
-def reference_phase(torch, optimizer: str) -> None:
+def reference_phase(torch, optimizer: str, gated: bool = False) -> None:
     """One 4-worker step of a reduced model: card (kernel) vs CPU (plain
-    versions), same weights and batch."""
+    versions), same weights and batch.  ``gated``: the sanity-gated step
+    with worker ``POISONED`` NaN-injected; its verdicts must agree, and on
+    the card it must equal the static k-of-n step with that worker dead,
+    bitwise.  The gated step runs at f32 activations: with bf16 ones the
+    two devices' gradients differ by up to 2e-2 of a leaf's largest entry
+    (tests/test_torch_model.py), so their norms would test the model's
+    precision, not the scan; at f32 they differ by summation order only,
+    and the norms are held within NORM_RTOL."""
+    import dataclasses
+
+    import numpy as np
     from repro_torch.configs import TrainConfig, get_arch, reduced
     from repro_torch.core import PHubEngine, StackedComm
     from repro_torch.core.chunking import leaf_paths
     from repro_torch.data import SyntheticTokens
+    from repro_torch.elastic import Membership
     from repro_torch.models import DecoderLM
+    from repro_torch.resilience import SanityConfig
 
     cfg = reduced(get_arch(ARCH))
+    if gated:
+        cfg = dataclasses.replace(cfg, dtype="float32")
     if optimizer == "adam":
         tc = TrainConfig(loss_chunk=64, optimizer="adam", lr=ADAM_LR,
                          adam_eps=ADAM_REF_EPS)
+    elif optimizer == "sgd":
+        tc = TrainConfig(loss_chunk=64, optimizer="sgd", lr=SGD_LR)
     else:
         tc = TrainConfig(loss_chunk=64)
     eng_cpu = PHubEngine(cfg, tc, StackedComm(WORKERS), device="cpu")
     eng_gpu = PHubEngine(cfg, tc, StackedComm(WORKERS), device="cuda")
     model_c, opt_c = eng_cpu.init_state()
-    model_g = DecoderLM(cfg, device="cuda",
-                        params=tree_to(model_c.param_tree(), "cuda"))
+    init = model_c.param_tree()
+    model_g = DecoderLM(cfg, device="cuda", params=tree_to(init, "cuda"))
     opt_g = eng_gpu.init_opt()
     data = SyntheticTokens(cfg, BATCH, 64, seed=0)
-    _, opt_c, met_c = eng_cpu.make_train_step()(model_c, opt_c,
-                                                data.torch_batch(0, "cpu"))
-    _, opt_g, met_g = eng_gpu.make_train_step()(model_g, opt_g,
-                                                data.torch_batch(0, "cuda"))
+    extra = ()
+    if gated:
+        inject = np.ones(WORKERS, np.float32)
+        inject[POISONED] = np.nan
+        extra = ({"norm_hi": np.float32(np.inf), "inject": inject},)
+        sanity = SanityConfig(allow_injection=True)
+        # the static k-of-n step from the same weights, on the card
+        eng_dead = PHubEngine(cfg, tc, StackedComm(WORKERS), device="cuda")
+        model_d = DecoderLM(cfg, device="cuda", params=tree_to(init, "cuda"))
+        _, opt_d, met_d = eng_dead.make_train_step(
+            membership=Membership.full(WORKERS).leave(POISONED))(
+                model_d, eng_dead.init_opt(), data.torch_batch(0, "cuda"))
+    else:
+        sanity = None
+    _, opt_c, met_c = eng_cpu.make_train_step(sanity=sanity)(
+        model_c, opt_c, data.torch_batch(0, "cpu"), *extra)
+    _, opt_g, met_g = eng_gpu.make_train_step(sanity=sanity)(
+        model_g, opt_g, data.torch_batch(0, "cuda"), *extra)
+    if gated:
+        ok_c, ok_g = met_c["ok_mask"].tolist(), met_g["ok_mask"].cpu().tolist()
+        nl_c, nl_g = float(met_c["n_live"]), float(met_g["n_live"])
+        want_ok = [0.0 if w == POISONED else 1.0 for w in range(WORKERS)]
+        norms_c = met_c["grad_norms"].numpy()
+        norms_g = met_g["grad_norms"].cpu().numpy()
+        live = [w for w in range(WORKERS) if w != POISONED]
+        drel = float(np.max(np.abs(norms_g[live] - norms_c[live])
+                            / norms_c[live]))
+        log(f"gated {optimizer} step, worker {POISONED} NaN-injected: "
+            f"ok_mask card {ok_g} CPU {ok_c}, n_live card {nl_g:g} CPU "
+            f"{nl_c:g}, grad_norms card {norms_g.tolist()} (max rel diff "
+            f"to the CPU's {drel:.2e})")
+        check(ok_c == ok_g == want_ok and nl_c == nl_g == WORKERS - 1,
+              "gated verdicts differ from the expected [1, 0, 1, 1], n_live 3")
+        check(np.isnan(norms_c[POISONED]) and np.isnan(norms_g[POISONED])
+              and drel <= NORM_RTOL, f"grad_norms differ by {drel}")
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            leaf_paths(model_g.param_tree()), leaf_paths(model_d.param_tree())))
+        same &= all(torch.equal(opt_g["float32"][n], opt_d["float32"][n])
+                    for n in opt_g["float32"])
+        same &= torch.equal(met_g["loss"], met_d["loss"])
+        log(f"  gated card step == static k-of-n card step (worker "
+            f"{POISONED} dead), parameters, slots and loss bitwise: {same}")
+        check(same, "the gated step differs from the static k-of-n step")
+        del model_d, opt_d, eng_dead
     dloss = abs(float(met_c["loss"]) - float(met_g["loss"]))
     dparam = max(float((a.detach().cpu() - b.detach()).abs().max())
                  for (_, a), (_, b) in zip(leaf_paths(model_g.param_tree()),
                                            leaf_paths(model_c.param_tree())))
     dslot = {n: float((t.cpu().float() - opt_c["float32"][n].float())
                       .abs().max()) for n, t in opt_g["float32"].items()}
-    log(f"reduced {ARCH} (d_model={cfg.d_model}, {cfg.n_layers} layers), "
-        f"{WORKERS} workers, 1 {optimizer} step, card vs CPU: loss "
+    log(f"reduced {ARCH} (d_model={cfg.d_model}, {cfg.n_layers} layers, "
+        f"{cfg.dtype} activations), {WORKERS} workers, 1 "
+        f"{'gated ' if gated else ''}{optimizer} step, card vs CPU: loss "
         f"{float(met_g['loss']):.6f} |dloss| {dloss:.3e}, max |dparam| "
         f"{dparam:.3e}, "
         + ", ".join(f"max |d{n}| {d:.3e}" for n, d in dslot.items()))
     # f32 products summed in another order on each device, bf16 activations
     check(dloss <= 1e-3, f"card loss differs from CPU loss by {dloss}")
+    if optimizer == "sgd":
+        # p' = p - lr g moves less than Nesterov's first p - lr (1 + mu) g
+        check(dparam <= 1e-4, f"card SGD step differs from CPU step: "
+                              f"params {dparam}")
+        return
     if optimizer == "nesterov":
         dmom = dslot["m"]
         check(dparam <= 1e-4 and dmom <= 1e-2,
@@ -711,15 +937,21 @@ def wire_reference_phase(torch, wire_name: str) -> None:
 
 
 def main_path(torch, workers: int, steps: int, expect: dict,
-              optimizer: str = "nesterov", wire: str = "identity") -> dict:
+              optimizer: str = "nesterov", wire: str = "identity",
+              faults=None) -> dict:
     """PHubEngine + fit on the full model under ``optimizer`` over
     ``wire``; ``expect`` holds each kernel's launches per step and group
-    (every other count must stay 0).  Returns the run's launch counts."""
+    (every other count must stay 0).  ``faults``: a FaultSchedule; the
+    run then goes through fit(supervisor=TrainSupervisor) with injection
+    on and demote_after 2, and the supervisor's record is checked.
+    Returns the run's launch counts."""
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.core import PHubEngine, StackedComm
     from repro_torch.core.chunking import leaf_paths
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import agg_opt, quant
+    from repro_torch.resilience import (SanityConfig, SupervisorConfig,
+                                        TrainSupervisor)
     from repro_torch.training import TrainState, fit
 
     cfg = get_arch(ARCH)
@@ -735,10 +967,17 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     rule = {"nesterov": f"momentum {tc.momentum}",
             "adam": f"b1 {tc.adam_b1}, b2 {tc.adam_b2}, eps {tc.adam_eps}",
             "sgd": "no momentum"}[optimizer]
+    sup = None
+    if faults is not None:
+        sup = TrainSupervisor(engine, SupervisorConfig(
+            sanity=SanityConfig(allow_injection=True), demote_after=2),
+            faults=faults, log_fn=log)
     log(f"main path: {ARCH} {cfg.n_params():,} params, {cfg.n_layers} "
         f"layers, d_model {cfg.d_model}; sharded_ps, {workers} stacked "
         f"worker(s), {wire} wire, batch {BATCH} x {SEQ}, {steps} step(s), "
-        f"{optimizer} at lr {tc.lr}, {rule}; groups "
+        f"{optimizer} at lr {tc.lr}, {rule}"
+        f"{'; supervised, faults ' + str(faults.events) if sup else ''}; "
+        f"groups "
         + ", ".join(f"{g.key}: {g.total:,} -> {g.padded:,} "
                     f"({g.n_chunks} chunks of {g.chunk_elems})"
                     for g in groups))
@@ -749,20 +988,45 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     torch.cuda.reset_peak_memory_stats()
     marks = [time.perf_counter()]
 
+    health = []
+
     def on_step(state, metrics):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         ms = (marks[-1] - marks[-2]) * 1e3
+        gated = ""
+        if sup is not None:
+            health.append(metrics)
+            gated = (f"  ok_mask {metrics['ok_mask'].tolist()} n_live "
+                     f"{metrics['n_live']:g} grad_norms "
+                     f"{metrics['grad_norms'].tolist()}")
         log(f"step {state.step - 1}: loss {state.losses[-1]:.6f}  "
             f"{ms:.1f} ms  {BATCH * SEQ / (ms / 1e3):,.0f} tokens/s  "
-            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+            + gated)
         torch.cuda.reset_peak_memory_stats()
 
     agg_opt.reset_launches()
     quant.reset_launches()
     state = fit(engine, state, data, steps=steps, log_every=0,
-                hooks=[on_step])
+                hooks=[on_step], supervisor=sup)
     launches = {**agg_opt.LAUNCHES, **quant.LAUNCHES}
+    if sup is not None:
+        masks = [h["ok_mask"].tolist() for h in health]
+        live = [h["n_live"] for h in health]
+        demotes = [(e["step"], e["worker"], e["status"])
+                   for e in sup.incident_history("demote")]
+        log(f"supervised: ok_mask {masks}, n_live {live}, demotions "
+            f"{demotes}, live ranks {sup.membership.live_ranks}, "
+            f"{len(sup._steps)} step functions, events {sup.event_kinds()}")
+        check(masks == [[1, 1, 1, 1], [1, 0, 1, 1], [1, 0, 1, 1],
+                        [1, 0, 1, 1]] and live == [4, 3, 3, 3],
+              f"verdicts {masks}, n_live {live}")
+        check(demotes == [(2, POISONED, "slow")],
+              f"demotions {demotes}, want worker {POISONED} at step 2")
+        check(sup.membership.live_ranks == (0, 2, 3) and len(sup._steps) == 2
+              and sup.rollbacks == 0,
+              "step 3 did not run on the static 3-of-4 program")
     check(all(math.isfinite(x) for x in state.losses),
           f"non-finite loss {state.losses}")
     check(len(state.losses) == steps, f"{len(state.losses)} losses")
@@ -777,10 +1041,71 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     log(f"{workers}-worker {optimizer} {wire}-wire path: launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
         + " as expected; parameters changed, losses finite")
-    del model, state, engine
+    del model, state, engine, sup
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def rollback_phase(torch) -> None:
+    """The supervisor's recovery on the card, at reduced size (a
+    full-model snapshot is 9.9 GB of disk I/O, not device work): 4
+    workers, a snapshot after every step (keep_k 2), every worker
+    NaN-pushing at steps 3-5 (divergence_patience 3) and the newest
+    snapshot truncated at step 5.  The supervisor must skip the corrupt
+    step-5 snapshot by name, restore step 4 (parameters and every slot
+    bitwise equal to load_checkpoint's) and finish the 6 steps."""
+    import shutil
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import TrainConfig, get_arch, reduced
+    from repro_torch.core import PHubEngine, StackedComm
+    from repro_torch.core.chunking import leaf_paths
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.elastic import (CKPT_CORRUPT, FaultEvent, FaultSchedule,
+                                     NAN_PUSH)
+    from repro_torch.resilience import (SanityConfig, SupervisorConfig,
+                                        TrainSupervisor)
+    from repro_torch.training import TrainState, fit
+
+    d = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
+    shutil.rmtree(d, ignore_errors=True)
+    cfg = reduced(get_arch(ARCH))
+    engine = PHubEngine(cfg, TrainConfig(loss_chunk=64), StackedComm(WORKERS),
+                        device="cuda")
+    model, opt = engine.init_state()
+    faults = FaultSchedule((*(FaultEvent(3, NAN_PUSH, w, duration=3)
+                              for w in range(WORKERS)),
+                            FaultEvent(5, CKPT_CORRUPT)), world=WORKERS)
+    sup = TrainSupervisor(engine, SupervisorConfig(
+        sanity=SanityConfig(allow_injection=True), checkpoint_dir=d,
+        checkpoint_every=1, keep_k=2, divergence_patience=3),
+        faults=faults, log_fn=log)
+    restored = []
+
+    def on_step(state, host):
+        if sup.rollbacks and not restored:
+            step, tree = load_checkpoint(d, state.step)
+            saved = dict(leaf_paths(tree["params"]))
+            same = all(torch.equal(t.detach().cpu(), saved[p])
+                       for p, t in leaf_paths(state.params.param_tree()))
+            same &= all(torch.equal(t.cpu(), tree["opt"]["float32"][n])
+                        for n, t in state.opt["float32"].items())
+            restored.append((step, same))
+
+    data = SyntheticTokens(cfg, BATCH, 64, seed=0)
+    state = fit(engine, TrainState(params=model, opt=opt), data, steps=6,
+                log_every=0, supervisor=sup, hooks=[on_step])
+    rb = sup.incident_history("rollback")
+    log(f"rollback: {[(e['step'], e['restored_step'], e['skipped']) for e in rb]}"
+        f" (step, restored, skipped); restored state bitwise equal to "
+        f"load_checkpoint's: {restored}; finished at step {state.step}, "
+        f"losses {state.losses}")
+    check(len(rb) == 1 and rb[0]["restored_step"] == 4
+          and rb[0]["skipped"] == [5], f"rollback record {rb}")
+    check(restored == [(4, True)], f"restored state {restored}")
+    check(state.step == 6 and all(math.isfinite(x) for x in state.losses),
+          "the supervised run did not finish")
+    shutil.rmtree(d)
 
 
 def main() -> None:
@@ -820,15 +1145,24 @@ def main() -> None:
     kernels.update(rule_kernel_phase(torch, padded))
     kernels.update(wire_kernel_phase(torch, padded[WORKERS], ce, tc.lr,
                                      tc.momentum))
+    kernels["health_chunks"] = health_kernel_phase(torch, padded, ce)
     reference_phase(torch, "nesterov")
     reference_phase(torch, "adam")
     wire_reference_phase(torch, "int8")
     wire_reference_phase(torch, "bf16")
+    for rule in ("nesterov", "sgd", "adam"):
+        reference_phase(torch, rule, gated=True)
+    rollback_phase(torch)
 
-    # (label, workers, steps, rule, wire, launches per step)
+    from repro_torch.elastic import FaultEvent, FaultSchedule, NAN_PUSH
+    # (label, workers, steps, rule, wire, launches per step, faults)
     paths = (
         ("W=4", WORKERS, STEPS, "nesterov", "identity",
          {"multi_agg_opt_chunks": 1}),
+        ("supervised W=4", WORKERS, 4, "nesterov", "identity",
+         {"health_chunks": 1, "multi_agg_opt_chunks": 1},
+         FaultSchedule((FaultEvent(1, NAN_PUSH, POISONED, duration=2),),
+                       world=WORKERS)),
         ("W=1", 1, 1, "nesterov", "identity", {"agg_opt_chunks": 1}),
         ("W=4", WORKERS, STEPS, "adam", "identity", {"adam_opt_chunks": 1}),
         ("W=1", 1, 1, "adam", "identity", {"adam_opt_chunks": 1}),
@@ -849,8 +1183,9 @@ def main() -> None:
     )
     for k in kernels.values():
         k["launches_by_path"] = {}
-    for label, workers, steps, rule, wire, expect in paths:
-        launches = main_path(torch, workers, steps, expect, rule, wire)
+    for label, workers, steps, rule, wire, expect, *faults in paths:
+        launches = main_path(torch, workers, steps, expect, rule, wire,
+                             *faults)
         for name, count in launches.items():
             if count:
                 by = kernels[name]["launches_by_path"]

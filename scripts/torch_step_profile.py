@@ -3,11 +3,12 @@
 
     python3 scripts/torch_step_profile.py [--workers 4] [--batch 8] [--seq 512]
         [--optimizer nesterov|adam|sgd] [--lr LR]
-        [--wire-format identity|bf16|f16|int8]
+        [--wire-format identity|bf16|f16|int8] [--sanity [--poison W]]
 
 Runs the port's main path (full llama3.2-1b, sharded_ps, W workers stacked
 on one card, Nesterov at the TrainConfig defaults over the identity wire
-unless another rule or wire is asked for) for one warm-up step, one
+unless another rule or wire is asked for; ``--sanity``: the sanity-gated
+step, worker ``--poison`` NaN-injected if given) for one warm-up step, one
 timed step, and one step under torch.profiler.  Prints the timed step's
 wall time, the profiled step's device time by kernel class and by kernel
 (top 15), and the device busy share: kernel time over the timed (not the
@@ -35,6 +36,7 @@ CLASSES = (                      # first match wins
     ("update kernel", ("agg_opt_kernel", "sgd_opt_kernel",
                        "adam_opt_kernel")),   # dequant_agg_opt_kernel too
     ("wire codec", ("quantize_kernel",)),     # and dequantize_kernel
+    ("health scan", ("health_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "sm90_")),
     ("reduction", ("reduce",)),
     ("index / gather / scatter", ("index", "gather", "scatter", "embedding")),
@@ -60,8 +62,14 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=None,
                     help="default: the TrainConfig's")
     ap.add_argument("--wire-format", default="identity")
+    ap.add_argument("--sanity", action="store_true",
+                    help="the sanity-gated step (health_chunks, the masked "
+                         "fill, the live count)")
+    ap.add_argument("--poison", type=int, default=None,
+                    help="with --sanity: NaN-inject this worker's push")
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_step_profile: no CUDA device")
@@ -81,14 +89,24 @@ def main(argv=None) -> None:
                      **({} if args.lr is None else {"lr": args.lr}))
     engine = PHubEngine(cfg, tc, StackedComm(args.workers), device="cuda")
     model, opt = engine.init_state()
-    step = engine.make_train_step()
+    extra = ()
+    if args.sanity:
+        from repro_torch.resilience import SanityConfig
+        inject = np.ones(args.workers, np.float32)
+        if args.poison is not None:
+            inject[args.poison] = np.nan
+        extra = ({"norm_hi": np.float32(np.inf), "inject": inject},)
+        step = engine.make_train_step(
+            sanity=SanityConfig(allow_injection=True))
+    else:
+        step = engine.make_train_step()
     data = SyntheticTokens(cfg, args.batch, args.seq, seed=tc.seed)
-    model, opt, _ = step(model, opt, data.torch_batch(0))      # warm-up
+    model, opt, _ = step(model, opt, data.torch_batch(0), *extra)  # warm-up
     torch.cuda.synchronize()
     batch = data.torch_batch(1)
     before = torch.cuda.memory_stats()
     t0 = time.perf_counter()
-    model, opt, _ = step(model, opt, batch)
+    model, opt, _ = step(model, opt, batch, *extra)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
     after = torch.cuda.memory_stats()
@@ -99,7 +117,7 @@ def main(argv=None) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        model, opt, metrics = step(model, opt, batch)
+        model, opt, metrics = step(model, opt, batch, *extra)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
     loss = float(metrics["loss"])
@@ -121,7 +139,12 @@ def main(argv=None) -> None:
     by_class: dict[str, float] = defaultdict(float)
     for name, (ms, _) in by_name.items():
         by_class[classify(name)] += ms
-    print(f"step: {args.optimizer} at lr {tc.lr}, {args.wire_format} wire, "
+    gate = ""
+    if args.sanity:
+        gate = (f"sanity-gated (poisoned: {args.poison}, ok_mask "
+                f"{metrics['ok_mask'].tolist()}), ")
+    print(f"step: {gate}{args.optimizer} at lr {tc.lr}, "
+          f"{args.wire_format} wire, "
           f"{args.workers} workers, "
           f"batch {args.batch} x {args.seq}, wall {step_ms:.1f} ms, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; profiled "

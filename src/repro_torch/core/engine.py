@@ -24,15 +24,30 @@ p plus the decoded delta; the optimizer state then has one more slot,
 ``wire_ef``, last.
 
 The reported loss is the mean over the workers, as the reference's
-``pmean``.  Tree residency and one window only; the reference's flat
-residency, windows, the DCN wire, sanity gate and elastic membership are
-queued in ROADMAP.md.
+``pmean``.
+
+An elastic ``Membership`` (``make_train_step(membership=)``) that is not
+all live zeroes each excluded worker's row before the exchange and divides
+the mean by the live count (the k-of-n push mask).  The sanity-gated step
+(``make_train_step(sanity=)``, the reference's ``sane_step``) takes a
+fourth input ``health`` and, after every worker's backward: multiplies
+each row by its chaos ``inject`` factor; reduces every row to its f32 sum
+of squares (``health_chunks``, one launch per dtype group); marks a worker
+ok when the sum is finite and its root within ``norm_hi`` (and the
+membership counts it); zeroes a bad row (where-semantics: 0 * NaN would be
+NaN); and divides the mean by ``max(ok count, 1)``, kept on the card, so
+the step needs no host sync.  Both run over the identity wire only.  Tree
+residency and one window only; the reference's flat residency, windows
+and the DCN wire are queued in ROADMAP.md.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, TrainConfig
+from ..kernels.agg_opt.ops import fused_health_scan
+from ..kernels.agg_opt.ref import sqrt_rn
 from ..models import DecoderLM, chunked_cross_entropy, param_specs
 from ..optim.protocol import make_sharded_optimizer
 from . import chunking
@@ -56,6 +71,7 @@ class PHubEngine:
         self.chunk_plan = chunking.build_plan(
             param_specs(cfg), chunk_bytes=tc.chunk_size_bytes,
             n_shards=comm.n_shards(tc.strategy))
+        self._gbuf = None
 
     # ------------------------------------------------------------------ state
 
@@ -108,13 +124,82 @@ class PHubEngine:
             group.chunk_elems, self.sopt.coefs(self.tc),
             1.0 / self.comm.n_workers)
 
-    def exchange_stage(self, gbuf: dict, model: DecoderLM, opt: dict):
+    def grad_buffers(self) -> dict:
+        """The stacked gradient buffers {dtype_name: (W, padded)}, allocated
+        once and shared by every step function of this engine (a step of
+        another membership reuses them)."""
+        if self._gbuf is None:
+            W = self.comm.n_workers
+            self._gbuf = {g.key: torch.zeros((W, g.padded), dtype=g.dtype,
+                                             device=self.device)
+                          for g in self.chunk_plan.groups}
+        return self._gbuf
+
+    def elastic_mask(self, membership):
+        """(mask, n_live) for an elastic membership, or (None, None) on
+        the static full-rack path: the all-live case runs the same step as
+        no membership at all."""
+        if membership is None or membership.all_live:
+            return None, None
+        membership.validate_world(self.comm.n_workers)
+        membership.require_quorum()
+        return membership.mask(), float(membership.n_live)
+
+    @staticmethod
+    def _masked_grads(gbuf: dict, mask: np.ndarray) -> None:
+        """The k-of-n push gate: zero every excluded worker's row in place,
+        so it adds exactly nothing to the worker sum."""
+        for w in np.nonzero(mask == 0)[0]:
+            for v in gbuf.values():
+                v[w].zero_()
+
+    def grad_sumsq(self, gbuf: dict) -> torch.Tensor:
+        """(W,) f32 sum of squares of each worker's whole push through the
+        health kernel, one launch per dtype group over the stacked
+        buffer; the zero pad adds nothing, and a NaN/Inf anywhere in a
+        row propagates into its entry."""
+        return sum(fused_health_scan(gbuf[g.key], chunk_elems=g.chunk_elems)
+                   for g in self.chunk_plan.groups)
+
+    def sanity_gate(self, gbuf: dict, health: dict, sanity, mask):
+        """The reference's ``sane_step`` between the backward and the
+        exchange, on the stacked buffer in place: inject, scan, judge,
+        zero the bad rows.  ``mask``: the membership's (W,) f32 mask on the
+        card, or None.  Returns (ok_mask (W,), grad_norms (W,), n_live
+        0-dim), all f32 on the card; nothing is copied to the card, so the
+        host never waits for the backward here."""
+        if sanity.allow_injection:
+            inj = np.asarray(health["inject"], np.float32)
+            for w in range(self.comm.n_workers):
+                if inj[w] != 1.0:           # g * 1 == g: a clean row stays
+                    for v in gbuf.values():
+                        # the factor in the row's dtype, as the reference's
+                        # g * inj.astype(g.dtype)
+                        v[w].mul_(float(torch.tensor(float(inj[w]),
+                                                     dtype=v.dtype)))
+        sumsq = self.grad_sumsq(gbuf)
+        norms = sqrt_rn(sumsq)
+        # norm_hi is an f32 value, so the comparison in f32 with it as a
+        # kernel argument is exact (a tensor would be a copy to the card)
+        okf = (torch.isfinite(sumsq)
+               & (norms <= float(np.float32(health["norm_hi"])))).float()
+        if mask is not None:
+            okf = okf * mask
+        bad = (okf == 0)[:, None]
+        for v in gbuf.values():
+            v.masked_fill_(bad, 0)
+        return okf, norms, okf.sum().clamp_min(1.0)
+
+    def exchange_stage(self, gbuf: dict, model: DecoderLM, opt: dict,
+                       n_live=None):
         """Flatten the parameters into the chunk domain, run the exchange
         per dtype group on the stacked gradients ``gbuf`` ({dtype_name:
         (W, padded)}), and write the new parameters back into ``model``.
-        Returns the new optimizer state.  A rule whose kernel updates its
-        slots in place (Adam) returns the tensors of ``opt`` themselves:
-        four model-sized vectors that are never allocated twice."""
+        ``n_live`` (a number or a 0-dim tensor on the card) divides the
+        worker sum instead of W.  Returns the new optimizer state.  A rule
+        whose kernel updates its slots in place (Adam) returns the tensors
+        of ``opt`` themselves: four model-sized vectors that are never
+        allocated twice."""
         cp = self.chunk_plan
         leaves = dict(chunking.leaf_paths(model.param_tree()))
         names = self.sopt.slot_names
@@ -133,7 +218,7 @@ class PHubEngine:
                 else:
                     p2, s2 = exchange_group(self.comm, gbuf[g.key],
                                             flats_p.pop(g.key), slots,
-                                            self.update_fn(g))
+                                            self.update_fn(g), n_live)
                 new_opt[g.key] = {n: v.view(opt[g.key][n].shape)
                                   for n, v in zip(names, s2)}
                 if encoded:
@@ -143,17 +228,36 @@ class PHubEngine:
                     leaves[path].copy_(new)
         return new_opt
 
-    def make_train_step(self):
-        """``step(model, opt, batch) -> (model, opt, metrics)``.  The model
-        is updated in place (saves a second copy of the weights); ``opt``
-        is replaced.  The step owns the (W, padded) gradient buffers."""
+    def make_train_step(self, membership=None, sanity=None):
+        """``step(model, opt, batch) -> (model, opt, metrics)``, or with
+        ``sanity`` (a ``resilience.SanityConfig``) ``step(model, opt,
+        batch, health)``: ``health["norm_hi"]`` the norm ceiling and, when
+        ``sanity.allow_injection``, ``health["inject"]`` the (W,) gradient
+        factors; its metrics add ``ok_mask`` and ``grad_norms`` (W,) and
+        ``n_live``.  ``membership``: an elastic ``Membership`` whose
+        excluded workers' pushes are masked.  The model is updated in
+        place (saves a second copy of the weights); ``opt`` is replaced.
+        The steps share the engine's (W, padded) gradient buffers."""
         W = self.comm.n_workers
         cp = self.chunk_plan
         loss_fn = self.build_loss_fn()
-        gbuf = {g.key: torch.zeros((W, g.padded), dtype=g.dtype,
-                                   device=self.device) for g in cp.groups}
+        mask, live = self.elastic_mask(membership)
+        # built once: a copy to the card in the step would make the host
+        # wait for the backward before it queues the exchange
+        mask_t = divisor = None
+        if mask is not None:
+            mask_t = torch.from_numpy(mask).to(self.device)
+            divisor = torch.tensor(live, device=self.device)
+        if (mask is not None or sanity is not None) and \
+                not self.wire.is_identity:
+            raise NotImplementedError(
+                f"elastic membership and the sanity gate over the "
+                f"{self.wire.name!r} wire are not ported yet: the int8 "
+                f"tail kernel takes 1/N by value (ROADMAP.md queue A items "
+                f"13 and 14)")
+        gbuf = self.grad_buffers()
 
-        def step(model: DecoderLM, opt: dict, batch: dict):
+        def step(model: DecoderLM, opt: dict, batch: dict, health=None):
             tokens, labels = batch["tokens"], batch["labels"]
             B = tokens.shape[0]
             if B % W:
@@ -170,7 +274,15 @@ class PHubEngine:
                                         out={k: v[w] for k, v in gbuf.items()})
                 del grads
                 losses.append(loss.detach())
-            new_opt = self.exchange_stage(gbuf, model, opt)
-            return model, new_opt, {"loss": torch.stack(losses).mean()}
+            metrics = {"loss": torch.stack(losses).mean()}
+            n_live = divisor
+            if sanity is not None:
+                ok, norms, n_live = self.sanity_gate(gbuf, health, sanity,
+                                                     mask_t)
+                metrics.update(ok_mask=ok, grad_norms=norms, n_live=n_live)
+            elif mask is not None:
+                self._masked_grads(gbuf, mask)
+            new_opt = self.exchange_stage(gbuf, model, opt, n_live)
+            return model, new_opt, metrics
 
         return step

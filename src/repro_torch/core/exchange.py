@@ -20,8 +20,9 @@ from .pipeline import PIPELINED_STRATEGIES
 STRATEGIES = ("allreduce", "sharded_ps", "centralized_ps", "hierarchical",
               "fsdp_stream")
 
-# update_fn(p, g, slots) -> (p', slots'): the protocol's fused rule, taking
-# g pre-aggregated or stacked (W, n) (optim/protocol.py)
+# update_fn(p, g, slots, divisor=None) -> (p', slots'): the protocol's fused
+# rule, taking g pre-aggregated or stacked (W, n), the stacked mean divided
+# by W or by a one-element f32 tensor on the card (optim/protocol.py)
 UpdateFn = Callable[..., tuple[torch.Tensor, tuple]]
 
 
@@ -48,22 +49,31 @@ def check_wire(strategy: str, wire) -> None:
 
 
 def exchange_group(comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
-                   slots: tuple, update_fn: UpdateFn
+                   slots: tuple, update_fn: UpdateFn, n_live=None
                    ) -> tuple[torch.Tensor, tuple]:
     """One dtype group's sharded_ps exchange (the engine has checked the
     strategy).  g: (W, padded) stacked worker gradients; p: (padded,);
     ``slots``: the optimizer's (padded,) state buffers, shard s's state at
-    [s*L, (s+1)*L), any number of them (0 for SGD, 4 for Adam).  Returns
-    (p', slots'); the rule may update ``slots`` in place and return them."""
+    [s*L, (s+1)*L), any number of them (0 for SGD, 4 for Adam).
+    ``n_live``: None divides the worker sum by W; a number or a 0-dim
+    tensor on the card (the live count of an elastic or gated step, whose
+    excluded rows the caller has zeroed) divides it by that, read by the
+    kernel on the card (the reference's ``psum_scatter(...) / N``).
+    Returns (p', slots'); the rule may update ``slots`` in place and
+    return them."""
     W = comm.n_workers
     if tuple(g.shape) != (W, p.numel()):
         raise ValueError(f"g {tuple(g.shape)} is not (n_workers={W}, "
                          f"{p.numel()})")
     if W == 1:
-        # the reduce-scatter over one worker is the identity, and /1 is
-        # exact: the reference's path into agg_opt_chunks
+        # the reduce-scatter over one worker is the identity, and /1 (or
+        # /max(n_live, 1) = /1) is exact: the reference's path into
+        # agg_opt_chunks
         return update_fn(p, g[0], slots)
     # shard s owns the contiguous run [s*L, (s+1)*L) of every row, so one
     # tall-aggregation pass over the whole domain equals the S per-shard
     # (sum over workers, /W, update) passes of the reference
-    return update_fn(p, g, slots)
+    if n_live is None:
+        return update_fn(p, g, slots)
+    divisor = torch.as_tensor(n_live, dtype=torch.float32).to(g.device)
+    return update_fn(p, g, slots, divisor=divisor.reshape(1))

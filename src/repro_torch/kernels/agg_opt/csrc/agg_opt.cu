@@ -7,12 +7,18 @@
 //   adam_opt_chunks      (kernel.py:100, body _adam_body at :75)
 //   dequant_agg_opt_chunks (kernel.py:139, body _dequant_agg_opt_body at
 //                        :123), the tail of the int8 wire's ring
+//   health_chunks        (kernel.py:173, body _health_body at :161), the
+//                        sanity gate's sum of squares per chunk
 // Each rule is one __global__ kernel; W is a runtime loop bound, so W = 1
 // is exactly the TPU kernel and W > 1 folds the stacked workers' sum and
 // the /W (on one card, the whole reduce-scatter + mean) into the pass.
+// The stacked rules take an optional device pointer to the divisor: null
+// divides by W; set, it divides by the f32 it points at, the live count of
+// the elastic or sanity-gated step (the reference's psum_scatter(...) / N
+// with a traced N), read on the card so the step needs no host sync.
 //
-// Per element, in f32, with g = (g_0 + g_1 + ... + g_{W-1}) / W summed in
-// worker order and then divided:
+// Per element, in f32, with g = (g_0 + g_1 + ... + g_{W-1}) / d summed in
+// worker order and then divided (d = W, or *divisor):
 //   Nesterov  m2 = mu * m + g;  p2 = p - lr * (g + mu * m2)
 //   SGD       p2 = p - lr * g
 //   Adam      alive = g != 0 || k1 != 0
@@ -44,6 +50,8 @@
 // reads p, m, g_own (4 bytes each), q (1) and writes p, m: 21 bytes an
 // element, 7.75 ms over the W = 4 domain.  Adam's arithmetic, two IEEE
 // divisions and two square roots an element, stays under 1 ms at 67 TFLOP/s.
+// health_chunks reads its input once and writes one f32 a chunk: 19.77 GB,
+// 5.90 ms over the stacked W = 4 f32 domain, 4.94 GB, 1.48 ms at W = 1.
 //
 // Design: one block per chunk (chunk_elems a multiple of 128; for the
 // dequant kernel the wire's chunk, a multiple of 4, since the scale is
@@ -58,6 +66,16 @@
 // is written to a new buffer.  A later PR may move the streams through TMA
 // bulk copies into a shared-memory ring, or use wider (32-byte) vectors and
 // a persistent grid, to get closer to the HBM rate.
+//
+// health_chunks has a fixed summation order, so it is the same run to run
+// and its plain version (ref.py::health_chunks_ref) repeats it bitwise: one
+// block of 256 threads per chunk, no atomics.  Thread t reads the 4-element
+// vectors at t*4 + k*1024, k = 0, 1, ..., and adds each square (components in
+// order) to its own running f32 sum, every product and sum rounded on its
+// own; then a warp tree (__shfl_down_sync by 16, 8, 4, 2, 1: lane l takes
+// its sum plus lane l + offset's), then warp 0 reduces the 8 warp sums from
+// shared memory the same way (by 4, 2, 1).  NaN and Inf propagate: nothing
+// is clamped or skipped, and a square that overflows is +Inf.
 //
 // Launches on the caller's stream and allocates nothing.  Each entry point
 // returns cudaGetLastError() so the caller sees a refused launch.
@@ -97,12 +115,19 @@ __device__ __forceinline__ void store4(__nv_bfloat16* ptr, const float v[4]) {
   *reinterpret_cast<uint2*>(ptr) = t;
 }
 
-// g = (g_0 + ... + g_{W-1}) / W for the 4 elements at off, in worker order.
+// The mean's divisor: W, or the live count the caller keeps on the card.
+__device__ __forceinline__ float mean_divisor(const float* divisor,
+                                              int n_workers) {
+  return divisor != nullptr ? *divisor : static_cast<float>(n_workers);
+}
+
+// g = (g_0 + ... + g_{W-1}) / d for the 4 elements at off, in worker order.
 template <typename G>
 __device__ __forceinline__ void worker_mean4(const G* __restrict__ g,
                                              int64_t off,
                                              int64_t worker_stride,
-                                             int n_workers, float acc[4]) {
+                                             int n_workers, float d,
+                                             float acc[4]) {
   float gw[4];
   load4(g + off, acc);
   for (int w = 1; w < n_workers; ++w) {
@@ -110,9 +135,8 @@ __device__ __forceinline__ void worker_mean4(const G* __restrict__ g,
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[k] = __fadd_rn(acc[k], gw[k]);
   }
-  const float divisor = static_cast<float>(n_workers);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) acc[k] = __fdiv_rn(acc[k], divisor);
+  for (int k = 0; k < 4; ++k) acc[k] = __fdiv_rn(acc[k], d);
 }
 
 // m2 = mu * m + g; p2 = p - lr * (g + mu * m2), for 4 elements in place.
@@ -135,12 +159,14 @@ __global__ void __launch_bounds__(kThreads)
 agg_opt_kernel(const T* __restrict__ p, const G* __restrict__ g,
                const T* __restrict__ m, T* __restrict__ p_out,
                T* __restrict__ m_out, int64_t worker_stride, int n_workers,
-               int chunk_elems, float lr, float mu) {
+               const float* __restrict__ divisor, int chunk_elems, float lr,
+               float mu) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
+  const float d = mean_divisor(divisor, n_workers);
   for (int i = threadIdx.x * kVec; i < chunk_elems; i += kThreads * kVec) {
     const int64_t off = base + i;
     float gg[4], mv[4], pv[4];
-    worker_mean4(g, off, worker_stride, n_workers, gg);
+    worker_mean4(g, off, worker_stride, n_workers, d, gg);
     load4(m + off, mv);
     load4(p + off, pv);
     nesterov4(pv, mv, gg, lr, mu);
@@ -154,12 +180,13 @@ template <typename T, typename G>
 __global__ void __launch_bounds__(kThreads)
 sgd_opt_kernel(const T* __restrict__ p, const G* __restrict__ g,
                T* __restrict__ p_out, int64_t worker_stride, int n_workers,
-               int chunk_elems, float lr) {
+               const float* __restrict__ divisor, int chunk_elems, float lr) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
+  const float d = mean_divisor(divisor, n_workers);
   for (int i = threadIdx.x * kVec; i < chunk_elems; i += kThreads * kVec) {
     const int64_t off = base + i;
     float gg[4], pv[4];
-    worker_mean4(g, off, worker_stride, n_workers, gg);
+    worker_mean4(g, off, worker_stride, n_workers, d, gg);
     load4(p + off, pv);
 #pragma unroll
     for (int k = 0; k < 4; ++k) pv[k] = __fsub_rn(pv[k], __fmul_rn(lr, gg[k]));
@@ -174,13 +201,15 @@ __global__ void __launch_bounds__(kThreads)
 adam_opt_kernel(const T* __restrict__ p, const G* __restrict__ g,
                 T* __restrict__ m, T* __restrict__ v, float* __restrict__ k1,
                 float* __restrict__ k2, T* __restrict__ p_out,
-                int64_t worker_stride, int n_workers, int chunk_elems,
-                float lr, float b1, float c1, float b2, float c2, float eps) {
+                int64_t worker_stride, int n_workers,
+                const float* __restrict__ divisor, int chunk_elems, float lr,
+                float b1, float c1, float b2, float c2, float eps) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
+  const float d = mean_divisor(divisor, n_workers);
   for (int i = threadIdx.x * kVec; i < chunk_elems; i += kThreads * kVec) {
     const int64_t off = base + i;
     float gg[4], pv[4], mv[4], vv[4], k1v[4], k2v[4];
-    worker_mean4(g, off, worker_stride, n_workers, gg);
+    worker_mean4(g, off, worker_stride, n_workers, d, gg);
     load4(m + off, mv);
     load4(v + off, vv);
     load4(k1 + off, k1v);
@@ -249,6 +278,38 @@ dequant_agg_opt_kernel(const T* __restrict__ p, const int8_t* __restrict__ q,
   }
 }
 
+// g: (n_chunks, chunk_elems) in G; out: (n_chunks,) f32 sums of squares.
+// chunk_elems a multiple of 4.  The summation order is in the header.
+template <typename G>
+__global__ void __launch_bounds__(kThreads)
+health_kernel(const G* __restrict__ g, float* __restrict__ out,
+              int chunk_elems) {
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
+  float acc = 0.0f;
+  for (int i = threadIdx.x * kVec; i < chunk_elems; i += kThreads * kVec) {
+    float v[4];
+    load4(g + base + i, v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc = __fadd_rn(acc, __fmul_rn(v[k], v[k]));
+  }
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float warp_sums[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
+  if (lane == 0) warp_sums[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    float s = lane < kWarps ? warp_sums[lane] : 0.0f;
+#pragma unroll
+    for (int off = kWarps / 2; off > 0; off >>= 1)
+      s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
+    if (lane == 0) out[blockIdx.x] = s;
+  }
+}
+
 template <typename X>
 struct Tag {
   using type = X;
@@ -267,7 +328,8 @@ int with_dtypes(int dtype, F f) {
 
 int dispatch(const void* p, const void* g, const void* m, void* p_out,
              void* m_out, long long n_chunks, int chunk_elems, int n_workers,
-             int dtype, float lr, float mu, void* stream) {
+             int dtype, float lr, float mu, const void* divisor,
+             void* stream) {
   return with_dtypes(dtype, [&](auto tt, auto tg) {
     using T = typename decltype(tt)::type;
     using G = typename decltype(tg)::type;
@@ -276,7 +338,8 @@ int dispatch(const void* p, const void* g, const void* m, void* p_out,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(p), static_cast<const G*>(g),
         static_cast<const T*>(m), static_cast<T*>(p_out),
-        static_cast<T*>(m_out), stride, n_workers, chunk_elems, lr, mu);
+        static_cast<T*>(m_out), stride, n_workers,
+        static_cast<const float*>(divisor), chunk_elems, lr, mu);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -288,16 +351,19 @@ extern "C" int agg_opt_chunks(const void* p, const void* g, const void* m,
                               int chunk_elems, int dtype, float lr, float mu,
                               void* stream) {
   return dispatch(p, g, m, p_out, m_out, n_chunks, chunk_elems, 1, dtype, lr,
-                  mu, stream);
+                  mu, nullptr, stream);
 }
 
+// divisor: null (divide by n_workers) or a device pointer to one f32, here
+// and in sgd_opt_chunks and adam_opt_chunks.
 extern "C" int multi_agg_opt_chunks(const void* p, const void* g,
                                     const void* m, void* p_out, void* m_out,
                                     long long n_chunks, int chunk_elems,
                                     int n_workers, int dtype, float lr,
-                                    float mu, void* stream) {
+                                    float mu, const void* divisor,
+                                    void* stream) {
   return dispatch(p, g, m, p_out, m_out, n_chunks, chunk_elems, n_workers,
-                  dtype, lr, mu, stream);
+                  dtype, lr, mu, divisor, stream);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 for p, g (and Adam's m, v), 2 = a
@@ -306,7 +372,7 @@ extern "C" int multi_agg_opt_chunks(const void* p, const void* g,
 extern "C" int sgd_opt_chunks(const void* p, const void* g, void* p_out,
                               long long n_chunks, int chunk_elems,
                               int n_workers, int dtype, float lr,
-                              void* stream) {
+                              const void* divisor, void* stream) {
   return with_dtypes(dtype, [&](auto tt, auto tg) {
     using T = typename decltype(tt)::type;
     using G = typename decltype(tg)::type;
@@ -314,7 +380,8 @@ extern "C" int sgd_opt_chunks(const void* p, const void* g, void* p_out,
     sgd_opt_kernel<T, G><<<static_cast<unsigned>(n_chunks), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(p), static_cast<const G*>(g),
-        static_cast<T*>(p_out), stride, n_workers, chunk_elems, lr);
+        static_cast<T*>(p_out), stride, n_workers,
+        static_cast<const float*>(divisor), chunk_elems, lr);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -324,7 +391,7 @@ extern "C" int adam_opt_chunks(const void* p, const void* g, void* m, void* v,
                                long long n_chunks, int chunk_elems,
                                int n_workers, int dtype, float lr, float b1,
                                float c1, float b2, float c2, float eps,
-                               void* stream) {
+                               const void* divisor, void* stream) {
   return with_dtypes(dtype, [&](auto tt, auto tg) {
     using T = typename decltype(tt)::type;
     using G = typename decltype(tg)::type;
@@ -334,7 +401,8 @@ extern "C" int adam_opt_chunks(const void* p, const void* g, void* m, void* v,
         static_cast<const T*>(p), static_cast<const G*>(g),
         static_cast<T*>(m), static_cast<T*>(v), static_cast<float*>(k1),
         static_cast<float*>(k2), static_cast<T*>(p_out), stride, n_workers,
-        chunk_elems, lr, b1, c1, b2, c2, eps);
+        static_cast<const float*>(divisor), chunk_elems, lr, b1, c1, b2, c2,
+        eps);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -359,6 +427,19 @@ extern "C" int dequant_agg_opt_chunks(const void* p, const void* q,
         static_cast<const T*>(m), static_cast<T*>(p_out),
         static_cast<T*>(m_out), shard_len, own_stride, chunk_elems, lr, mu,
         inv_n);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// dtype: 0 = float32, 1 = bfloat16 for g; out is float32.
+extern "C" int health_chunks(const void* g, void* out, long long n_chunks,
+                             int chunk_elems, int dtype, void* stream) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtypes(dtype, [&](auto, auto tg) {
+    using G = typename decltype(tg)::type;
+    health_kernel<G><<<static_cast<unsigned>(n_chunks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const G*>(g), static_cast<float*>(out), chunk_elems);
     return static_cast<int>(cudaGetLastError());
   });
 }

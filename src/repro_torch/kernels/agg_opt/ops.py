@@ -4,15 +4,18 @@ The counterpart of ``repro/kernels/agg_opt/ops.py``, one wrapper per TPU
 kernel: ``fused_agg_opt`` (``agg_opt_chunks``, Nesterov),
 ``fused_multi_agg_opt`` (``multi_agg_opt_chunks``, Nesterov over stacked
 workers), ``fused_sgd_opt`` (``sgd_opt_chunks``), ``fused_adam_opt``
-(``adam_opt_chunks``) and ``fused_dequant_agg_opt``
-(``dequant_agg_opt_chunks``, the int8 wire's tail); SGD and Adam take
-``g`` pre-aggregated ``(n,)`` or stacked ``(W, n)`` and fold the worker
-mean into the pass.  A bf16 group may hand the rules an f32 ``g`` (the
-int8 wire's decoded mean).  Vectors are padded to whole chunks
-(chunk_elems rounded down to a multiple of 128, at least 128: the rules
-are elementwise, so the blocking does not change a bit) and handed to the
-kernel as (n_chunks, chunk_elems); the dequant kernel's chunk is the
-wire's own, since each carries one scale.
+(``adam_opt_chunks``), ``fused_dequant_agg_opt``
+(``dequant_agg_opt_chunks``, the int8 wire's tail) and
+``fused_health_scan`` (``health_chunks``, the sanity gate's sum of
+squares); SGD and Adam take ``g`` pre-aggregated ``(n,)`` or stacked
+``(W, n)`` and fold the worker mean into the pass.  The stacked rules take an
+optional ``divisor``, a one-element f32 tensor on the card that the mean
+divides by instead of W (the live count of an elastic or gated step).  A
+bf16 group may hand the rules an f32 ``g`` (the int8 wire's decoded mean).
+Vectors are padded to whole chunks (chunk_elems rounded down to a multiple
+of 128, at least 128: the rules are elementwise, so the blocking does not
+change a bit) and handed to the kernel as (n_chunks, chunk_elems); the
+dequant kernel's chunk is the wire's own, since each carries one scale.
 
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
 the kernel, and a library that cannot be built or loaded raises.
@@ -30,7 +33,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .ref import (adam_opt_ref, agg_opt_ref, dequant_agg_opt_ref,
-                  multi_agg_opt_ref, sgd_opt_ref)
+                  health_chunks_ref, multi_agg_opt_ref, sgd_opt_ref)
 
 _LANE = 128
 # (state dtype, gradient dtype) -> the kernels' dtype code
@@ -40,7 +43,7 @@ _DTYPE_CODE = {(torch.float32, torch.float32): 0,
 
 LAUNCHES = {"agg_opt_chunks": 0, "multi_agg_opt_chunks": 0,
             "sgd_opt_chunks": 0, "adam_opt_chunks": 0,
-            "dequant_agg_opt_chunks": 0}
+            "dequant_agg_opt_chunks": 0, "health_chunks": 0}
 
 
 def reset_launches() -> None:
@@ -56,12 +59,14 @@ def _lib() -> ctypes.CDLL:
         for name, args in (
                 ("agg_opt_chunks", [vp] * 5 + [i64, i32, i32, f32, f32, vp]),
                 ("multi_agg_opt_chunks",
-                 [vp] * 5 + [i64, i32, i32, i32, f32, f32, vp]),
-                ("sgd_opt_chunks", [vp] * 3 + [i64, i32, i32, i32, f32, vp]),
+                 [vp] * 5 + [i64, i32, i32, i32, f32, f32, vp, vp]),
+                ("sgd_opt_chunks",
+                 [vp] * 3 + [i64, i32, i32, i32, f32, vp, vp]),
                 ("adam_opt_chunks",
-                 [vp] * 7 + [i64, i32, i32, i32] + [f32] * 6 + [vp]),
+                 [vp] * 7 + [i64, i32, i32, i32] + [f32] * 6 + [vp, vp]),
                 ("dequant_agg_opt_chunks",
-                 [vp] * 7 + [i64, i32, i64, i64, i32] + [f32] * 3 + [vp])):
+                 [vp] * 7 + [i64, i32, i64, i64, i32] + [f32] * 3 + [vp]),
+                ("health_chunks", [vp] * 2 + [i64, i32, i32, vp])):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, i32
         lib._declared = True
@@ -108,6 +113,21 @@ def _check(p, g, state=(), f32_state=()) -> bool:
     return stacked
 
 
+def _divisor_ptr(divisor, p: torch.Tensor, stacked: bool):
+    """The kernels' divisor argument: None (divide by W) or the address of
+    a one-element f32 tensor on p's device, for stacked g only."""
+    if divisor is None:
+        return None
+    if not stacked:
+        raise ValueError("a divisor divides the mean of stacked workers; "
+                         "g is pre-aggregated")
+    _check_vec("divisor", divisor, p, torch.float32)
+    if divisor.numel() != 1:
+        raise ValueError(f"divisor must hold one value, got "
+                         f"{tuple(divisor.shape)}")
+    return divisor.data_ptr()
+
+
 def _chunked(v: torch.Tensor, ce: int) -> torch.Tensor:
     """(..., n) -> (..., n_chunks, ce), zero-padded to whole chunks (a
     copy when n is not whole chunks, else a view)."""
@@ -136,15 +156,17 @@ def _call(name: str, device, *args) -> None:
 
 
 def _launch(name: str, pc, gc, mc, lr: float, momentum: float,
-            n_workers: int):
+            n_workers: int, divisor_ptr=None):
     nc, ce = pc.shape
     p2, m2 = torch.empty_like(pc), torch.empty_like(mc)
     args = [pc.data_ptr(), gc.data_ptr(), mc.data_ptr(), p2.data_ptr(),
             m2.data_ptr(), nc, ce]
     if name == "multi_agg_opt_chunks":
         args.append(n_workers)
-    _call(name, pc.device, *args, _DTYPE_CODE[pc.dtype, gc.dtype], lr,
-          momentum)
+    args += [_DTYPE_CODE[pc.dtype, gc.dtype], lr, momentum]
+    if name == "multi_agg_opt_chunks":
+        args.append(divisor_ptr)
+    _call(name, pc.device, *args)
     return p2, m2
 
 
@@ -164,50 +186,60 @@ def fused_agg_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
 
 
 def fused_multi_agg_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
-                        lr: float, momentum: float, chunk_elems: int = 8192):
-    """Tall aggregation: g is (W, n) worker gradients; the worker mean and
-    the Nesterov update run in one pass per chunk. Returns (p', m')."""
+                        lr: float, momentum: float, chunk_elems: int = 8192,
+                        divisor: torch.Tensor | None = None):
+    """Tall aggregation: g is (W, n) worker gradients; the worker mean (over
+    W, or ``divisor``) and the Nesterov update run in one pass per chunk.
+    Returns (p', m')."""
     if not _check(p, g, (m,)):
         raise ValueError(f"g must be (W, n), got {tuple(g.shape)}")
+    dptr = _divisor_ptr(divisor, p, True)
     if p.device.type == "cpu":
-        return multi_agg_opt_ref(p, g, m, lr=lr, momentum=momentum)
+        return multi_agg_opt_ref(p, g, m, lr=lr, momentum=momentum,
+                                 divisor=divisor)
     ce = _lane(chunk_elems)
     n = p.numel()
     p2, m2 = _launch("multi_agg_opt_chunks", _chunked(p, ce),
                      _chunked(g, ce), _chunked(m, ce), lr, momentum,
-                     g.shape[0])
+                     g.shape[0], dptr)
     return p2.view(-1)[:n], m2.view(-1)[:n]
 
 
 def fused_sgd_opt(p: torch.Tensor, g: torch.Tensor, *, lr: float,
-                  chunk_elems: int = 8192) -> torch.Tensor:
+                  chunk_elems: int = 8192,
+                  divisor: torch.Tensor | None = None) -> torch.Tensor:
     """Flat fused SGD update; g is (n,) or stacked (W, n), averaged over
-    the workers in the same pass. Returns p'."""
+    the workers (divided by W, or ``divisor``) in the same pass.
+    Returns p'."""
     stacked = _check(p, g)
+    dptr = _divisor_ptr(divisor, p, stacked)
     if p.device.type == "cpu":
-        return sgd_opt_ref(p, g, lr=lr)
+        return sgd_opt_ref(p, g, lr=lr, divisor=divisor)
     ce = _lane(chunk_elems)
     n = p.numel()
     pc, gc = _chunked(p, ce), _chunked(g, ce)
     p2 = torch.empty_like(pc)
     _call("sgd_opt_chunks", p.device, pc.data_ptr(), gc.data_ptr(),
           p2.data_ptr(), pc.shape[0], ce, g.shape[0] if stacked else 1,
-          _DTYPE_CODE[p.dtype, g.dtype], lr)
+          _DTYPE_CODE[p.dtype, g.dtype], lr, dptr)
     return p2.view(-1)[:n]
 
 
 def fused_adam_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                    v: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor, *,
                    lr: float, b1: float = 0.9, b2: float = 0.999,
-                   eps: float = 1e-8, chunk_elems: int = 8192):
+                   eps: float = 1e-8, chunk_elems: int = 8192,
+                   divisor: torch.Tensor | None = None):
     """Flat fused Adam update with per-position bias-correction state
-    k1/k2 (f32); g is (n,) or stacked (W, n), averaged over the workers in
-    the same pass.  m, v, k1, k2 are updated in place.  Returns
-    (p', m, v, k1, k2)."""
+    k1/k2 (f32); g is (n,) or stacked (W, n), averaged over the workers
+    (divided by W, or ``divisor``) in the same pass.  m, v, k1, k2 are
+    updated in place.  Returns (p', m, v, k1, k2)."""
     stacked = _check(p, g, (m, v), (k1, k2))
+    dptr = _divisor_ptr(divisor, p, stacked)
     slots = (m, v, k1, k2)
     if p.device.type == "cpu":
-        new = adam_opt_ref(p, g, m, v, k1, k2, lr=lr, b1=b1, b2=b2, eps=eps)
+        new = adam_opt_ref(p, g, m, v, k1, k2, lr=lr, b1=b1, b2=b2, eps=eps,
+                           divisor=divisor)
         for s, s2 in zip(slots, new[1:]):
             s.copy_(s2)
         return (new[0], *slots)
@@ -221,8 +253,7 @@ def fused_adam_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     _call("adam_opt_chunks", p.device, pc.data_ptr(), gc.data_ptr(),
           *(s.data_ptr() for s in sc), p2.data_ptr(), pc.shape[0], ce,
           g.shape[0] if stacked else 1, _DTYPE_CODE[p.dtype, g.dtype], lr,
-          b1, 1 - b1,
-          b2, 1 - b2, eps)
+          b1, 1 - b1, b2, 1 - b2, eps, dptr)
     if pc.numel() != n:
         for s, c in zip(slots, sc):
             s.copy_(c.view(-1)[:n])
@@ -271,3 +302,45 @@ def fused_dequant_agg_opt(p: torch.Tensor, q: torch.Tensor,
           m2.data_ptr(), n // ce, ce, L, n if stacked else 0,
           _DTYPE_CODE[p.dtype, p.dtype], lr, momentum, inv_n)
     return p2.view(-1), m2.view(-1)
+
+
+def fused_health_scan(g: torch.Tensor, *, chunk_elems: int = 8192
+                      ) -> torch.Tensor:
+    """f32 sum of squares of ``g`` through the per-chunk health pass: a
+    0-dim tensor for g (n,), and (W,) for stacked g (W, n), one launch
+    over all W rows' chunks, then each row's partials summed (a
+    ``torch.sum``, outside the kernel, as the reference's ``jnp.sum``).
+    g is f32 or bf16; the zero pad to whole chunks adds exactly 0; NaN and
+    Inf anywhere in a row propagate to its sum, so ``isfinite`` of the
+    result is the whole push's finiteness and its root the flat norm."""
+    if g.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {g.device}")
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"g: dtype {g.dtype} is not float32/bfloat16")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+    if g.dim() not in (1, 2) or g.shape[-1] < 1:
+        raise ValueError(f"g must be (n,) or (W, n), got {tuple(g.shape)}")
+    ce = _lane(chunk_elems)
+    partials = health_partials(_chunked(g, ce).reshape(-1, ce))
+    if g.dim() == 1:
+        return partials.sum()
+    return partials.view(g.shape[0], -1).sum(1)
+
+
+def health_partials(rows: torch.Tensor) -> torch.Tensor:
+    """``health_chunks`` itself: rows (n_chunks, chunk_elems), f32 or bf16,
+    chunk_elems a multiple of 4 -> (n_chunks,) f32 sums of squares, one
+    launch (the plain version on the CPU)."""
+    if rows.dim() != 2 or rows.shape[1] % 4 or not rows.is_contiguous():
+        raise ValueError(f"rows must be contiguous (n_chunks, chunk_elems) "
+                         f"with chunk_elems a multiple of 4, got "
+                         f"{tuple(rows.shape)}")
+    if rows.device.type == "cpu":
+        return health_chunks_ref(rows)
+    if rows.data_ptr() % 16:
+        raise ValueError("rows are not 16-byte aligned")
+    out = torch.empty(rows.shape[0], dtype=torch.float32, device=rows.device)
+    _call("health_chunks", rows.device, rows.data_ptr(), out.data_ptr(),
+          rows.shape[0], rows.shape[1], _DTYPE_CODE[rows.dtype, rows.dtype])
+    return out

@@ -14,25 +14,33 @@ ulp off the IEEE root on some inputs.
 
 Each rule takes ``g`` pre-aggregated (same shape as ``p``, in ``p``'s
 dtype or f32) or stacked ``(W, *p.shape)``; the stacked form is averaged
-with ``worker_mean`` first.  ``dequant_agg_opt_ref``, the int8 wire's tail,
-takes the owner's own rows contiguous or as the block diagonal of the
-stacked buffer (``block_diagonal``).  They are functional: the slots they
-are given are not written.
+with ``worker_mean`` first, divided by W or by ``divisor``, a one-element
+f32 tensor (the live count of an elastic or sanity-gated step).
+``dequant_agg_opt_ref``, the int8 wire's tail, takes the owner's own rows
+contiguous or as the block diagonal of the stacked buffer
+(``block_diagonal``).  They are functional: the slots they are given are
+not written.  ``health_chunks_ref`` is the health kernel's sum of squares
+per chunk, added in the kernel's order step by step; ``health_scan_ref``
+the reference's oracle, one ``torch.sum``.
 """
 from __future__ import annotations
 
 import torch
 
 
-def worker_mean(g: torch.Tensor) -> torch.Tensor:
+def worker_mean(g: torch.Tensor, divisor: torch.Tensor | None = None
+                ) -> torch.Tensor:
     """(W, ...) -> f32 mean over dim 0: summed in worker order, then
-    divided by W (not multiplied by 1/W: for W=3 those differ).  The
-    divisor is a tensor on the same device: PyTorch's CUDA division by a
-    Python number multiplies by its reciprocal."""
+    divided by W, or by ``divisor`` (not multiplied by the reciprocal: for
+    W=3 those differ).  The divisor is a tensor on the same device:
+    PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal."""
     acc = g[0].float()
     for w in range(1, g.shape[0]):
         acc = acc + g[w].float()
-    return acc / acc.new_tensor(float(g.shape[0]))
+    if divisor is None:
+        divisor = acc.new_tensor(float(g.shape[0]))
+    return acc / divisor
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -42,8 +50,9 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float().to(x.dtype)
 
 
-def _grad32(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    return worker_mean(g) if g.dim() == p.dim() + 1 else g.float()
+def _grad32(p: torch.Tensor, g: torch.Tensor,
+            divisor: torch.Tensor | None = None) -> torch.Tensor:
+    return worker_mean(g, divisor) if g.dim() == p.dim() + 1 else g.float()
 
 
 def _nesterov(p, g32, m, lr, momentum):
@@ -60,27 +69,29 @@ def agg_opt_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
 
 
 def multi_agg_opt_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
-                      lr: float, momentum: float):
+                      lr: float, momentum: float,
+                      divisor: torch.Tensor | None = None):
     """Tall aggregation: g is (W, *p.shape) worker gradients, averaged over
     dim 0, then the same update.  Returns (p', m')."""
-    return _nesterov(p, worker_mean(g), m, lr, momentum)
+    return _nesterov(p, worker_mean(g, divisor), m, lr, momentum)
 
 
-def sgd_opt_ref(p: torch.Tensor, g: torch.Tensor, *, lr: float):
+def sgd_opt_ref(p: torch.Tensor, g: torch.Tensor, *, lr: float,
+                divisor: torch.Tensor | None = None):
     """``sgd_opt_chunks``' body: p' = p - lr * g in f32.  Returns p'."""
-    return (p.float() - lr * _grad32(p, g)).to(p.dtype)
+    return (p.float() - lr * _grad32(p, g, divisor)).to(p.dtype)
 
 
 def adam_opt_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                  v: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor, *,
                  lr: float, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, divisor: torch.Tensor | None = None):
     """``adam_opt_chunks``' body: the textbook EMAs ``b*m + (1-b)*g``, the
     k1/k2 bias-correction tick gated to positions that have seen gradient
     (``alive``, taken on the aggregated g), the epsilon-hat step
     ``((lr*(1/k1'))*sqrt(k2')*m') / (sqrt(v') + eps*sqrt(k2'))`` and its
     mask to +0 where ``k1' == 0``.  Returns (p', m', v', k1', k2')."""
-    g32 = _grad32(p, g)
+    g32 = _grad32(p, g, divisor)
     c1, c2 = 1 - b1, 1 - b2
     m32, v32, k1f, k2f = m.float(), v.float(), k1.float(), k2.float()
     alive = (g32 != 0) | (k1f != 0)
@@ -119,3 +130,45 @@ def dequant_agg_opt_ref(p: torch.Tensor, q: torch.Tensor,
     deq = (q.float().reshape(-1, chunk_elems)
            * scales.float()[:, None]).reshape(-1)
     return _nesterov(p, (deq + own.float()) * inv_n, m, lr, momentum)
+
+
+HEALTH_THREADS, HEALTH_VEC, WARP = 256, 4, 32
+
+
+def _halve(x: torch.Tensor) -> torch.Tensor:
+    """Pairwise tree over the last dim, first half + second half until one
+    is left: the __shfl_down_sync tree of the kernel (lane l takes lane l
+    + offset's value)."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def health_chunks_ref(g: torch.Tensor) -> torch.Tensor:
+    """``health_chunks``' body: g (n_chunks, chunk_elems), f32 or bf16 ->
+    (n_chunks,) f32 sums of squares, in the kernel's order: thread t of a
+    256-thread block adds the squares of the 4-element vectors at t*4 +
+    k*1024, k = 0, 1, ..., one by one to a running sum (the chunk is
+    padded with zeros to whole 1024-element rows, which add exactly
+    nothing), then a tree over each warp's 32 lanes and one over the 8
+    warps.  NaN and Inf propagate."""
+    nc, ce = g.shape
+    row = HEALTH_THREADS * HEALTH_VEC
+    x = g.float()
+    if ce % row:
+        x = torch.nn.functional.pad(x, (0, row - ce % row))
+    sq = (x * x).view(nc, -1, HEALTH_THREADS, HEALTH_VEC)
+    acc = torch.zeros(nc, HEALTH_THREADS, dtype=torch.float32,
+                      device=g.device)
+    for k in range(sq.shape[1]):
+        for c in range(HEALTH_VEC):
+            acc = acc + sq[:, k, :, c]
+    warps = _halve(acc.view(nc, HEALTH_THREADS // WARP, WARP))
+    return _halve(warps)
+
+
+def health_scan_ref(g: torch.Tensor) -> torch.Tensor:
+    """The reference's oracle of the health pass: the f32 sum of squares of
+    all of ``g`` (0-dim; NaN/Inf propagate)."""
+    return torch.sum(torch.square(g.float()))

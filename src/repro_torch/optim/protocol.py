@@ -8,10 +8,11 @@ CUDA kernel at scalar coefficients, one kernel per TPU kernel --
 Nesterov through ``agg_opt_chunks`` (pre-aggregated g) or
 ``multi_agg_opt_chunks`` (stacked g), SGD through ``sgd_opt_chunks`` and
 Adam through ``adam_opt_chunks`` (either g).  Its ``update_fn(p, g,
-slots)`` takes ``g`` either pre-aggregated (same shape as ``p``) or as
-stacked worker gradients ``(W, *p.shape)``, which the kernel averages over
-dim 0 (summed in worker order, divided by W) before the rule: that is the
-tall aggregation the stacked exchange fuses into the update
+slots, divisor=None)`` takes ``g`` either pre-aggregated (same shape as
+``p``) or as stacked worker gradients ``(W, *p.shape)``, which the kernel
+averages over dim 0 (summed in worker order, divided by W, or by
+``divisor``, a one-element f32 tensor on the card) before the rule: that
+is the tall aggregation the stacked exchange fuses into the update
 (``core/exchange.py``).  It returns ``(p', slots')``; Adam's kernel updates
 its slots in place and returns the same tensors.  ``tuple_update`` closes
 the plain rule over its coefficients, for a pre-aggregated ``g``.
@@ -109,11 +110,16 @@ class NesterovOptimizer(ShardedOptimizer):
         from ..kernels.agg_opt.ops import fused_agg_opt, fused_multi_agg_opt
         lr, mu = coefs
 
-        def upd(p, g, slots):
-            fused = (fused_multi_agg_opt if g.dim() == p.dim() + 1
-                     else fused_agg_opt)
-            p2, m2 = fused(p, g, slots[0], lr=lr, momentum=mu,
-                           chunk_elems=chunk_elems)
+        def upd(p, g, slots, divisor=None):
+            if g.dim() == p.dim() + 1:
+                p2, m2 = fused_multi_agg_opt(
+                    p, g, slots[0], lr=lr, momentum=mu,
+                    chunk_elems=chunk_elems, divisor=divisor)
+            elif divisor is not None:
+                raise ValueError("a divisor needs stacked worker gradients")
+            else:
+                p2, m2 = fused_agg_opt(p, g, slots[0], lr=lr, momentum=mu,
+                                       chunk_elems=chunk_elems)
             return p2, (m2,)
         return upd
 
@@ -145,8 +151,9 @@ class SGDOptimizer(ShardedOptimizer):
         from ..kernels.agg_opt.ops import fused_sgd_opt
         (lr,) = coefs
 
-        def upd(p, g, slots):
-            return fused_sgd_opt(p, g, lr=lr, chunk_elems=chunk_elems), ()
+        def upd(p, g, slots, divisor=None):
+            return fused_sgd_opt(p, g, lr=lr, chunk_elems=chunk_elems,
+                                 divisor=divisor), ()
         return upd
 
 
@@ -192,10 +199,11 @@ class AdamOptimizer(ShardedOptimizer):
         from ..kernels.agg_opt.ops import fused_adam_opt
         (lr,) = coefs
 
-        def upd(p, g, slots):
+        def upd(p, g, slots, divisor=None):
             p2, *slots2 = fused_adam_opt(p, g, *slots, lr=lr, b1=self.b1,
                                          b2=self.b2, eps=self.eps,
-                                         chunk_elems=chunk_elems)
+                                         chunk_elems=chunk_elems,
+                                         divisor=divisor)
             return p2, tuple(slots2)
         return upd
 

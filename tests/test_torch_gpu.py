@@ -14,6 +14,7 @@ from repro_torch.kernels import quant
 from repro_torch.kernels.agg_opt import ops
 from repro_torch.kernels.agg_opt.ref import (adam_opt_ref, agg_opt_ref,
                                              dequant_agg_opt_ref,
+                                             health_chunks_ref,
                                              multi_agg_opt_ref, sgd_opt_ref)
 from repro_torch.optim.protocol import (AdamOptimizer, NesterovOptimizer,
                                         SGDOptimizer)
@@ -240,3 +241,96 @@ def test_cuda_int8_exchange_equals_cpu_bitwise(S, rule, dtype):
     assert torch.equal(p2.cpu(), wp) and torch.equal(r2.cpu(), wr)
     for a, b in zip(s2, ws):
         assert torch.equal(a.cpu(), b)
+
+
+def _same_or_both_nan(a, b):
+    """Bitwise equal where b is a number; NaN exactly where b is NaN (the
+    card's NaN is canonical, the plain version's may carry a payload)."""
+    nan = torch.isnan(b)
+    return (torch.equal(torch.isnan(a), nan)
+            and torch.equal(a[~nan], b[~nan]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["f32", "bf16", "ragged", "nan", "inf",
+                                  "overflow", "zero"])
+@pytest.mark.parametrize("W", [1, 4])
+def test_cuda_health_chunks_matches_plain_bitwise(case, W):
+    """health_chunks' per-chunk partials and the wrapper's sums against
+    the plain version on the same card: bitwise, NaN/Inf where it has
+    them; ragged: n not whole chunks and a chunk of 896 elements."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(W + len(case))
+    ce = 896 if case == "ragged" else (16384 if case == "bf16" else 8192)
+    n = 5 * ce + (77 if case == "ragged" else 0)
+    g = torch.randn(W, n, device="cuda", generator=gen)
+    if case == "nan":
+        g[-1, 3] = float("nan")
+    elif case == "inf":
+        g[0, ce + 5] = float("-inf")
+    elif case == "overflow":
+        g[-1, 2 * ce:2 * ce + 64] = 1e20
+    elif case == "zero":
+        g[:, ce:2 * ce] = 0
+    if case == "bf16":
+        g = g.bfloat16()
+    ops.reset_launches()
+    got = ops.fused_health_scan(g, chunk_elems=ce)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["health_chunks"] == 1
+    assert sum(ops.LAUNCHES.values()) == 1
+    rows = torch.nn.functional.pad(g, (0, -n % ce)).reshape(-1, ce)
+    want_parts = health_chunks_ref(rows)
+    parts = ops.health_partials(rows)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["health_chunks"] == 2
+    assert _same_or_both_nan(parts, want_parts)
+    want = want_parts.view(W, -1).sum(1)
+    assert _same_or_both_nan(got, want)
+    if case == "zero":
+        assert (parts.view(W, -1)[:, 1] == 0).all()
+    if case in ("inf", "overflow"):
+        assert torch.isposinf(got).any()
+    if W == 1:
+        assert _same_or_both_nan(ops.fused_health_scan(g[0], chunk_elems=ce),
+                                 want[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_device_divisor_matches_plain_and_the_w_path(W, dtype):
+    """B2-B4 with the divisor read on the card: bitwise against their
+    plain versions at a live count below W (row 1 zeroed, as the gate
+    leaves it), and the same bits as the null-pointer path when the
+    divisor holds W."""
+    _need_card()
+    n = 8192 * 3 + 77
+    p, g, m, v, k1, k2 = _adam_inputs(W, n, dtype, seed=70 + W)
+    g[1] = 0
+    kw = dict(lr=3e-4, b1=0.9, b2=0.999, eps=1e-8)
+    for live in (W - 1, W):
+        d = torch.tensor([float(live)], device="cuda")
+        ops.reset_launches()
+        got = ops.fused_multi_agg_opt(p, g, m, lr=0.05, momentum=0.9,
+                                      divisor=d)
+        want = multi_agg_opt_ref(p, g, m, lr=0.05, momentum=0.9, divisor=d)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        got_sgd = ops.fused_sgd_opt(p, g, lr=0.05, divisor=d)
+        assert torch.equal(got_sgd, sgd_opt_ref(p, g, lr=0.05, divisor=d))
+        slots = tuple(t.clone() for t in (m, v, k1, k2))
+        got_adam = ops.fused_adam_opt(p, g, *slots, divisor=d, **kw)
+        want_adam = adam_opt_ref(p, g, m, v, k1, k2, divisor=d, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got_adam, want_adam))
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["multi_agg_opt_chunks"] == 1
+        assert ops.LAUNCHES["sgd_opt_chunks"] == 1
+        assert ops.LAUNCHES["adam_opt_chunks"] == 1
+        if live == W:
+            assert all(torch.equal(a, b) for a, b in zip(
+                got, ops.fused_multi_agg_opt(p, g, m, lr=0.05,
+                                             momentum=0.9)))
+            assert torch.equal(got_sgd, ops.fused_sgd_opt(p, g, lr=0.05))
+            slots = tuple(t.clone() for t in (m, v, k1, k2))
+            assert all(torch.equal(a, b) for a, b in zip(
+                got_adam, ops.fused_adam_opt(p, g, *slots, **kw)))

@@ -30,8 +30,10 @@ def test_port_imports_no_jax_and_no_repro():
         [sys.executable, "-c", PROBE, os.path.join(ROOT, "src"), ROOT],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "repro_torch.kernels.agg_opt.ops" in res["modules"]
-    assert "repro_torch.core.engine" in res["modules"]
+    for name in ("kernels.agg_opt.ops", "core.engine", "elastic.chaos",
+                 "elastic.membership", "resilience.supervisor",
+                 "resilience.watchdog", "checkpoint.checkpointer"):
+        assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
 
