@@ -4,6 +4,8 @@
     python3 scripts/torch_step_profile.py [--workers 4] [--batch 8] [--seq 512]
         [--optimizer nesterov|adam|sgd] [--lr LR]
         [--wire-format identity|bf16|f16|int8] [--sanity [--poison W]]
+    python3 scripts/torch_step_profile.py --serve [--arch llama3.2-1b]
+        [--batch 8] [--seq 2048]
 
 Runs the port's main path (full llama3.2-1b, sharded_ps, W workers stacked
 on one card, Nesterov at the TrainConfig defaults over the identity wire
@@ -19,6 +21,12 @@ cudaMalloc and returned with cudaFree, and allocations retried after
 freeing the cache: each such retry synchronizes the card) and the host time of the
 CUDA runtime calls in the profiled step.  Needs a CUDA card; imports no
 JAX.
+
+``--serve``: the serving path instead (``--arch``, full width and depth,
+a greedy batch of ``--batch`` prompts of ``--seq`` tokens): one prefill
+and one decode step against its cache, each warmed up, timed unprofiled
+(ending in a sync) and then profiled, with the same split by kernel class
+and the busy share of each.
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
 CLASSES = (                      # first match wins
+    ("attention kernel (prefill)", ("swa_kernel",)),
+    ("attention kernel (decode)", ("decode_kernel",)),
     ("update kernel", ("agg_opt_kernel", "sgd_opt_kernel",
                        "adam_opt_kernel")),   # dequant_agg_opt_kernel too
     ("wire codec", ("quantize_kernel",)),     # and dequantize_kernel
@@ -53,6 +63,102 @@ def classify(name: str) -> str:
     return "other"
 
 
+def device_split(prof, torch):
+    """({kernel: [device ms, calls]}, {CUDA runtime call: [host ms,
+    calls]}, total device ms) of a profile."""
+    by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    runtime: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            if evt.name.startswith("cuda"):
+                runtime[evt.name][0] += evt.cpu_time_total / 1e3
+                runtime[evt.name][1] += 1
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        by_name[evt.name][0] += us / 1e3
+        by_name[evt.name][1] += 1
+    return by_name, runtime, sum(v[0] for v in by_name.values())
+
+
+def print_split(by_name: dict, dev_ms: float, top: int = 15) -> None:
+    if dev_ms == 0:
+        raise SystemExit("the profiler recorded no device time")
+    by_class: dict[str, float] = defaultdict(float)
+    for name, (ms, _) in by_name.items():
+        by_class[classify(name)] += ms
+    print("device time by kernel class:")
+    for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {cls:<26} {ms:10.3f} ms  {ms / dev_ms:6.1%}")
+    print("top kernels by device time:")
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {ms:10.3f} ms  {n:5d} calls  {name[:110]}")
+
+
+def serve_profile(args) -> None:
+    """One prefill and one decode step of the serving path, profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.core import PHubEngine, StackedComm
+    from repro_torch.data import SyntheticTokens
+
+    cfg = get_arch(args.arch)
+    engine = PHubEngine(cfg, TrainConfig(), StackedComm(1), device="cuda")
+    model = engine.init_model(seed=0)
+    prompts = torch.from_numpy(SyntheticTokens(cfg, args.batch, args.seq,
+                                               seed=7).batch_at(0)["tokens"]
+                               ).to("cuda", torch.int64)
+    prefill = engine.make_prefill_step(args.seq, max_new_tokens=32)
+    step = engine.make_serve_step()
+
+    def run_prefill():
+        return prefill(model, prompts)
+
+    cache = None
+
+    def run_decode():
+        logits, _ = step(model, cache, tok)
+        return logits
+
+    logits, cache = run_prefill()                      # warm-up
+    tok = logits.argmax(-1)[:, None]
+    for fn, label in ((run_prefill, f"prefill of {args.batch} x {args.seq}"),
+                      (run_decode, "one decode step")):
+        for _ in range(2):                             # warm-up
+            out = fn()
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del out
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        del out
+        by_name, runtime, dev_ms = device_split(prof, torch)
+        print(f"{cfg.arch_id} {label} (cache {cache['k'].shape[2]} slots, "
+              f"next {cache['next']}): wall {wall:.3f} ms, peak {peak:.2f} "
+              f"GiB; profiled wall {prof_ms:.3f} ms, device kernel time "
+              f"{dev_ms:.3f} ms; busy share {dev_ms / wall:.3f} of the "
+              f"unprofiled run ({dev_ms / prof_ms:.3f} of the profiled one)")
+        print_split(by_name, dev_ms)
+        print("host time of CUDA runtime calls in the profiled run:")
+        for name, (ms, n) in sorted(runtime.items(),
+                                    key=lambda kv: -kv[1][0])[:4]:
+            print(f"  {ms:10.3f} ms  {n:5d} calls  {name}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workers", type=int, default=4)
@@ -67,6 +173,11 @@ def main(argv=None) -> None:
                          "fill, the live count)")
     ap.add_argument("--poison", type=int, default=None,
                     help="with --sanity: NaN-inject this worker's push")
+    ap.add_argument("--serve", action="store_true",
+                    help="profile the serving path: one prefill of "
+                         "--batch x --seq and one decode step")
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    help="with --serve: the architecture")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -83,6 +194,9 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
+    if args.serve:
+        serve_profile(args)
+        return
     cfg = get_arch("llama3.2-1b")
     tc = TrainConfig(loss_chunk=min(1024, args.seq),
                      optimizer=args.optimizer, wire_format=args.wire_format,
@@ -122,23 +236,7 @@ def main(argv=None) -> None:
         prof_ms = (time.perf_counter() - t0) * 1e3
     loss = float(metrics["loss"])
 
-    by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
-    runtime: dict[str, list] = defaultdict(lambda: [0.0, 0])
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            if evt.name.startswith("cuda"):
-                runtime[evt.name][0] += evt.cpu_time_total / 1e3
-                runtime[evt.name][1] += 1
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        by_name[evt.name][0] += us / 1e3
-        by_name[evt.name][1] += 1
-    dev_ms = sum(v[0] for v in by_name.values())
-    by_class: dict[str, float] = defaultdict(float)
-    for name, (ms, _) in by_name.items():
-        by_class[classify(name)] += ms
+    by_name, runtime, dev_ms = device_split(prof, torch)
     gate = ""
     if args.sanity:
         gate = (f"sanity-gated (poisoned: {args.poison}, ok_mask "
@@ -152,11 +250,7 @@ def main(argv=None) -> None:
           f"{dev_ms:.1f} ms; busy share {dev_ms / step_ms:.3f} of the "
           f"unprofiled step "
           f"({dev_ms / prof_ms:.3f} of the profiled one)")
-    if dev_ms == 0:
-        raise SystemExit("the profiler recorded no device time")
-    print("device time by kernel class:")
-    for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"  {cls:<26} {ms:10.2f} ms  {ms / dev_ms:6.1%}")
+    print_split(by_name, dev_ms)
     print(f"allocator in the timed step: {alloc['segment.all.allocated']} "
           f"segments taken (cudaMalloc), {alloc['segment.all.freed']} given "
           f"back (cudaFree), {alloc['num_alloc_retries']} allocations "
@@ -164,10 +258,6 @@ def main(argv=None) -> None:
     print("host time of CUDA runtime calls in the profiled step:")
     for name, (ms, n) in sorted(runtime.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"  {ms:10.2f} ms  {n:5d} calls  {name}")
-    print("top kernels by device time:")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    for name, (ms, n) in top:
-        print(f"  {ms:10.2f} ms  {n:5d} calls  {name[:110]}")
 
 
 if __name__ == "__main__":

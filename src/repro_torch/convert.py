@@ -9,6 +9,8 @@ them out as the port's ``(S, state_len)``, any slots in their own dtypes
 (Adam's m/v in the group dtype, k1/k2 and an encoded wire's ``wire_ef``
 f32 in every group).  Given the engine's ``exchange_slots``, it checks
 that the reference's state holds exactly those slots, in those dtypes.
+``cache_from_numpy`` takes the reference's decode cache (``init_cache`` /
+``prefill``'s ``cache``) and returns the port's, ``next`` as a host int.
 bfloat16 arrays (numpy's ``ml_dtypes`` extension type) are carried bit for
 bit.  Nothing here imports JAX.
 """
@@ -19,7 +21,7 @@ import torch
 
 from .configs.base import ModelConfig
 from .core.chunking import ChunkPlan, leaf_paths
-from .models import DecoderLM, param_specs
+from .models import DecoderLM, init_cache, param_specs
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -73,4 +75,24 @@ def opt_from_numpy(plan: ChunkPlan, opt: dict, *, slots=None,
                     f"(1, padded) with padded={g.padded}")
             res[name] = _tensor(a.reshape(g.n_shards, g.shard_len), device)
         out[g.key] = res
+    return out
+
+
+def cache_from_numpy(cfg: ModelConfig, cache: dict, *,
+                     device="cuda") -> dict:
+    """The reference's decode cache (numpy ``k``/``v`` (L, B, C, kv, hd),
+    ``pos`` (L, B, C) int32, ``next`` a scalar) -> the port's dict, k/v in
+    their own dtype (bf16 bit for bit) and ``next`` a host int."""
+    k = np.asarray(cache["k"])
+    want = init_cache(cfg, k.shape[1], k.shape[2], device="meta")
+    out = {}
+    for name in ("k", "v", "pos"):
+        a = np.asarray(cache[name])
+        if a.shape != tuple(want[name].shape):
+            raise ValueError(f"cache {name}: shape {a.shape} is not "
+                             f"{tuple(want[name].shape)}")
+        out[name] = _tensor(a, device)
+    if out["pos"].dtype != torch.int32:
+        raise TypeError(f"cache pos is {out['pos'].dtype}, not int32")
+    out["next"] = int(np.asarray(cache["next"]))
     return out

@@ -39,6 +39,10 @@ NaN); and divides the mean by ``max(ok count, 1)``, kept on the card, so
 the step needs no host sync.  Both run over the identity wire only.  Tree
 residency and one window only; the reference's flat residency, windows
 and the DCN wire are queued in ROADMAP.md.
+
+Serving (``make_prefill_step``, ``make_serve_step``) runs the model's
+prefill and decode forwards on one card; the launcher builds the engine
+with ``StackedComm(1)``.
 """
 from __future__ import annotations
 
@@ -89,13 +93,16 @@ class PHubEngine:
                         for s in self.exchange_slots}
                 for g in self.chunk_plan.groups}
 
+    def init_model(self, seed: int | None = None) -> DecoderLM:
+        """Fresh weights drawn from ``seed`` (default ``tc.seed``)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.tc.seed if seed is None else seed)
+        return DecoderLM(self.cfg, device=self.device, generator=gen)
+
     def init_state(self, seed: int | None = None):
         """(model, opt): fresh weights drawn from ``seed`` (default
         ``tc.seed``) and zero optimizer slots."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.tc.seed if seed is None else seed)
-        model = DecoderLM(self.cfg, device=self.device, generator=gen)
-        return model, self.init_opt()
+        return self.init_model(seed), self.init_opt()
 
     # ------------------------------------------------------------ train step
 
@@ -286,3 +293,33 @@ class PHubEngine:
             return model, new_opt, metrics
 
         return step
+
+    # ------------------------------------------------------------ serve step
+
+    @staticmethod
+    def _last_logits(model: DecoderLM, x: torch.Tensor) -> torch.Tensor:
+        """The last position's logits (B, V) f32, as the reference's
+        ``x[:, -1].astype(f32) @ lm_head.astype(f32)``."""
+        with torch.inference_mode():
+            return x[:, -1].float() @ model.lm_head_weight().float()
+
+    def make_prefill_step(self, seq_len: int, max_new_tokens: int = 0):
+        """``prefill_step(model, tokens (B, seq_len)) -> (logits (B, V)
+        f32, cache)``: the prompt through ``DecoderLM.prefill`` into a ring
+        cache with room for ``max_new_tokens`` more."""
+        def prefill_step(model: DecoderLM, tokens: torch.Tensor):
+            if tokens.shape[1] != seq_len:
+                raise ValueError(f"prompt of {tokens.shape[1]} tokens, the "
+                                 f"step was made for {seq_len}")
+            x, cache = model.prefill(tokens, max_new_tokens=max_new_tokens)
+            return self._last_logits(model, x), cache
+        return prefill_step
+
+    def make_serve_step(self):
+        """``serve_step(model, cache, tokens (B, 1)) -> (logits (B, V) f32,
+        cache)``: one decode token; the cache is updated in place and
+        returned."""
+        def serve_step(model: DecoderLM, cache: dict, tokens: torch.Tensor):
+            x = model.decode(tokens, cache)
+            return self._last_logits(model, x), cache
+        return serve_step

@@ -9,6 +9,8 @@ computes them.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -40,12 +42,20 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
 
 
+@functools.cache
+def _device_freqs(hd: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` on ``device``, copied there once: a copy from pageable
+    host memory waits for the card, at every layer otherwise."""
+    with torch.inference_mode(False):       # usable by autograd later
+        return torch.from_numpy(rope_freqs(hd, theta)).to(device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., T, H, hd); positions: (T,) or broadcastable to (..., T)."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = torch.from_numpy(rope_freqs(hd, theta)).to(x.device)
+    freqs = _device_freqs(hd, theta, x.device)
     ang = positions[..., None].float() * freqs                  # (..., T, half)
     cos = torch.cos(ang)[..., None, :]                          # (..., T, 1, half)
     sin = torch.sin(ang)[..., None, :]

@@ -10,7 +10,7 @@ import torch
 from repro_torch.core import StackedComm
 from repro_torch.core.pipeline import pipelined_wire_exchange
 from repro_torch.core.wire import WireFormat
-from repro_torch.kernels import quant
+from repro_torch.kernels import decode_attn, quant, swa_attn
 from repro_torch.kernels.agg_opt import ops
 from repro_torch.kernels.agg_opt.ref import (adam_opt_ref, agg_opt_ref,
                                              dequant_agg_opt_ref,
@@ -334,3 +334,128 @@ def test_cuda_device_divisor_matches_plain_and_the_w_path(W, dtype):
             slots = tuple(t.clone() for t in (m, v, k1, k2))
             assert all(torch.equal(a, b) for a, b in zip(
                 got_adam, ops.fused_adam_opt(p, g, *slots, **kw)))
+
+
+# ----------------------------------------------------- attention kernels
+#
+# Tolerances (kernels/swa_attn/ops.py, kernels/decode_attn/ops.py): the
+# kernels sum in another order than the plain versions.  f32 prefill
+# within 2e-5 * max(1, max|want|), f32 decode within 3e-5 (the
+# reference's bounds, tests/test_kernels.py), bf16 within 3e-2.
+
+def _attn_tol(dtype, base):
+    return base if dtype == torch.float32 else 3e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,nh,kv,hd,window", [
+    (128, 4, 2, 64, 0), (128, 4, 2, 64, 32), (128, 2, 2, 120, 48),
+    (64, 8, 1, 32, 0),
+    (100, 4, 2, 64, 0),            # ragged T: a partial q and kv tile
+    (300, 4, 2, 120, 100),         # ragged, windowed, hd 120
+    (257, 8, 8, 128, 0),           # MHA, hd 128, one row past a tile
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_swa_attention_matches_plain(T, nh, kv, hd, window, dtype):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(T + hd + window)
+    B = 2
+    q = torch.randn(B, T, nh, hd, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(B, T, kv, hd, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(B, T, kv, hd, device="cuda", generator=gen).to(dtype)
+    swa_attn.reset_launches()
+    got = swa_attn.swa_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert swa_attn.LAUNCHES["swa_attention_kernel"] == 1
+    want = swa_attn.swa_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2),
+                                      window=window).transpose(1, 2)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    assert err <= _attn_tol(dtype, 2e-5 * scale), err
+
+
+def _cache(B, S, kv, hd, dtype, gen, fill, empty_lead=0):
+    k = torch.randn(B, S, kv, hd, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(B, S, kv, hd, device="cuda", generator=gen).to(dtype)
+    pos = torch.arange(S, device="cuda", dtype=torch.int32)[None].repeat(B, 1)
+    pos = torch.where(pos < fill, pos, -1)
+    if empty_lead:                 # the first slots empty, filled after
+        pos[:, :empty_lead] = -1
+    return k, v, pos.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,nh,kv,hd,window", [
+    (256, 4, 2, 64, 0), (300, 4, 2, 64, 100), (512, 8, 8, 128, 0),
+    (1024, 5, 5, 64, 256), (2080, 32, 8, 64, 0), (700, 32, 8, 120, 500),
+])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16)])
+def test_cuda_decode_attention_matches_plain(S, nh, kv, hd, window, q_dtype,
+                                            kv_dtype):
+    """20% of the slots empty, as the reference's sweep."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(S + nh + hd)
+    B = 2
+    fill = int(S * 0.8)
+    k, v, pos = _cache(B, S, kv, hd, kv_dtype, gen, fill)
+    q = torch.randn(B, 1, nh, hd, device="cuda", generator=gen).to(q_dtype)
+    qp = torch.full((B,), fill, dtype=torch.int32, device="cuda")
+    decode_attn.reset_launches()
+    got = decode_attn.decode_attention(q, k, v, pos, qp, window=window)
+    torch.cuda.synchronize()
+    assert decode_attn.LAUNCHES["decode_attention_kernel"] == 1
+    want = decode_attn.decode_attention_ref(
+        q.reshape(B, kv, nh // kv, hd), k, v, pos, qp.reshape(B, 1),
+        window=window).reshape(B, 1, nh, hd)
+    assert got.dtype == q_dtype and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _attn_tol(q_dtype, 3e-5), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 300])
+def test_cuda_decode_attention_empty_leading_blocks_and_rotation(window):
+    """The first 200 slots (three whole 64-slot blocks and part of a
+    fourth) are empty: the kernel's first blocks are wholly masked, which
+    the -1e30 running max must wipe.  Rolling the ring does not change
+    the answer."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(window + 1)
+    B, S, nh, kv, hd = 2, 640, 8, 2, 64
+    k, v, pos = _cache(B, S, kv, hd, torch.bfloat16, gen, S, empty_lead=200)
+    q = torch.randn(B, 1, nh, hd, device="cuda", generator=gen)
+    qp = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+    got = decode_attn.decode_attention(q, k, v, pos, qp, window=window)
+    want = decode_attn.decode_attention_ref(
+        q.reshape(B, kv, nh // kv, hd), k, v, pos, qp.reshape(B, 1),
+        window=window).reshape(B, 1, nh, hd)
+    assert float((got - want).abs().max()) <= 3e-5
+    assert torch.isfinite(got).all()
+    r = 37
+    rolled = decode_attn.decode_attention(
+        q, *(torch.roll(t, r, dims=1).contiguous() for t in (k, v, pos)),
+        qp, window=window)
+    assert float((rolled - got).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_cuda_attention_kernels_reject_what_they_do_not_take():
+    _need_card()
+    q = torch.zeros(1, 8, 2, 160, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        swa_attn.swa_attention(q, q, q)
+    with pytest.raises(TypeError):
+        swa_attn.swa_attention(q.half(), q.half(), q.half())
+    k = torch.zeros(1, 16, 1, 64, device="cuda")
+    pos = torch.zeros(1, 16, dtype=torch.int32, device="cuda")
+    qp = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="nh/kv"):
+        decode_attn.decode_attention(torch.zeros(1, 1, 16, 64, device="cuda"),
+                                     k, k, pos, qp)
+    with pytest.raises(TypeError, match="int32"):
+        decode_attn.decode_attention(torch.zeros(1, 1, 2, 64, device="cuda"),
+                                     k, k, pos.long(), qp)

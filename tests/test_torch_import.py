@@ -32,23 +32,37 @@ def test_port_imports_no_jax_and_no_repro():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("kernels.agg_opt.ops", "core.engine", "elastic.chaos",
                  "elastic.membership", "resilience.supervisor",
-                 "resilience.watchdog", "checkpoint.checkpointer"):
+                 "resilience.watchdog", "checkpoint.checkpointer",
+                 "kernels.swa_attn.ops", "kernels.decode_attn.ops",
+                 "launch.serve"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
 
 def test_entry_points_default_to_cuda():
-    from repro_torch.convert import opt_from_numpy, params_from_numpy
+    from repro_torch.convert import (cache_from_numpy, opt_from_numpy,
+                                     params_from_numpy)
     from repro_torch.core import PHubEngine
     from repro_torch.data import SyntheticTokens
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import DecoderLM, init_cache
 
     for fn, arg in ((PHubEngine.__init__, "device"),
                     (DecoderLM.__init__, "device"),
                     (SyntheticTokens.torch_batch, "device"),
                     (params_from_numpy, "device"),
-                    (opt_from_numpy, "device")):
+                    (opt_from_numpy, "device"),
+                    (cache_from_numpy, "device"),
+                    (init_cache, "device")):
         assert inspect.signature(fn).parameters[arg].default == "cuda", fn
-    src = open(os.path.join(ROOT, "src", "repro_torch", "launch",
-                            "train.py")).read()
-    assert 'ap.add_argument("--device", default="cuda")' in src
+    # the serving steps run on the engine's device, the card unless asked
+    from repro_torch.configs import TrainConfig, get_arch, reduced
+    from repro_torch.core import StackedComm
+    eng = PHubEngine(reduced(get_arch("llama3.2-1b")), TrainConfig(),
+                     StackedComm(1))
+    assert eng.device.type == "cuda"
+    assert callable(eng.make_prefill_step(16)) and callable(
+        eng.make_serve_step())
+    for launcher in ("train.py", "serve.py"):
+        src = open(os.path.join(ROOT, "src", "repro_torch", "launch",
+                                launcher)).read()
+        assert 'ap.add_argument("--device", default="cuda")' in src, launcher
