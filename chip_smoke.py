@@ -99,7 +99,26 @@
    other kernel 0) and that a second greedy run gives the same tokens and
    logits; prints prefill ms and tok/s, decode ms a step and tok/s, peak
    GiB.
-9. Prints the kernels line, then the device line last.
+9. The attention-free (ssm) path's kernel and model: rwkv_scan_kernel
+   (B8) against its plain version at rwkv6-3b's serving shape (B 8, T
+   2048, 40 heads of 64, f32, from a zero and from a nonzero state) within
+   RWKV_TOL * max(1, max|want|), timed (CUDA events, median of 10) beside
+   its plain version and its bound (the strict-triangle flops at 67
+   TFLOP/s f32 or its bytes at 3.35 TB/s, the larger; no PyTorch call
+   computes the scan, so library_ms is null); edge cases T 1, 40, 100 and
+   257 (ragged chunks), bf16 inputs, and a uniform decay of 0.3 (finite)
+   and 0.1 (the cumulative decay underflows: inf and NaN in the same
+   places as the plain version).  Reduced rwkv6-3b, prompts 40 (one
+   ragged chunk) and 128 (two chunks): prefill and 4 teacher-forced decode
+   steps card vs CPU, logits within SERVE_TOL, the state cache's dtypes
+   (S and x_prev_ffn f32, x_prev_att bf16) on both.
+10. Full rwkv6-3b (32 layers, d_model 2560, 3,073,313,280 f32 parameters
+   in the tree) through launch/serve.generate, batch 8, prompt 2048, 32
+   greedy tokens: exactly 32 rwkv_scan_kernel launches in the run and
+   every other kernel 0, a prefill alone launching 32 and a decode step
+   alone none; finite logits, a second greedy run equal in tokens and
+   logits; prefill and decode times, peak GiB.
+11. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 card and refuses to run without one.
@@ -124,6 +143,7 @@ CARD_SOURCE = "src/repro_torch/kernels/agg_opt/csrc/agg_opt.cu"
 QUANT_SOURCE = "src/repro_torch/kernels/quant/csrc/quant.cu"
 SWA_SOURCE = "src/repro_torch/kernels/swa_attn/csrc/swa_attn.cu"
 DECODE_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
+RWKV_SOURCE = "src/repro_torch/kernels/rwkv_scan/csrc/rwkv_scan.cu"
 REPLACES = {"agg_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:38",
             "multi_agg_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:187",
             "sgd_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:60",
@@ -135,7 +155,8 @@ REPLACES = {"agg_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:38",
             "health_chunks": "src/repro/kernels/agg_opt/kernel.py:173",
             "swa_attention_kernel": "src/repro/kernels/swa_attn/kernel.py:73",
             "decode_attention_kernel":
-                "src/repro/kernels/decode_attn/kernel.py:60"}
+                "src/repro/kernels/decode_attn/kernel.py:60",
+            "rwkv_scan_kernel": "src/repro/kernels/rwkv_scan/kernel.py:70"}
 
 ARCH, WORKERS, BATCH, SEQ, STEPS = "llama3.2-1b", 4, 8, 512, 3
 ADAM_LR, SGD_LR = 3e-4, 1e-2
@@ -149,6 +170,9 @@ SWA_RTOL = 2e-5                  # f32: within 2e-5 * max(1, max|want|)
 DECODE_TOL = 3e-5                # f32 queries
 BF16_TOL = 3e-2
 SERVE_TOL = 5e-3                 # reduced serving, card vs CPU (item 7)
+# the attention-free path (item 10): (arch, batch, prompt, decode tokens)
+SSM_SERVE_PATH = ("rwkv6-3b", 8, 2048, 32)
+RWKV_TOL, RWKV_BF16_TOL = 1e-5, 1e-2     # * max(1, max|want|)
 
 
 def log(msg: str) -> None:
@@ -1146,8 +1170,9 @@ def rollback_phase(torch) -> None:
 
 
 def launch_modules():
-    from repro_torch.kernels import agg_opt, decode_attn, quant, swa_attn
-    return (agg_opt, quant, swa_attn, decode_attn)
+    from repro_torch.kernels import (agg_opt, decode_attn, quant, rwkv_scan,
+                                     swa_attn)
+    return (agg_opt, quant, swa_attn, decode_attn, rwkv_scan)
 
 
 def reset_all_launches() -> None:
@@ -1368,6 +1393,144 @@ def attention_kernel_phase(torch) -> dict:
     return out
 
 
+def rwkv_inputs(torch, B: int, T: int, H: int, seed: int, *,
+                dtype=None, zero_state: bool = False, w_value=None):
+    """r, k, v ~ N(0, 0.5); the model's decay exp(-exp(w0 + N(0, 0.5))),
+    w0 spread over [-6, -4.5] as rwkv6-3b's init (or a uniform
+    ``w_value``); u ~ N(0, 0.5); a state ~ N(0, 0.3) or zero.  On the card,
+    r/k/v/w in ``dtype`` (f32 by default)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    r, k, v = (randn(B, T, H, 64) * 0.5 for _ in range(3))
+    if w_value is None:
+        w0 = torch.linspace(-6.0, -4.5, H * 64, device="cuda").reshape(H, 64)
+        w = torch.exp(-torch.exp(w0 + randn(B, T, H, 64) * 0.5))
+    else:
+        w = torch.full((B, T, H, 64), w_value, device="cuda")
+    u = randn(H, 64) * 0.5
+    S = (torch.zeros(B, H, 64, 64, device="cuda") if zero_state
+         else randn(B, H, 64, 64) * 0.3)
+    dt = dtype or torch.float32
+    return (*(x.to(dt) for x in (r, k, v, w)), u, S)
+
+
+def rwkv_work(B: int, T: int, H: int, hd: int, itemsize: int
+              ) -> tuple[float, float]:
+    """(flops, bytes) of the chunked scan on these inputs: per (b, h) and
+    chunk of n rows, the strict triangles of rq kd^T and att v (n(n-1)/2
+    pairs, 2 hd each), rq S and kd^T v (2 n hd^2 each), a_last * S and its
+    sum (2 hd^2) and ten elementwise operations a row and channel; each
+    input read once (r, k, v, w, u, the state) and y and the state written
+    once."""
+    flops = 0.0
+    for c0 in range(0, T, 64):
+        n = min(64, T - c0)
+        flops += (2 * hd * n * (n - 1) + 4 * n * hd * hd + 2 * hd * hd
+                  + 10 * n * hd)
+    flops *= B * H
+    n_bytes = (5 * B * T * H * hd * itemsize + 4 * H * hd
+               + 2 * 4 * B * H * hd * hd)
+    return flops, n_bytes
+
+
+def rwkv_kernel_phase(torch) -> dict:
+    """rwkv_scan_kernel at the serving path's shape (B 8, T 2048, 40 heads
+    of 64, f32, from a zero and from a nonzero state) against its plain
+    version within RWKV_TOL * max(1, max|want|); timed beside the plain
+    version and the bound (no single PyTorch call computes this function:
+    library_ms null).  Edge cases: T 1, 40 and 100 (ragged chunks), bf16
+    inputs, and a uniform decay of 0.3 (finite) and 0.1 (the chunked
+    form's cumulative decay underflows: inf and NaN in the same places as
+    the plain version, the finite entries within tolerance)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.rwkv_scan import rwkv_scan, rwkv_scan_ref
+
+    arch, B, T, _ = SSM_SERVE_PATH
+    H = get_arch(arch).n_heads
+
+    def err(got, want):
+        """(max |got - want|, max(1, max |want|)); (0, 1) when empty."""
+        if want.numel() == 0:
+            return 0.0, 1.0
+        return (float((got.float() - want.float()).abs().max()),
+                max(1.0, float(want.float().abs().max())))
+
+    entry = {"name": "rwkv_scan_kernel", "route": "cuda",
+             "source": RWKV_SOURCE, "replaces": REPLACES["rwkv_scan_kernel"],
+             "launches": 0}
+    worst = 0.0
+    for zero in (True, False):
+        inputs = rwkv_inputs(torch, B, T, H, seed=11 + zero, zero_state=zero)
+        y, s = rwkv_scan(*inputs)
+        want_y, want_s = rwkv_scan_ref(*inputs)
+        torch.cuda.synchronize()
+        (ey, sy), (es, ss) = err(y, want_y), err(s, want_s)
+        check(ey <= RWKV_TOL * sy and es <= RWKV_TOL * ss,
+              f"rwkv_scan_kernel at the serving shape (zero state {zero}): "
+              f"y {ey:.3e} / scale {sy:.3e}, state {es:.3e} / {ss:.3e}")
+        log(f"rwkv_scan_kernel ({B}, {T}, {H}, 64) f32, "
+            f"{'zero' if zero else 'nonzero'} state: max_abs y {ey:.3e} "
+            f"(max|y| {sy:.3e}), state {es:.3e} (max|S| {ss:.3e}); tol "
+            f"{RWKV_TOL:.0e} * max(1, max|want|)")
+        worst = max(worst, ey, es)
+        del y, s, want_y, want_s
+    ms = median_ms(torch, lambda: rwkv_scan(*inputs), 10)
+    plain_ms = median_ms(torch, lambda: rwkv_scan_ref(*inputs), 10)
+    flops, n_bytes = rwkv_work(B, T, H, 64, 4)
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"rwkv_scan_kernel: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} "
+        f"TFLOP/s, {n_bytes / ms / 1e6:.1f} GB/s), bound {bound_ms:.3f} ms "
+        f"({bound_by}: {flops / 1e9:.2f} GFLOP f32 at 67 TFLOP/s = "
+        f"{t_ops * 1e3:.3f} ms, {n_bytes / 1e9:.3f} GB at 3.35 TB/s = "
+        f"{t_bytes * 1e3:.3f} ms), plain {plain_ms:.3f} ms, library: none "
+        f"(no single PyTorch call computes the scan)")
+    entry.update(max_abs_err=worst, tol=RWKV_TOL, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                 library="none: no single PyTorch call computes the scan",
+                 shape=f"B {B} T {T} H {H} hd 64 f32, zero and nonzero "
+                       f"state")
+    del inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # edge cases: (B, T, H, dtype, uniform decay or None)
+    for b, t, h, dt, wv in ((2, 1, H, torch.float32, None),
+                            (2, 40, H, torch.float32, None),
+                            (2, 100, H, torch.float32, None),
+                            (3, 257, 5, torch.float32, None),
+                            (2, 100, H, torch.bfloat16, None),
+                            (2, 130, 4, torch.float32, 0.3),
+                            (2, 130, 4, torch.float32, 0.1)):
+        inputs = rwkv_inputs(torch, b, t, h, seed=b * t + h, dtype=dt,
+                             w_value=wv)
+        y, s = rwkv_scan(*inputs)
+        want_y, want_s = rwkv_scan_ref(*inputs)
+        same = all(torch.equal(torch.isnan(g), torch.isnan(w_))
+                   and torch.equal(torch.isinf(g), torch.isinf(w_))
+                   for g, w_ in ((y, want_y), (s, want_s)))
+        fin_y, fin_s = torch.isfinite(want_y), torch.isfinite(want_s)
+        (ey, sy), (es, ss) = (err(y[fin_y], want_y[fin_y]),
+                              err(s[fin_s], want_s[fin_s]))
+        tol_y = RWKV_TOL if dt == torch.float32 else RWKV_BF16_TOL
+        n_bad = int((~fin_y).sum())
+        log(f"  edge case rwkv_scan ({b}, {t}, {h}, 64) {dt}, decay "
+            f"{wv or 'model'}: max_abs y {ey:.3e} (tol {tol_y:.0e} * "
+            f"{sy:.2e}), state {es:.3e}; non-finite y {n_bad} of "
+            f"{y.numel()}, same places {same}")
+        check(same and y.dtype == dt and ey <= tol_y * sy
+              and es <= RWKV_TOL * ss,
+              f"rwkv_scan edge case T {t} {dt} decay {wv}")
+        check((n_bad == 0) == (wv is None or wv >= 0.3),
+              f"rwkv_scan edge case T {t} decay {wv}: {n_bad} non-finite")
+    return {"rwkv_scan_kernel": entry}
+
+
 def serve_reference_phase(torch, arch: str, prompt: int, steps: int = 4
                           ) -> None:
     """Reduced ``arch``: prefill and ``steps`` teacher-forced decode steps
@@ -1408,20 +1571,39 @@ def serve_reference_phase(torch, arch: str, prompt: int, steps: int = 4
     launches = all_launches()
     rels = [float((g - w).abs().max() / w.abs().max())
             for g, w in zip(got, want)]
-    C = cache_g["k"].shape[2]
-    same_pos = torch.equal(cache_g["pos"].cpu(), cache_c["pos"])
-    log(f"reduced {arch} serving (d_model {cfg.d_model}, {cfg.n_layers} "
-        f"layers, window {cfg.sliding_window}, prompt {prompt}, C {C}), card "
-        f"vs CPU: max |dlogits| / max |logits| prefill {rels[0]:.3e}, decode "
-        f"{', '.join(f'{r:.3e}' for r in rels[1:])}; cache pos equal "
-        f"{same_pos}; card launches swa {launches['swa_attention_kernel']} "
-        f"decode {launches['decode_attention_kernel']}")
+    L = cfg.n_layers
+    if cfg.attn_free:
+        # the state cache: the dtypes the reference's holds after prefill
+        dt = {"S": torch.float32, "x_prev_att": getattr(torch, cfg.dtype),
+              "x_prev_ffn": torch.float32}
+        same_cache = all(cache_g[n].dtype == cache_c[n].dtype == d
+                         for n, d in dt.items())
+        s_rel = float((cache_g["S"].cpu() - cache_c["S"]).abs().max()
+                      / cache_c["S"].abs().max())
+        names = [str(cache_g[n].dtype) for n in dt]
+        cache_note = (f"state cache dtypes {names} as expected "
+                      f"{same_cache}, S card vs CPU "
+                      f"{s_rel:.3e}; card launches rwkv_scan "
+                      f"{launches['rwkv_scan_kernel']}")
+        expect = {"rwkv_scan_kernel": L}
+    else:
+        C = cache_g["k"].shape[2]
+        same_cache = torch.equal(cache_g["pos"].cpu(), cache_c["pos"])
+        cache_note = (f"C {C}; cache pos equal {same_cache}; card launches "
+                      f"swa {launches['swa_attention_kernel']} decode "
+                      f"{launches['decode_attention_kernel']}")
+        expect = {"swa_attention_kernel": L,
+                  "decode_attention_kernel": L * steps}
+    log(f"reduced {arch} serving (d_model {cfg.d_model}, {L} layers, window "
+        f"{cfg.sliding_window}, prompt {prompt}), card vs CPU: max |dlogits| "
+        f"/ max |logits| prefill {rels[0]:.3e}, decode "
+        f"{', '.join(f'{r:.3e}' for r in rels[1:])}; {cache_note}")
     check(max(rels) <= SERVE_TOL, f"reduced {arch} serving: card vs CPU "
                                   f"{max(rels):.3e} > {SERVE_TOL}")
-    check(same_pos, "cache positions differ")
-    check(launches["swa_attention_kernel"] == cfg.n_layers
-          and launches["decode_attention_kernel"] == cfg.n_layers * steps,
-          f"reduced serving launches {launches}")
+    check(same_cache, f"reduced {arch} serving: cache {cache_note}")
+    for name, count in launches.items():
+        check(count == expect.get(name, 0),
+              f"reduced {arch} serving launches {launches}")
 
 
 def serve_path(torch, arch: str, batch: int, prompt: int, steps: int
@@ -1445,12 +1627,20 @@ def serve_path(torch, arch: str, batch: int, prompt: int, steps: int
                                .batch_at(0)["tokens"]).to("cuda",
                                                           torch.int64)
     C = cache_capacity(cfg, prompt + steps)
+    if cfg.attn_free:
+        n_tree = sum(p.numel() for p in model.parameters())
+        state = (cfg.n_layers * batch * cfg.n_heads * cfg.hd ** 2 * 4
+                 + cfg.n_layers * batch * cfg.d_model * (2 + 4))
+        cache_note = (f"{n_tree:,} in the tree ({n_tree * 4 / 1e9:.2f} GB "
+                      f"f32); state cache {state / 1e6:.1f} MB")
+    else:
+        cache_note = (f"cache {C} slots a layer"
+                      + (" (prompt > window: the ring's roll branch, decode "
+                         "evicts)" if prompt >= C else ""))
     log(f"serve {arch}: {cfg.n_params():,} params, {cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, window {cfg.sliding_window}; batch {batch}, "
         f"prompt {prompt}, {steps} greedy tokens ({steps - 1} decode steps), "
-        f"cache {C} slots a layer"
-        + (" (prompt > window: the ring's roll branch, decode evicts)"
-           if prompt >= C else ""))
+        f"{cache_note}")
     runs = []
     for run in range(2):
         torch.cuda.synchronize()
@@ -1470,8 +1660,30 @@ def serve_path(torch, arch: str, batch: int, prompt: int, steps: int
         runs.append((res, launches))
     (a, launches), (b, _) = runs
     L = cfg.n_layers
-    want = {"swa_attention_kernel": L,
-            "decode_attention_kernel": L * (steps - 1)}
+    if cfg.attn_free:
+        # the prefill's scan once a layer; decode is plain recurrence steps
+        want = {"rwkv_scan_kernel": L}
+        per_step = "0 a decode step"
+        reset_all_launches()
+        logits, cache = engine.make_prefill_step(prompt, steps)(model,
+                                                                prompts)
+        in_prefill = all_launches()
+        reset_all_launches()
+        engine.make_serve_step()(model, cache, logits.argmax(-1)[:, None])
+        in_step = all_launches()
+        torch.cuda.synchronize()
+        log(f"  serve {arch}: a prefill alone launched "
+            f"{ {k: v for k, v in in_prefill.items() if v} }, a decode step "
+            f"alone {sum(in_step.values())} kernels")
+        check(in_prefill == {**{k: 0 for k in in_prefill},
+                             "rwkv_scan_kernel": L}
+              and not any(in_step.values()),
+              f"serve {arch}: prefill {in_prefill}, decode step {in_step}")
+        del logits, cache
+    else:
+        want = {"swa_attention_kernel": L,
+                "decode_attention_kernel": L * (steps - 1)}
+        per_step = f"{L} a step"
     for name, count in launches.items():
         check(count == want.get(name, 0), f"{name} launched {count} times on "
                                           f"the serve {arch} path, want "
@@ -1482,7 +1694,7 @@ def serve_path(torch, arch: str, batch: int, prompt: int, steps: int
     check(tuple(a["tokens"].shape) == (batch, steps), "token shape")
     same = (torch.equal(a["tokens"], b["tokens"])
             and torch.equal(a["last_logits"], b["last_logits"]))
-    log(f"  serve {arch}: launches as expected ({L} + {L} a step), logits "
+    log(f"  serve {arch}: launches as expected ({L} + {per_step}), logits "
         f"finite, second greedy run equal (tokens and logits): {same}; "
         f"tokens[0][:8] {a['tokens'][0, :8].tolist()}")
     check(same, "greedy serving is not deterministic")
@@ -1509,7 +1721,8 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    logs = _build.build(["agg_opt", "quant", "swa_attn", "decode_attn"])
+    logs = _build.build(["agg_opt", "quant", "swa_attn", "decode_attn",
+                         "rwkv_scan"])
     log(f"kernels built from source in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -1531,6 +1744,7 @@ def main() -> None:
                                      tc.momentum))
     kernels["health_chunks"] = health_kernel_phase(torch, padded, ce)
     kernels.update(attention_kernel_phase(torch))
+    kernels.update(rwkv_kernel_phase(torch))
     reference_phase(torch, "nesterov")
     reference_phase(torch, "adam")
     wire_reference_phase(torch, "int8")
@@ -1540,6 +1754,8 @@ def main() -> None:
     rollback_phase(torch)
     serve_reference_phase(torch, "llama3.2-1b", prompt=40)
     serve_reference_phase(torch, "h2o-danube-3-4b", prompt=96)
+    serve_reference_phase(torch, "rwkv6-3b", prompt=40)
+    serve_reference_phase(torch, "rwkv6-3b", prompt=128)
 
     from repro_torch.elastic import FaultEvent, FaultSchedule, NAN_PUSH
     # (label, workers, steps, rule, wire, launches per step, faults)
@@ -1578,7 +1794,7 @@ def main() -> None:
                 by = kernels[name]["launches_by_path"]
                 by[f"{rule} {label}"] = count
                 kernels[name]["launches"] += count
-    for arch, batch, prompt, steps in SERVE_PATHS:
+    for arch, batch, prompt, steps in SERVE_PATHS + (SSM_SERVE_PATH,):
         launches = serve_path(torch, arch, batch, prompt, steps)
         for name, count in launches.items():
             if count:

@@ -4,8 +4,8 @@
     python3 scripts/torch_step_profile.py [--workers 4] [--batch 8] [--seq 512]
         [--optimizer nesterov|adam|sgd] [--lr LR]
         [--wire-format identity|bf16|f16|int8] [--sanity [--poison W]]
-    python3 scripts/torch_step_profile.py --serve [--arch llama3.2-1b]
-        [--batch 8] [--seq 2048]
+    python3 scripts/torch_step_profile.py --serve [--arch llama3.2-1b |
+        h2o-danube-3-4b | rwkv6-3b] [--batch 8] [--seq 2048]
 
 Runs the port's main path (full llama3.2-1b, sharded_ps, W workers stacked
 on one card, Nesterov at the TrainConfig defaults over the identity wire
@@ -43,6 +43,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 CLASSES = (                      # first match wins
     ("attention kernel (prefill)", ("swa_kernel",)),
     ("attention kernel (decode)", ("decode_kernel",)),
+    ("rwkv scan kernel", ("rwkv_scan_kernel",)),
     ("update kernel", ("agg_opt_kernel", "sgd_opt_kernel",
                        "adam_opt_kernel")),   # dequant_agg_opt_kernel too
     ("wire codec", ("quantize_kernel",)),     # and dequantize_kernel
@@ -97,6 +98,15 @@ def print_split(by_name: dict, dev_ms: float, top: int = 15) -> None:
         print(f"  {ms:10.3f} ms  {n:5d} calls  {name[:110]}")
 
 
+def cache_desc(cache: dict) -> str:
+    """A KV ring's slots a layer, or the bytes of a recurrent state."""
+    if "k" in cache:
+        return f"cache {cache['k'].shape[2]} slots"
+    n = sum(t.numel() * t.element_size() for t in cache.values()
+            if hasattr(t, "numel"))
+    return f"state cache {n / 1e6:.1f} MB"
+
+
 def serve_profile(args) -> None:
     """One prefill and one decode step of the serving path, profiled."""
     import torch
@@ -147,7 +157,7 @@ def serve_profile(args) -> None:
             prof_ms = (time.perf_counter() - t0) * 1e3
         del out
         by_name, runtime, dev_ms = device_split(prof, torch)
-        print(f"{cfg.arch_id} {label} (cache {cache['k'].shape[2]} slots, "
+        print(f"{cfg.arch_id} {label} ({cache_desc(cache)}, "
               f"next {cache['next']}): wall {wall:.3f} ms, peak {peak:.2f} "
               f"GiB; profiled wall {prof_ms:.3f} ms, device kernel time "
               f"{dev_ms:.3f} ms; busy share {dev_ms / wall:.3f} of the "

@@ -64,6 +64,15 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if decode state is o(seq): SSM / hybrid / sliding-window."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
+
     def n_params(self) -> int:
         """Total parameter count (analytic), as the reference counts it."""
         d, ff, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab_size

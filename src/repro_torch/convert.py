@@ -10,7 +10,8 @@ them out as the port's ``(S, state_len)``, any slots in their own dtypes
 f32 in every group).  Given the engine's ``exchange_slots``, it checks
 that the reference's state holds exactly those slots, in those dtypes.
 ``cache_from_numpy`` takes the reference's decode cache (``init_cache`` /
-``prefill``'s ``cache``) and returns the port's, ``next`` as a host int.
+``prefill``'s ``cache``: a KV ring, or the ssm family's state) and
+returns the port's, ``next`` as a host int.
 bfloat16 arrays (numpy's ``ml_dtypes`` extension type) are carried bit for
 bit.  Nothing here imports JAX.
 """
@@ -81,18 +82,25 @@ def opt_from_numpy(plan: ChunkPlan, opt: dict, *, slots=None,
 def cache_from_numpy(cfg: ModelConfig, cache: dict, *,
                      device="cuda") -> dict:
     """The reference's decode cache (numpy ``k``/``v`` (L, B, C, kv, hd),
-    ``pos`` (L, B, C) int32, ``next`` a scalar) -> the port's dict, k/v in
-    their own dtype (bf16 bit for bit) and ``next`` a host int."""
-    k = np.asarray(cache["k"])
-    want = init_cache(cfg, k.shape[1], k.shape[2], device="meta")
+    ``pos`` (L, B, C) int32, ``next`` a scalar; for the ssm family ``S``
+    (L, B, H, hd, hd), ``x_prev_att`` and ``x_prev_ffn`` (L, B, 1, d),
+    ``next``) -> the port's dict, every array in its own dtype (bf16 bit for
+    bit) and ``next`` a host int."""
+    if cfg.family == "ssm":
+        names = ("S", "x_prev_att", "x_prev_ffn")
+        want = init_cache(cfg, np.shape(cache["S"])[1], 0, device="meta")
+    else:
+        names = ("k", "v", "pos")
+        k = np.asarray(cache["k"])
+        want = init_cache(cfg, k.shape[1], k.shape[2], device="meta")
     out = {}
-    for name in ("k", "v", "pos"):
+    for name in names:
         a = np.asarray(cache[name])
         if a.shape != tuple(want[name].shape):
             raise ValueError(f"cache {name}: shape {a.shape} is not "
                              f"{tuple(want[name].shape)}")
         out[name] = _tensor(a, device)
-    if out["pos"].dtype != torch.int32:
+    if "pos" in out and out["pos"].dtype != torch.int32:
         raise TypeError(f"cache pos is {out['pos'].dtype}, not int32")
     out["next"] = int(np.asarray(cache["next"]))
     return out

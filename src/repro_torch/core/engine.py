@@ -41,8 +41,10 @@ residency and one window only; the reference's flat residency, windows
 and the DCN wire are queued in ROADMAP.md.
 
 Serving (``make_prefill_step``, ``make_serve_step``) runs the model's
-prefill and decode forwards on one card; the launcher builds the engine
-with ``StackedComm(1)``.
+prefill and decode forwards on one card, for every ported family; the
+launcher builds the engine with ``StackedComm(1)``.  The attention-free
+(ssm) family is served only: its training step raises until B8 has a
+backward kernel.
 """
 from __future__ import annotations
 
@@ -107,7 +109,15 @@ class PHubEngine:
     # ------------------------------------------------------------ train step
 
     def build_loss_fn(self):
-        """Per-worker loss: forward + chunked cross-entropy."""
+        """Per-worker loss: forward + chunked cross-entropy.  Raises for
+        the attention-free family, which is served only (the train step
+        builds its loss here first)."""
+        if self.cfg.attn_free:
+            raise NotImplementedError(
+                f"{self.cfg.arch_id}: training the ssm family needs the "
+                f"backward of rwkv_scan_kernel (B8), which is not written "
+                f"yet (ROADMAP.md queue A item 1: rwkv6-3b training); it "
+                f"can be served")
         tc = self.tc
 
         def loss_fn(model: DecoderLM, tokens, labels):

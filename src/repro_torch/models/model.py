@@ -24,7 +24,18 @@ it) and attends through the decode kernel (``kernels/decode_attn``).
 run under ``torch.inference_mode()``; the training forward keeps
 ``blockwise_attention`` under autograd.
 
-The MoE, SSM, hybrid and modality branches are ROADMAP.md queue A item 15.
+The ``ssm`` family (RWKV6, ``models/rwkv.py``) has the reference's ssm
+branches: its parameter tree, a block of time-mix and channel-mix, and a
+decode cache of a recurrent state instead of a KV ring: ``S`` (L, B, H,
+hd, hd) f32 and the last token's normed inputs ``x_prev_att`` (activation
+dtype) and ``x_prev_ffn`` (f32), the dtypes the reference's cache holds
+after its prefill.  ``DecoderLM.prefill`` runs each layer's scan through
+the kernel (``kernels/rwkv_scan``) from the zero state and writes the
+cache in place; ``DecoderLM.decode`` takes one recurrence step a layer in
+plain tensor ops, as the reference decodes, and updates the cache in
+place.
+
+The MoE, hybrid and modality branches are ROADMAP.md queue A item 8.
 """
 from __future__ import annotations
 
@@ -40,16 +51,18 @@ from ..configs.base import ModelConfig
 from ..kernels.decode_attn import ops as decode_ops
 from ..kernels.swa_attn import ops as swa_ops
 from .attention import blockwise_attention
+from . import rwkv
 from .layers import (apply_rope, dense_init, full_f32_matmuls, matmul,
                      rms_norm, swiglu)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.n_experts or cfg.frontend
+    if (cfg.family not in ("dense", "ssm") or cfg.n_experts or cfg.frontend
             or cfg.global_layer_every):
         raise NotImplementedError(
-            f"{cfg.arch_id}: only the dense decoder is ported (family "
-            f"{cfg.family!r}); the others are ROADMAP.md queue A item 15")
+            f"{cfg.arch_id}: only the dense and ssm decoders are ported "
+            f"(family {cfg.family!r}); the others are ROADMAP.md queue A "
+            f"item 8")
 
 
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
@@ -65,6 +78,8 @@ def cache_capacity(cfg: ModelConfig, seq_len: int) -> int:
     """KV-cache slots per layer for decode at context ``seq_len``: the
     context where a layer attends to all of it, else the largest window."""
     _check_supported(cfg)
+    if cfg.attn_free:
+        return 0
     wins = layer_windows(cfg)
     cap = seq_len if (wins == 0).any() else min(seq_len, int(wins.max()))
     return max(cap, 1)
@@ -74,8 +89,22 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                dtype=torch.bfloat16, device="cuda") -> dict:
     """Decode cache for a context of ``seq_len`` tokens (ring buffers):
     ``k``/``v`` (L, B, C, kv, hd) zeros in ``dtype``, ``pos`` (L, B, C)
-    int32 all -1, ``next`` the host int 0."""
+    int32 all -1, ``next`` the host int 0.  For the ssm family, whose
+    state does not grow with the context: ``S`` (L, B, H, hd, hd) f32,
+    ``x_prev_att`` (L, B, 1, d) in the activation dtype and ``x_prev_ffn``
+    (L, B, 1, d) f32, all zeros (``dtype`` does not apply: these are the
+    dtypes the computation gives them)."""
     L, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    if cfg.family == "ssm":
+        d, H = cfg.d_model, cfg.n_heads
+        act = getattr(torch, cfg.dtype)
+        return {"S": torch.zeros((L, batch, H, hd, hd), dtype=torch.float32,
+                                 device=device),
+                "x_prev_att": torch.zeros((L, batch, 1, d), dtype=act,
+                                          device=device),
+                "x_prev_ffn": torch.zeros((L, batch, 1, d),
+                                          dtype=torch.float32, device=device),
+                "next": 0}
     C = cache_capacity(cfg, seq_len)
     return {"k": torch.zeros((L, batch, C, kv, hd), dtype=dtype,
                              device=device),
@@ -103,12 +132,36 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator],
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=device)
 
-    blocks = dict(
-        ln1=ones(L, d), ln2=ones(L, d),
-        wq=stack((d, nh * hd)), wk=stack((d, kv * hd)),
-        wv=stack((d, kv * hd)), wo=stack((nh * hd, d), fan_in=nh * hd),
-        w1=stack((d, ff)), w3=stack((d, ff)), w2=stack((ff, d), fan_in=ff),
-    )
+    def full(value, *shape):
+        return torch.full(shape, value, dtype=dt, device=device)
+
+    if cfg.family == "ssm":                     # RWKV6
+        lora = cfg.rwkv_decay_lora
+        ramp = torch.linspace(0.0, 1.5, d, dtype=torch.float32,
+                              device=device).to(dt)
+        w0 = full(-6.0, L, d) + ramp[None, :]
+        blocks = dict(
+            ln1=ones(L, d), ln2=ones(L, d), ln_x=ones(L, d),
+            **{f"mu_{c}": full(0.5, L, d) for c in "rkvgw"},
+            mu_ck=full(0.5, L, d), mu_cr=full(0.5, L, d),
+            w_r=stack((d, d)), w_k=stack((d, d)), w_v=stack((d, d)),
+            w_g=stack((d, d)), w_o=stack((d, d)),
+            wa=stack((d, lora)),
+            wb=dense_init((L, lora, d), dt, generator=generator,
+                          device=device, fan_in=lora) * 0.01,
+            w0=w0,
+            u=dense_init((L, nh, hd), dt, generator=generator, device=device,
+                         fan_in=hd),
+            ck=stack((d, ff)), cv=stack((ff, d), fan_in=ff), cr=stack((d, d)),
+        )
+    else:
+        blocks = dict(
+            ln1=ones(L, d), ln2=ones(L, d),
+            wq=stack((d, nh * hd)), wk=stack((d, kv * hd)),
+            wv=stack((d, kv * hd)), wo=stack((nh * hd, d), fan_in=nh * hd),
+            w1=stack((d, ff)), w3=stack((d, ff)),
+            w2=stack((ff, d), fan_in=ff),
+        )
     params = {
         "embed": dense_init((V, d), dt, generator=generator, device=device,
                             fan_in=d),
@@ -161,6 +214,20 @@ def _block(cfg: ModelConfig, bp: dict, x: torch.Tensor, window: int,
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     x = x + _attend(cfg, bp, h, window, q_pos)
     return _mlp_tail(cfg, bp, x)
+
+
+def _ssm_block(cfg: ModelConfig, bp: dict, x: torch.Tensor) -> torch.Tensor:
+    """One RWKV6 block from the zero state (the training forward); returns
+    x in the activation dtype."""
+    B = x.shape[0]
+    S = torch.zeros((B, cfg.n_heads, cfg.hd, cfg.hd), dtype=x.dtype,
+                    device=x.device)
+    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    y, _ = rwkv.time_mix(bp, h, cfg, S)
+    x = x + y
+    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    x = x + rwkv.channel_mix(bp, h)
+    return x.to(getattr(torch, cfg.dtype))
 
 
 def _fill_ring(ck: torch.Tensor, cv: torch.Tensor, cpos: torch.Tensor,
@@ -225,12 +292,14 @@ class DecoderLM(nn.Module):
         q_pos = torch.arange(x.shape[1], device=x.device)
         wins = layer_windows(cfg)
         for i, bp in enumerate(self._layers()):
-            w = int(wins[i])
-            if remat:
-                x = checkpoint(_block, cfg, bp, x, w, q_pos,
-                               use_reentrant=False)
+            if cfg.family == "ssm":
+                fn, args = _ssm_block, (cfg, bp, x)
             else:
-                x = _block(cfg, bp, x, w, q_pos)
+                fn, args = _block, (cfg, bp, x, int(wins[i]), q_pos)
+            if remat:
+                x = checkpoint(fn, *args, use_reentrant=False)
+            else:
+                x = fn(*args)
         return rms_norm(x, self.final_norm, cfg.norm_eps)
 
     def _layers(self) -> list[dict]:
@@ -248,12 +317,15 @@ class DecoderLM(nn.Module):
         full-attention model does not evict prompt tokens while it
         generates.  Attention runs through ``swa_attn.ops.swa_attention``
         once a layer, on the f32 q/k/v (the cache holds them in
-        ``cache_dtype``)."""
+        ``cache_dtype``).  The ssm family's cache has no slots; its scan
+        runs through ``rwkv_scan.ops.rwkv_scan`` once a layer."""
         cfg = self.cfg
         B, T = tokens.shape
         cache = init_cache(cfg, B, T + max_new_tokens, dtype=cache_dtype,
                            device=tokens.device)
         x = self.embed[tokens].to(getattr(torch, cfg.dtype))
+        if cfg.family == "ssm":
+            return self._ssm_layers(x, cache, use_kernel=True), cache
         q_pos = torch.arange(T, device=x.device)
         wins = layer_windows(cfg)
         for i, bp in enumerate(self._layers()):
@@ -272,11 +344,14 @@ class DecoderLM(nn.Module):
         updated in place (k/v/pos at slot ``next % C`` of every layer, and
         ``next``).  Returns the final-normed hidden state (B, 1, d).
         Attention runs through ``decode_attn.ops.decode_attention`` once a
-        layer."""
+        layer; the ssm family takes one recurrence step a layer instead."""
         cfg = self.cfg
         B, T = tokens.shape
         if T != 1:
             raise ValueError(f"decode takes one token a row, got {T}")
+        if cfg.family == "ssm":
+            x = self.embed[tokens].to(getattr(torch, cfg.dtype))
+            return self._ssm_layers(x, cache, use_kernel=False)
         nxt = cache["next"]
         slot = nxt % cache["k"].shape[2]
         x = self.embed[tokens].to(getattr(torch, cfg.dtype))
@@ -295,4 +370,28 @@ class DecoderLM(nn.Module):
             x = x + matmul(a.reshape(B, 1, -1), bp["wo"])
             x = _mlp_tail(cfg, bp, x)
         cache["next"] = nxt + 1
+        return rms_norm(x, self.final_norm, cfg.norm_eps)
+
+    def _ssm_layers(self, x: torch.Tensor, cache: dict, *,
+                    use_kernel: bool) -> torch.Tensor:
+        """The ssm layers over x (B, T, d) against ``cache``, updated in
+        place (S, both x_prev, ``next``), the token shifts carried from
+        the cache's x_prev (zeros after ``init_cache``): the prefill runs
+        each layer's scan through ``rwkv_scan`` (``use_kernel``), a decode
+        step one recurrence step in plain tensor ops, y from S before the
+        update.  Returns the final-normed hidden state."""
+        cfg = self.cfg
+        for i, bp in enumerate(self._layers()):
+            h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+            y, S = rwkv.time_mix(bp, h, cfg, cache["S"][i],
+                                 x_prev=cache["x_prev_att"][i],
+                                 use_kernel=use_kernel)
+            cache["S"][i].copy_(S)
+            cache["x_prev_att"][i].copy_(h[:, -1:])
+            x = x + y
+            h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+            x = x + rwkv.channel_mix(bp, h, x_prev=cache["x_prev_ffn"][i])
+            cache["x_prev_ffn"][i].copy_(h[:, -1:])
+            x = x.to(getattr(torch, cfg.dtype))
+        cache["next"] += x.shape[1]
         return rms_norm(x, self.final_norm, cfg.norm_eps)

@@ -34,7 +34,7 @@ def test_port_imports_no_jax_and_no_repro():
                  "elastic.membership", "resilience.supervisor",
                  "resilience.watchdog", "checkpoint.checkpointer",
                  "kernels.swa_attn.ops", "kernels.decode_attn.ops",
-                 "launch.serve"):
+                 "kernels.rwkv_scan.ops", "models.rwkv", "launch.serve"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 

@@ -108,8 +108,52 @@ def test_blockwise_attention_matches_reference(window):
 def test_unported_families_raise():
     from repro_torch.models import DecoderLM
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("rwkv6-3b")
+        get_arch("hymba-1.5b")
     moe = dataclasses.replace(get_arch("llama3.2-1b"), family="moe",
                               n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecoderLM(moe, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "minitron-8b", "rwkv6-3b"])
+def test_registered_configs_equal_reference(arch):
+    assert dataclasses.asdict(get_arch(arch)) == dataclasses.asdict(
+        ARCHS[arch])
+    assert get_arch(arch).n_params() == ARCHS[arch].n_params()
+
+
+def test_attn_free_and_sub_quadratic_agree_with_reference():
+    from repro.models.model import cache_capacity as jax_capacity
+    from repro_torch.configs import ARCHS as PORT_ARCHS
+    from repro_torch.models import cache_capacity
+    for arch, cfg in PORT_ARCHS.items():
+        for pcfg, jcfg in ((cfg, ARCHS[arch]),
+                           (port_reduced(cfg), reduced(ARCHS[arch]))):
+            assert pcfg.attn_free == jcfg.attn_free, arch
+            assert pcfg.sub_quadratic == jcfg.sub_quadratic, arch
+            assert cache_capacity(pcfg, 2080) == jax_capacity(jcfg, 2080)
+    assert get_arch("rwkv6-3b").attn_free
+    assert cache_capacity(get_arch("rwkv6-3b"), 2080) == 0
+
+
+def test_rwkv_tree_counts_six_square_matrices_a_layer():
+    """The tree (3,073,313,280 f32 parameters, 12.29 GB) holds six d x d
+    matrices a layer; ``n_params`` counts four, as the reference's does."""
+    from repro_torch.models import param_specs
+    cfg = get_arch("rwkv6-3b")
+    n = sum(t.numel() for _, t in leaf_paths(param_specs(cfg)))
+    want = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(
+        jax.eval_shape(lambda: jax_init(ARCHS["rwkv6-3b"],
+                                        jax.random.PRNGKey(0)))))
+    assert n == want == 3_073_313_280
+    assert cfg.n_params() == ARCHS["rwkv6-3b"].n_params() == 2_653_063_680
+
+
+def test_training_an_attn_free_config_raises():
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import PHubEngine, StackedComm
+    eng = PHubEngine(port_reduced(get_arch("rwkv6-3b")), TrainConfig(),
+                     StackedComm(2), device="cpu")
+    for make in (eng.make_train_step, eng.build_loss_fn):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make()
