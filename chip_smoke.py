@@ -73,17 +73,26 @@
    staying 0.
 6. The serving path's attention kernels at its shapes, against their plain
    versions within a stated tolerance (the kernels sum in another order):
-   swa_attention_kernel (the prefill's flash attention) at llama3.2-1b's
-   (B 8, T 2048, 32/8 heads, hd 64, causal) and h2o-danube-3-4b's (B 2, T
-   4608, hd 120, window 4096), f32 as the path computes them, within
-   2e-5 * max(1, max|want|); decode_attention_kernel against llama's ring
-   cache (B 8, C 2080, bf16) and danube's rotated one (B 2, C 4096, window
-   4096), f32 queries, within 3e-5; each timed (CUDA events, median of 10)
-   beside its plain version, its bound (prefill: the allowed pairs' flops
-   at 67 TFLOP/s; decode: the cache's bytes at 3.35 TB/s) and
+   swa_attention_kernel (the prefill's flash attention, 3xTF32 on the
+   tensor cores) at llama3.2-1b's (B 8, T 2048, 32/8 heads, hd 64, causal)
+   and h2o-danube-3-4b's (B 2, T 4608, hd 120, window 4096), f32 as the
+   path computes them, within 2e-5 * max(1, max|want|);
+   decode_attention_kernel (flash-decoding in one launch) against llama's
+   ring cache (B 8, C 2080, bf16) and danube's rotated one (B 2, C 4096,
+   window 4096), f32 queries, within 3e-5, and a second call bitwise equal
+   to the first.  Each is timed beside its plain version, its bound and
    F.scaled_dot_product_attention (enable_gqa, causal or a boolean mask; a
-   yardstick the port never calls).  Small edge cases: ragged T, window >
-   0, hd 120, bf16, empty leading cache blocks.
+   yardstick the port never calls): the prefill with CUDA events (median
+   of 10), its bound 3x the allowed pairs' flops at 495 TFLOP/s TF32 (the
+   f32 SIMT bound, at 67 TFLOP/s, beside it), with its resident blocks a
+   SM; decode as CUDA graphs of 20 calls (median of 10 replays: an eager
+   call's Python outlasts the kernel), its bound the cache's bytes at
+   3.35 TB/s, with its splits, blocks and the wrapper's host time a call.
+   Small edge cases: ragged T, windows 1, 40, 64, 70 and 100 (q tiles that
+   straddle the diagonal and the window's edge), hd 32, 64, 120 and 128,
+   bf16; decode at B 1, C below one split, C 4096 with window 300 (most
+   splits empty), empty leading slots and splits, each call twice
+   (bitwise) and on the cache rolled by 37 slots (within 1e-5).
 7. Reduced llama3.2-1b (prompt 40) and reduced h2o-danube-3-4b (window 64,
    prompt 96 > 64: the ring's roll branch, evicting decode steps): prefill
    and 4 teacher-forced decode steps on the card (kernels) and on the CPU
@@ -139,6 +148,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12          # H100 SXM TF32 tensor cores, dense
 CARD_SOURCE = "src/repro_torch/kernels/agg_opt/csrc/agg_opt.cu"
 QUANT_SOURCE = "src/repro_torch/kernels/quant/csrc/quant.cu"
 SWA_SOURCE = "src/repro_torch/kernels/swa_attn/csrc/swa_attn.cu"
@@ -198,6 +208,47 @@ def median_ms(torch, fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, reps: int, n: int = 20) -> float:
+    """Median device time of one ``fn`` call for calls shorter than their
+    Python: ``n`` calls captured in a CUDA graph, the graph replayed
+    ``reps`` times between CUDA events (events around one eager call time
+    the host's enqueue instead)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
+def host_us(torch, fn, n: int = 100) -> float:
+    """Host time of one ``fn`` call (enqueue only), in microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def max_ulp(torch, a, b) -> int:
@@ -1193,8 +1244,10 @@ def allowed_pairs(T: int, window: int) -> int:
     return sum(min(p + 1, window) if window > 0 else p + 1 for p in range(T))
 
 
-def attention_bound(flops: float, n_bytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S
+def attention_bound(flops: float, n_bytes: float,
+                    flops_per_s: float = F32_FLOPS_PER_S
+                    ) -> tuple[float, str]:
+    t_ops, t_bytes = flops / flops_per_s, n_bytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -1220,7 +1273,9 @@ def attention_kernel_phase(torch) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.kernels.decode_attn import (decode_attention,
                                                  decode_attention_ref)
+    from repro_torch.kernels.decode_attn.ops import split_len
     from repro_torch.kernels.swa_attn import swa_attention, swa_attention_ref
+    from repro_torch.kernels.swa_attn.ops import occupancy
     from repro_torch.models import cache_capacity
 
     gen = torch.Generator(device="cuda")
@@ -1245,6 +1300,12 @@ def attention_kernel_phase(torch) -> dict:
                   "replaces": REPLACES[name], "launches": 0}
            for name, src in (("swa_attention_kernel", SWA_SOURCE),
                              ("decode_attention_kernel", DECODE_SOURCE))}
+    out["swa_attention_kernel"]["design"] = (
+        "3xTF32 on the tensor cores (mma.sync m16n8k8), f32 accuracy")
+    log("swa_attention_kernel design: 3xTF32 on the tensor cores "
+        "(mma.sync.m16n8k8 tf32, three products a product); bound_ms is "
+        "3x its flops at 495 TFLOP/s TF32, bound_f32_simt_ms its flops at "
+        "67 TFLOP/s f32")
     for arch, B, T, steps in SERVE_PATHS:
         cfg = get_arch(arch)
         nh, kv, hd, w = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.sliding_window
@@ -1275,15 +1336,23 @@ def attention_kernel_phase(torch) -> dict:
         pairs = allowed_pairs(T, w)
         flops = 4.0 * hd * pairs * B * nh
         n_bytes = 4 * (2 * B * T * nh * hd + 2 * B * T * kv * hd)
-        bound_ms, bound_by = attention_bound(flops, n_bytes)
+        simt_ms, _ = attention_bound(flops, n_bytes)
+        bound_ms, bound_by = attention_bound(flops, n_bytes,
+                                             flops_per_s=TF32_FLOPS_PER_S / 3)
+        blocks = occupancy(hd)
         log(f"swa_attention_kernel {arch}: q ({B}, {T}, {nh}, {hd}) f32, "
             f"k/v {kv} heads, window {w}: max_abs {err:.3e} (tol "
             f"{tol:.3e}); kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} "
-            f"TFLOP/s), bound {bound_ms:.3f} ms ({bound_by}, "
-            f"{flops / 1e12:.3f} TFLOP of {pairs:,} pairs a head), plain "
-            f"{plain_ms:.3f} ms, library {library_ms:.3f} ms ({label})")
+            f"TFLOP/s f32-equivalent, {3 * flops / ms / 1e9:.2f} TFLOP/s "
+            f"TF32), bound {bound_ms:.3f} ms (3xTF32 {bound_by}, "
+            f"{flops / 1e12:.3f} TFLOP of {pairs:,} pairs a head; "
+            f"{100 * bound_ms / ms:.1f}% of it), f32 SIMT bound "
+            f"{simt_ms:.3f} ms ({100 * simt_ms / ms:.1f}%), {blocks} "
+            f"block(s) of 8 warps a SM, plain {plain_ms:.3f} ms, library "
+            f"{library_ms:.3f} ms ({label})")
         e = {"max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_f32_simt_ms": simt_ms, "blocks_per_sm": blocks,
              "library_ms": library_ms, "library": label,
              "shape": f"B {B} T {T} nh {nh} kv {kv} hd {hd} window {w} f32"}
         if arch == SERVE_PATHS[0][0]:
@@ -1308,10 +1377,16 @@ def attention_kernel_phase(torch) -> dict:
         err = float((got - want).abs().max())
         check(err <= DECODE_TOL, f"decode_attention_kernel at {arch}'s "
                                  f"shape: max_abs {err:.3e}")
-        ms = median_ms(torch, lambda: decode_attention(q, k, v, pos, qp,
-                                                       window=w), 10)
-        plain_ms = median_ms(torch, lambda: dec_plain(q, k, v, pos, qp, w),
-                             10)
+        check(torch.equal(decode_attention(q, k, v, pos, qp, window=w), got),
+              f"decode_attention_kernel at {arch}'s shape: two calls differ")
+        L = split_len(B, C, kv)
+        n_split = -(-C // L)
+        kernel = lambda: decode_attention(q, k, v, pos, qp,  # noqa: E731
+                                          window=w)
+        ms = graph_ms(torch, kernel, 10)
+        wrapper_us = host_us(torch, kernel)
+        plain_ms = graph_ms(torch, lambda: dec_plain(q, k, v, pos, qp, w),
+                            10)
         valid = (pos >= 0) & (pos <= qp[:, None])
         if w:
             valid &= pos > qp[:, None] - w
@@ -1319,7 +1394,7 @@ def attention_kernel_phase(torch) -> dict:
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (t.float().transpose(1, 2).contiguous() for t in (k, v))
         mask = valid[:, None, None, :]
-        library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)
         label = ("SDPA, f32 q on the cache converted to f32 beforehand, "
                  "boolean position mask, enable_gqa")
@@ -1329,16 +1404,21 @@ def attention_kernel_phase(torch) -> dict:
         log(f"decode_attention_kernel {arch}: q ({B}, 1, {nh}, {hd}) f32, "
             f"cache ({B}, {C}, {kv}, {hd}) bf16, {n_valid:,} of {B * C:,} "
             f"slots attended, window {w}: max_abs {err:.3e} (tol "
-            f"{DECODE_TOL:.0e}); kernel {ms:.4f} ms "
-            f"({n_bytes / ms / 1e6:.1f} GB/s, {kv * B} blocks on "
+            f"{DECODE_TOL:.0e}), two calls bitwise equal; kernel "
+            f"{ms:.4f} ms ({n_bytes / ms / 1e6:.1f} GB/s; {n_split} splits "
+            f"of {L} slots, {n_split * kv * B} blocks on "
             f"{torch.cuda.get_device_properties(0).multi_processor_count} "
-            f"SMs), bound {bound_ms:.4f} ms ({bound_by}, "
-            f"{n_bytes / 1e6:.2f} MB), plain {plain_ms:.3f} ms, library "
-            f"{library_ms:.4f} ms ({label})")
+            f"SMs; {100 * bound_ms / ms:.1f}% of the bound; the wrapper "
+            f"{wrapper_us:.1f} us of host time a call), bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.2f} MB), plain "
+            f"{plain_ms:.3f} ms, library {library_ms:.4f} ms ({label}); "
+            f"kernel, plain and library timed as CUDA graphs of 20 calls")
         e = {"max_abs_err": err, "tol": DECODE_TOL, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": library_ms,
-             "library": label,
+             "library": label, "splits": n_split, "split_slots": L,
+             "timing": "CUDA graph of 20 calls, median of 10 replays",
+             "wrapper_host_us": wrapper_us,
              "shape": f"B {B} C {C} nh {nh} kv {kv} hd {hd} window {w}, "
                       f"bf16 cache, f32 q"}
         if arch == SERVE_PATHS[0][0]:
@@ -1349,13 +1429,20 @@ def attention_kernel_phase(torch) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # edge cases, small: (T, nh, kv, hd, window, dtype)
+    # edge cases, small: (T, nh, kv, hd, window, dtype); T not a multiple
+    # of the 128-row q tile or the 64-key tile, window 1, hd 32 / 64 / 120 /
+    # 128, bf16, and windows of 40 and 70 (q tiles whose warps straddle the
+    # diagonal and the window's edge in one key tile)
     worst = []
     for T, nh, kv, hd, w, dt in ((100, 4, 2, 64, 0, torch.float32),
                                  (300, 4, 2, 120, 100, torch.float32),
                                  (257, 32, 8, 120, 64, torch.bfloat16),
                                  (128, 8, 1, 32, 0, torch.bfloat16),
-                                 (65, 32, 8, 64, 1, torch.float32)):
+                                 (65, 32, 8, 64, 1, torch.float32),
+                                 (300, 4, 2, 128, 40, torch.float32),
+                                 (129, 4, 2, 32, 1, torch.float32),
+                                 (200, 8, 2, 120, 1, torch.bfloat16),
+                                 (333, 4, 2, 64, 70, torch.bfloat16)):
         q = randn(2, T, nh, hd, dtype=dt)
         k, v = randn(2, T, kv, hd, dtype=dt), randn(2, T, kv, hd, dtype=dt)
         got, want = swa_attention(q, k, v, window=w), swa_plain(q, k, v, w)
@@ -1365,28 +1452,46 @@ def attention_kernel_phase(torch) -> dict:
         worst.append(("swa", T, nh, kv, hd, w, str(dt), err, tol))
         check(got.dtype == dt and err <= tol,
               f"swa edge case T {T} hd {hd} window {w} {dt}: {err:.3e}")
-    # (S, nh, kv, hd, window, q dtype, cache dtype, empty leading slots)
-    for S, nh, kv, hd, w, qdt, kdt, lead in (
-            (640, 8, 2, 64, 0, torch.float32, torch.bfloat16, 200),
-            (640, 8, 2, 64, 300, torch.float32, torch.bfloat16, 200),
-            (700, 32, 8, 120, 500, torch.float32, torch.bfloat16, 0),
-            (300, 4, 2, 64, 100, torch.float32, torch.float32, 0),
-            (513, 32, 8, 128, 0, torch.bfloat16, torch.bfloat16, 64)):
-        q = randn(2, 1, nh, hd, dtype=qdt)
-        k, v = randn(2, S, kv, hd, dtype=kdt), randn(2, S, kv, hd, dtype=kdt)
-        pos = ring_positions(torch, 2, S, S).clone()
+    # (B, S, nh, kv, hd, window, q dtype, cache dtype, empty leading
+    # slots): B 1, C below one split, C 4096 with window 300 (most splits
+    # wholly outside it), 1500 empty leading slots (whole splits empty);
+    # each call twice (bitwise), and the cache rolled by 37 slots (the
+    # ring's rotation) within 1e-5 of the unrolled answer
+    for B, S, nh, kv, hd, w, qdt, kdt, lead in (
+            (2, 640, 8, 2, 64, 0, torch.float32, torch.bfloat16, 200),
+            (2, 640, 8, 2, 64, 300, torch.float32, torch.bfloat16, 200),
+            (2, 700, 32, 8, 120, 500, torch.float32, torch.bfloat16, 0),
+            (2, 300, 4, 2, 64, 100, torch.float32, torch.float32, 0),
+            (2, 513, 32, 8, 128, 0, torch.bfloat16, torch.bfloat16, 64),
+            (1, 40, 4, 2, 64, 0, torch.float32, torch.bfloat16, 0),
+            (1, 50, 32, 8, 120, 0, torch.bfloat16, torch.bfloat16, 0),
+            (2, 4096, 32, 8, 120, 300, torch.float32, torch.bfloat16, 0),
+            (1, 4096, 32, 8, 120, 0, torch.float32, torch.bfloat16, 1500),
+            (1, 3000, 8, 1, 128, 1000, torch.float32, torch.float32, 0)):
+        q = randn(B, 1, nh, hd, dtype=qdt)
+        k, v = randn(B, S, kv, hd, dtype=kdt), randn(B, S, kv, hd, dtype=kdt)
+        pos = ring_positions(torch, B, S, S).clone()
         pos[:, :lead] = -1
-        qp = torch.full((2,), S - 1, dtype=torch.int32, device="cuda")
+        qp = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
         got = decode_attention(q, k, v, pos, qp, window=w)
         want = dec_plain(q, k, v, pos, qp, w)
         err = float((got.float() - want.float()).abs().max())
         tol = DECODE_TOL if qdt == torch.float32 else BF16_TOL
-        worst.append(("decode", S, nh, kv, hd, w, f"{qdt}/{kdt} lead {lead}",
+        L = split_len(B, S, kv)
+        worst.append(("decode", B, S, nh, kv, hd, w,
+                      f"{qdt}/{kdt} lead {lead}, {-(-S // L)} splits of {L}",
                       err, tol))
+        again = decode_attention(q, k, v, pos, qp, window=w)
+        rolled = decode_attention(
+            q, *(torch.roll(t, 37, dims=1).contiguous() for t in (k, v, pos)),
+            qp, window=w)
+        roll_err = float((rolled.float() - got.float()).abs().max())
         check(got.dtype == qdt and bool(torch.isfinite(got).all())
-              and err <= tol,
-              f"decode edge case S {S} hd {hd} window {w} lead {lead}: "
-              f"{err:.3e}")
+              and err <= tol and torch.equal(again, got)
+              and roll_err <= (1e-5 if qdt == torch.float32 else BF16_TOL),
+              f"decode edge case B {B} S {S} hd {hd} window {w} lead "
+              f"{lead}: {err:.3e}, rolled {roll_err:.3e}, bitwise "
+              f"{torch.equal(again, got)}")
     for case in worst:
         log(f"  edge case {case[0]} {case[1:-2]}: max_abs {case[-2]:.3e} "
             f"(tol {case[-1]:.0e})")

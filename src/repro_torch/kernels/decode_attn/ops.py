@@ -12,10 +12,25 @@ ring's rotation and eviction need no special handling.
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
 the kernel, and a library that cannot be built or loaded raises.  The
 kernel reads the cache in place in its own dtype (bf16 or f32) and q in
-f32 or bf16; hd <= 128, nh / kv <= 8.  It sums in another order than the
-plain version (64-slot blocks), so it is held within 3e-5 (the
-reference's own bound) for f32 q, 3e-2 for bf16 q.  ``LAUNCHES`` counts
-the kernel's launches (plain-version calls do not).
+f32 or bf16; hd <= 128, nh / kv <= 8.  It is flash-decoding in one launch:
+the cache is cut into ``n_split`` splits of ``split_len(B, C, kv)`` slots,
+one block each, and the last block of each (row, KV head) to finish
+combines the splits' partials in split order, so two calls on the same
+inputs give the same bits.  It sums in another order than the plain
+version (16-slot chunks a warp, four warps, then the splits; the plain
+version one einsum over 1024-slot blocks), so it is held within 3e-5 (the
+reference's own bound) for f32 q, 3e-2 for bf16 q.  A row with no attended
+slot gives 0.  ``LAUNCHES`` counts the kernel's launches (plain-version
+calls do not).
+
+Two buffers serve the combine.  The scratch, ``B * kv * n_split * G * (hd
++ 2)`` f32 (each split's running max and sum a head and its unnormalised
+output), is taken from ``torch.empty`` at each call (the caching allocator:
+no launch).  The arrival counters, ``B * kv`` int32 a device, are zeroed
+once when they are made (or grown) and kept in ``_COUNTERS``: the kernel's
+last block of each (row, KV head) sets its counter back to 0.  Calls on two
+streams of one device at once would share the counters and are not
+supported.
 """
 from __future__ import annotations
 
@@ -29,8 +44,13 @@ from .ref import decode_attention_ref
 MAX_HD = 128
 MAX_GROUP = 8
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SPLIT_SLOTS = 64       # a split is a multiple of this many slots
+TARGET_BLOCKS = 264    # two blocks for each of the H100's 132 SMs
+MAX_SPLITS = 256       # the kernel's bounds (kMaxSplit, kMaxL)
+MAX_SPLIT_LEN = 4096
 
 LAUNCHES = {"decode_attention_kernel": 0}
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -42,10 +62,33 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attn")
     if not getattr(lib, "_declared", False):
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.decode_attention.argtypes = [vp] * 6 + [i32] * 8 + [f32, vp]
+        lib.decode_attention.argtypes = ([vp] * 8 + [i32] * 8
+                                         + [f32, i32, vp])
         lib.decode_attention.restype = i32
         lib._declared = True
     return lib
+
+
+def split_len(B: int, C: int, kv: int) -> int:
+    """Slots a split: a multiple of SPLIT_SLOTS, so that the (split, KV
+    head, row) grid has about TARGET_BLOCKS blocks (at most MAX_SPLITS
+    splits of at most MAX_SPLIT_LEN slots).  A function of the shape
+    alone."""
+    want = min(MAX_SPLITS, -(-TARGET_BLOCKS // (B * kv)))
+    chunks = -(-C // SPLIT_SLOTS)
+    L = SPLIT_SLOTS * -(-chunks // want)
+    while L > MAX_SPLIT_LEN:
+        want += 1
+        L = SPLIT_SLOTS * -(-chunks // want)
+    return L
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
 
 
 def _check(q, k, v, pos, q_pos) -> None:
@@ -90,18 +133,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd > MAX_HD or G > MAX_GROUP:
         raise ValueError(f"the kernel takes head_dim <= {MAX_HD} and nh/kv "
                          f"<= {MAX_GROUP}; got {hd}, {G}")
+    if C > MAX_SPLITS * MAX_SPLIT_LEN:
+        raise ValueError(f"the kernel takes at most "
+                         f"{MAX_SPLITS * MAX_SPLIT_LEN} cache slots, got {C}")
     if not all(t.is_contiguous() for t in (q, k, v, pos, q_pos)):
         raise ValueError("q, k, v, pos and q_pos must be contiguous")
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    L = split_len(B, C, kv)
+    n_split = -(-C // L)
+    part = torch.empty(B * kv * n_split * G * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+    counters = _counters(q.device, B * kv)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            q_pos.data_ptr(), o.data_ptr(), B, C, nh, kv, hd, int(window),
-            DTYPES[q.dtype], DTYPES[k.dtype], hd ** -0.5, stream)
+            q_pos.data_ptr(), o.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), B, C, nh, kv, hd, int(window),
+            DTYPES[q.dtype], DTYPES[k.dtype], hd ** -0.5, L, stream)
     if err:
         raise RuntimeError(f"decode_attention_kernel launch failed: "
                            f"cudaError {err}")

@@ -10,11 +10,15 @@ a CUDA tensor launches the kernel, and a library that cannot be built or
 loaded raises.  The kernel takes f32 or bf16 (q, k and v of one dtype),
 hd <= 128 and nh a multiple of kv.
 
-The kernel sums the dot products and the online softmax in another order
-than the plain version (64-key tiles, not one einsum over 1024-key
-blocks), so it is held to a tolerance: f32 within 2e-5 * max(1,
-max|want|) (the reference's own bound), bf16 within 3e-2 (the kernel casts
-q to f32 before it scales it, the plain version scales in bf16).
+The kernel runs its products on the tensor cores in 3xTF32 (each f32
+operand split into two TF32 parts, three products a product: f32
+accuracy, ``csrc/swa_attn.cu``) and sums the dot products and the online
+softmax in another order than the plain version (64-key tiles, 8-column
+k-steps; the plain version one einsum over 1024-key blocks), so it is held
+to a tolerance: f32 within 2e-5 * max(1, max|want|) (the reference's own
+bound; ``tests/test_torch_swa_tf32x3.py`` holds a CPU emulation of the
+3xTF32 arithmetic within half of it), bf16 within 3e-2 (the kernel casts q
+to f32 before it scales it, the plain version scales in bf16).
 ``LAUNCHES`` counts the kernel's launches (plain-version calls do not).
 """
 from __future__ import annotations
@@ -43,6 +47,8 @@ def _lib() -> ctypes.CDLL:
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.swa_attention.argtypes = [vp] * 4 + [i32] * 7 + [f32, vp]
         lib.swa_attention.restype = i32
+        lib.swa_attention_occupancy.argtypes = [i32]
+        lib.swa_attention_occupancy.restype = i32
         lib._declared = True
     return lib
 
@@ -94,3 +100,9 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{err}")
     LAUNCHES["swa_attention_kernel"] += 1
     return o
+
+
+def occupancy(hd: int) -> int:
+    """Blocks of the f32 kernel (8 warps each) resident on one SM of the
+    current card at head_dim ``hd``, as the CUDA runtime computes it."""
+    return int(_lib().swa_attention_occupancy(int(hd)))

@@ -354,6 +354,9 @@ def _attn_tol(dtype, base):
     (100, 4, 2, 64, 0),            # ragged T: a partial q and kv tile
     (300, 4, 2, 120, 100),         # ragged, windowed, hd 120
     (257, 8, 8, 128, 0),           # MHA, hd 128, one row past a tile
+    (129, 4, 2, 120, 1),           # window 1: each row its own key
+    (300, 4, 2, 64, 40),           # tiles straddle diagonal and window edge
+    (200, 2, 1, 32, 70),           # hd 32, a window inside one q tile
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_swa_attention_matches_plain(T, nh, kv, hd, window, dtype):
@@ -387,19 +390,24 @@ def _cache(B, S, kv, hd, dtype, gen, fill, empty_lead=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,nh,kv,hd,window", [
-    (256, 4, 2, 64, 0), (300, 4, 2, 64, 100), (512, 8, 8, 128, 0),
-    (1024, 5, 5, 64, 256), (2080, 32, 8, 64, 0), (700, 32, 8, 120, 500),
+@pytest.mark.parametrize("B,S,nh,kv,hd,window", [
+    (2, 256, 4, 2, 64, 0), (2, 300, 4, 2, 64, 100), (2, 512, 8, 8, 128, 0),
+    (2, 1024, 5, 5, 64, 256), (2, 2080, 32, 8, 64, 0),
+    (2, 700, 32, 8, 120, 500),
+    (2, 4096, 32, 8, 120, 0),      # 16 splits of 256 slots
+    (2, 4096, 32, 8, 120, 300),    # most splits wholly outside the window
+    (1, 40, 4, 2, 64, 0),          # B 1, C < one split
+    (1, 3000, 8, 1, 128, 0),       # B 1, one KV head: many splits
 ])
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
     (torch.bfloat16, torch.bfloat16)])
-def test_cuda_decode_attention_matches_plain(S, nh, kv, hd, window, q_dtype,
-                                            kv_dtype):
-    """20% of the slots empty, as the reference's sweep."""
+def test_cuda_decode_attention_matches_plain(B, S, nh, kv, hd, window,
+                                            q_dtype, kv_dtype):
+    """20% of the slots empty, as the reference's sweep; a second call on
+    the same inputs gives the same bits (the splits combine in order)."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(S + nh + hd)
-    B = 2
     fill = int(S * 0.8)
     k, v, pos = _cache(B, S, kv, hd, kv_dtype, gen, fill)
     q = torch.randn(B, 1, nh, hd, device="cuda", generator=gen).to(q_dtype)
@@ -414,6 +422,8 @@ def test_cuda_decode_attention_matches_plain(S, nh, kv, hd, window, q_dtype,
     assert got.dtype == q_dtype and got.shape == want.shape
     err = float((got.float() - want.float()).abs().max())
     assert err <= _attn_tol(q_dtype, 3e-5), err
+    again = decode_attn.decode_attention(q, k, v, pos, qp, window=window)
+    assert torch.equal(again, got)
 
 
 @pytest.mark.gpu
@@ -440,6 +450,10 @@ def test_cuda_decode_attention_empty_leading_blocks_and_rotation(window):
         q, *(torch.roll(t, r, dims=1).contiguous() for t in (k, v, pos)),
         qp, window=window)
     assert float((rolled - got).abs().max()) <= 1e-5
+    # a row with no attended slot gives 0 (the cache is all empty)
+    empty = decode_attn.decode_attention(q, k, v, torch.full_like(pos, -1),
+                                         qp, window=window)
+    assert torch.equal(empty, torch.zeros_like(empty))
 
 
 @pytest.mark.gpu
