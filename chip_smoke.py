@@ -117,10 +117,13 @@
    computes the scan, so library_ms is null); edge cases T 1, 40, 100 and
    257 (ragged chunks), bf16 inputs, and a uniform decay of 0.3 (finite)
    and 0.1 (the cumulative decay underflows: inf and NaN in the same
-   places as the plain version).  Reduced rwkv6-3b, prompts 40 (one
-   ragged chunk) and 128 (two chunks): prefill and 4 teacher-forced decode
-   steps card vs CPU, logits within SERVE_TOL, the state cache's dtypes
-   (S and x_prev_ffn f32, x_prev_att bf16) on both.
+   places as the plain version), T 64, 128 and 2048 at B 1 and H 1 (f32
+   and bf16) and a mixed decay (0.1 on channels 0-31); two calls at the
+   serving shape bitwise equal; its GB/s and share of the bound, ptxas
+   registers and spills, grid and blocks an SM.  Reduced rwkv6-3b,
+   prompts 40 (one ragged chunk) and 128 (two chunks): prefill and 4
+   teacher-forced decode steps card vs CPU, logits within SERVE_TOL, the
+   state cache's dtypes (S and x_prev_ffn f32, x_prev_att bf16) on both.
 10. Full rwkv6-3b (32 layers, d_model 2560, 3,073,313,280 f32 parameters
    in the tree) through launch/serve.generate, batch 8, prompt 2048, 32
    greedy tokens: exactly 32 rwkv_scan_kernel launches in the run and
@@ -1499,10 +1502,12 @@ def attention_kernel_phase(torch) -> dict:
 
 
 def rwkv_inputs(torch, B: int, T: int, H: int, seed: int, *,
-                dtype=None, zero_state: bool = False, w_value=None):
+                dtype=None, zero_state: bool = False, w_value=None,
+                mixed: bool = False):
     """r, k, v ~ N(0, 0.5); the model's decay exp(-exp(w0 + N(0, 0.5))),
     w0 spread over [-6, -4.5] as rwkv6-3b's init (or a uniform
-    ``w_value``); u ~ N(0, 0.5); a state ~ N(0, 0.3) or zero.  On the card,
+    ``w_value``; ``mixed``: 0.1 on channels 0-31 and the model's decay on
+    the rest); u ~ N(0, 0.5); a state ~ N(0, 0.3) or zero.  On the card,
     r/k/v/w in ``dtype`` (f32 by default)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -1516,6 +1521,8 @@ def rwkv_inputs(torch, B: int, T: int, H: int, seed: int, *,
         w = torch.exp(-torch.exp(w0 + randn(B, T, H, 64) * 0.5))
     else:
         w = torch.full((B, T, H, 64), w_value, device="cuda")
+    if mixed:
+        w[..., :32] = 0.1
     u = randn(H, 64) * 0.5
     S = (torch.zeros(B, H, 64, 64, device="cuda") if zero_state
          else randn(B, H, 64, 64) * 0.3)
@@ -1547,12 +1554,19 @@ def rwkv_kernel_phase(torch) -> dict:
     of 64, f32, from a zero and from a nonzero state) against its plain
     version within RWKV_TOL * max(1, max|want|); timed beside the plain
     version and the bound (no single PyTorch call computes this function:
-    library_ms null).  Edge cases: T 1, 40 and 100 (ragged chunks), bf16
-    inputs, and a uniform decay of 0.3 (finite) and 0.1 (the chunked
-    form's cumulative decay underflows: inf and NaN in the same places as
-    the plain version, the finite entries within tolerance)."""
+    library_ms null), with its GB/s and share of the bound, its ptxas
+    registers and spills, its grid and blocks resident on an SM; two calls
+    at the serving shape compared bitwise.  Edge cases: T 1, 40 and 100
+    (ragged chunks), bf16 inputs, and a uniform decay of 0.3 (finite) and
+    0.1 (the chunked form's cumulative decay underflows: inf and NaN in the
+    same places as the plain version, the finite entries within
+    tolerance); then T 64, 128 and 2048 at B 1 and H 1 (f32 and bf16) and a
+    mixed decay (0.1 on channels 0-31, the model's on the rest: finite and
+    inf kd in one chunk)."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.rwkv_scan import rwkv_scan, rwkv_scan_ref
+    from repro_torch.kernels.rwkv_scan.ops import launch_shape
 
     arch, B, T, _ = SSM_SERVE_PATH
     H = get_arch(arch).n_heads
@@ -1583,6 +1597,13 @@ def rwkv_kernel_phase(torch) -> dict:
             f"{RWKV_TOL:.0e} * max(1, max|want|)")
         worst = max(worst, ey, es)
         del y, s, want_y, want_s
+    y, s = rwkv_scan(*inputs)
+    y2, s2 = rwkv_scan(*inputs)
+    bitwise = torch.equal(y, y2) and torch.equal(s, s2)
+    log(f"rwkv_scan_kernel: two calls at the serving shape bitwise equal "
+        f"{bitwise}")
+    check(bitwise, "rwkv_scan_kernel: two calls at the serving shape differ")
+    del y, s, y2, s2
     ms = median_ms(torch, lambda: rwkv_scan(*inputs), 10)
     plain_ms = median_ms(torch, lambda: rwkv_scan_ref(*inputs), 10)
     flops, n_bytes = rwkv_work(B, T, H, 64, 4)
@@ -1595,6 +1616,21 @@ def rwkv_kernel_phase(torch) -> dict:
         f"{t_ops * 1e3:.3f} ms, {n_bytes / 1e9:.3f} GB at 3.35 TB/s = "
         f"{t_bytes * 1e3:.3f} ms), plain {plain_ms:.3f} ms, library: none "
         f"(no single PyTorch call computes the scan)")
+    shape = launch_shape(B, H, torch.float32)
+    ptxas = [line.strip() for line in
+             _build.library_path("rwkv_scan").with_suffix(".log")
+             .read_text().splitlines()
+             if "registers" in line or "spill" in line]
+    log(f"rwkv_scan_kernel: {n_bytes / ms / 1e6:.1f} GB/s, "
+        f"{100 * bound_ms / ms:.1f}% of its bound; grid {shape['grid']}, "
+        f"{shape['threads']} threads and {shape['smem_bytes']} bytes of "
+        f"shared memory a block, {shape['blocks_per_sm']} block(s) "
+        f"resident an SM; ptxas: {' | '.join(ptxas)}")
+    entry.update(gb_per_s=n_bytes / ms / 1e6, bound_share=bound_ms / ms,
+                 grid=list(shape["grid"]), threads=shape["threads"],
+                 smem_bytes=shape["smem_bytes"],
+                 blocks_per_sm=shape["blocks_per_sm"], ptxas=ptxas,
+                 bitwise_repeat=bitwise)
     entry.update(max_abs_err=worst, tol=RWKV_TOL, ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                  library="none: no single PyTorch call computes the scan",
@@ -1633,6 +1669,37 @@ def rwkv_kernel_phase(torch) -> dict:
               f"rwkv_scan edge case T {t} {dt} decay {wv}")
         check((n_bad == 0) == (wv is None or wv >= 0.3),
               f"rwkv_scan edge case T {t} decay {wv}: {n_bad} non-finite")
+
+    # more edge cases: (B, T, H, dtype, mixed decay)
+    for b, t, h, dt, mixed in ((1, 64, 1, torch.float32, False),
+                               (1, 128, 1, torch.float32, False),
+                               (1, 2048, 1, torch.float32, False),
+                               (1, 64, 1, torch.bfloat16, False),
+                               (1, 128, 1, torch.bfloat16, False),
+                               (1, 2048, 1, torch.bfloat16, False),
+                               (2, 130, 4, torch.float32, True),
+                               (2, 2048, 4, torch.float32, True)):
+        inputs = rwkv_inputs(torch, b, t, h, seed=b * t + h + 1, dtype=dt,
+                             mixed=mixed)
+        y, s = rwkv_scan(*inputs)
+        want_y, want_s = rwkv_scan_ref(*inputs)
+        same = all(torch.equal(torch.isnan(g), torch.isnan(w_))
+                   and torch.equal(torch.isinf(g), torch.isinf(w_))
+                   for g, w_ in ((y, want_y), (s, want_s)))
+        fin_y, fin_s = torch.isfinite(want_y), torch.isfinite(want_s)
+        (ey, sy), (es, ss) = (err(y[fin_y], want_y[fin_y]),
+                              err(s[fin_s], want_s[fin_s]))
+        tol_y = RWKV_TOL if dt == torch.float32 else RWKV_BF16_TOL
+        n_bad = int((~fin_y).sum())
+        log(f"  edge case rwkv_scan ({b}, {t}, {h}, 64) {dt}, decay "
+            f"{'mixed' if mixed else 'model'}: max_abs y {ey:.3e} (tol "
+            f"{tol_y:.0e} * {sy:.2e}), state {es:.3e}; non-finite y "
+            f"{n_bad} of {y.numel()}, same places {same}")
+        check(same and y.dtype == dt and ey <= tol_y * sy
+              and es <= RWKV_TOL * ss,
+              f"rwkv_scan edge case T {t} {dt} mixed {mixed}")
+        check((n_bad > 0) == mixed and bool(fin_y.any()),
+              f"rwkv_scan edge case T {t} mixed {mixed}: {n_bad} non-finite")
     return {"rwkv_scan_kernel": entry}
 
 

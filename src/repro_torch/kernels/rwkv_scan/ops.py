@@ -10,7 +10,12 @@ a sequential scan otherwise).  The kernel reads that layout in place.  A
 CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
 the kernel, and a library that cannot be built or loaded raises.  The
 kernel takes r, k, v, w of one dtype, f32 or bf16, hd 64, and u of any
-float dtype (converted to f32 first, exactly for f32 and bf16).
+float dtype (converted to f32 first, exactly for f32 and bf16).  It loads
+r, k, v and w with TMA tensor copies and the state and y 16 bytes (y in
+bf16: 8) at a time, so r, k, v, w, y and the state must be 16-byte
+aligned: a view that is not (a storage offset that is not a multiple of 16
+bytes) raises ``ValueError``; the wrapper does not copy it.  The model's
+inputs are fresh matmul outputs reshaped, so they are aligned.
 
 There is no backward kernel yet (ROADMAP.md queue A item 1, rwkv6-3b
 training), so a call that autograd would record (grad enabled and an
@@ -18,11 +23,12 @@ input that requires grad) raises.
 
 The kernel sums in another order than the plain version (fmaf chains, not
 matrix products), so it is held to a tolerance: f32 within 1e-5 *
-max(1, max|want|) (measured on an H100: equal at the serving shape, at
-most 2.2e-7 of max|want| on the edge cases), bf16 outputs within 1e-2 *
-max(1, max|want|) (one bf16 rounding of y either side of a boundary).  Under strong decay (a
-uniform w <= 0.25) the chunked form's cumulative decay underflows: both
-return inf and NaN in the same places, where the recurrence is finite
+max(1, max|want|) (measured on an H100: at most 4.1e-7 of max|want| at the
+serving shape and on the edge cases), bf16 outputs within 1e-2 *
+max(1, max|want|) (one bf16 rounding of y either side of a boundary;
+measured 1.6e-3).  Under strong decay (a uniform w <= 0.25, or 0.1 on
+some channels) the chunked form's cumulative decay underflows: both return
+inf and NaN in the same places, where the recurrence is finite
 (``ref.py``).  ``LAUNCHES`` counts the kernel's launches (plain-version
 calls do not).
 """
@@ -53,6 +59,8 @@ def _lib() -> ctypes.CDLL:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.rwkv_scan.argtypes = [vp] * 8 + [i32] * 5 + [vp]
         lib.rwkv_scan.restype = i32
+        lib.rwkv_scan_occupancy.argtypes = [i32, vp, vp]
+        lib.rwkv_scan_occupancy.restype = i32
         lib._declared = True
     return lib
 
@@ -102,8 +110,14 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"the kernel takes head_dim {HD}, got {hd}")
     if not all(t.is_contiguous() for t in (r, k, v, w, state)):
         raise ValueError("r, k, v, w and state must be contiguous")
-    uf = u.float().contiguous()
     y = torch.empty_like(r)
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("y", y),
+                    ("state", state)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (data_ptr "
+                             f"{t.data_ptr():#x}): the kernel's tensor "
+                             f"copies and 16-byte stores need it")
+    uf = u.float().contiguous()
     s_out = torch.empty_like(state)
     lib = _lib()
     with torch.cuda.device(r.device):
@@ -116,3 +130,17 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"rwkv_scan_kernel launch failed: cudaError {err}")
     LAUNCHES["rwkv_scan_kernel"] += 1
     return y, s_out
+
+
+def launch_shape(B: int, H: int, dtype: torch.dtype) -> dict:
+    """How the kernel launches for r of ``dtype`` with B rows and H heads on
+    the current card: grid (H, B), threads and dynamic shared memory bytes
+    a block, and the blocks resident on one SM, as the CUDA runtime
+    computes them."""
+    threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+    blocks = _lib().rwkv_scan_occupancy(DTYPES[dtype], ctypes.byref(threads),
+                                        ctypes.byref(smem))
+    if blocks < 0:
+        raise RuntimeError("rwkv_scan_occupancy failed")
+    return {"grid": (H, B), "threads": threads.value,
+            "smem_bytes": smem.value, "blocks_per_sm": blocks}

@@ -10,7 +10,9 @@ order than the plain version, which computes the same a, rq and kd bit for
 bit.  f32 within 1e-5 * max(1, max|want|); bf16 inputs give bf16 y within
 1e-2 * max(1, max|want|) (one bf16 rounding either side of a boundary,
 2^-7 relative) and an f32 state within the f32 bound.  Under strong decay
-(a uniform w of 0.1) both return inf and NaN in the same places.
+(a uniform w of 0.1, or 0.1 on channels 0-31 and the model's decay on the
+rest) both return inf and NaN in the same places.  Two calls give the same
+bits; a view that is not 16-byte aligned raises.
 """
 import pytest
 import torch
@@ -26,11 +28,11 @@ def _need_card():
 
 
 def _inputs(B, T, H, seed, *, dtype=torch.float32, zero_state=False,
-            w_value=None):
+            w_value=None, mixed=False):
     """r, k, v ~ N(0, 0.5); the model's decay exp(-exp(w0 + tanh-LoRA)),
     w0 spread over [-6, -4.5] as rwkv6-3b's init, with N(0, 0.5) for the
-    LoRA term (or a uniform ``w_value``); u ~ N(0, 0.5); a state ~
-    N(0, 0.3) or zero."""
+    LoRA term (or a uniform ``w_value``; ``mixed``: 0.1 on channels 0-31);
+    u ~ N(0, 0.5); a state ~ N(0, 0.3) or zero."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
@@ -42,6 +44,8 @@ def _inputs(B, T, H, seed, *, dtype=torch.float32, zero_state=False,
         w = torch.exp(-torch.exp(w0 + randn(B, T, H, 64) * 0.5))
     else:
         w = torch.full((B, T, H, 64), w_value, device="cuda")
+    if mixed:
+        w[..., :32] = 0.1
     u = randn(H, 64) * 0.5
     S = (torch.zeros(B, H, 64, 64, device="cuda") if zero_state
          else randn(B, H, 64, 64) * 0.3)
@@ -67,6 +71,12 @@ def _err(got, want):
     (3, 257, 5, torch.float32, False),
     (2, 100, 40, torch.bfloat16, False),
     (2, 2048, 4, torch.bfloat16, True),
+    (1, 64, 1, torch.float32, False),         # one full chunk, one block
+    (1, 128, 1, torch.float32, False),
+    (1, 2048, 1, torch.float32, False),
+    (1, 64, 1, torch.bfloat16, False),
+    (1, 128, 1, torch.bfloat16, False),
+    (1, 2048, 1, torch.bfloat16, False),
 ])
 def test_cuda_rwkv_scan_matches_plain(B, T, H, dtype, zero_state):
     _need_card()
@@ -105,6 +115,36 @@ def test_cuda_rwkv_scan_strong_decay_same_places(w_value):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("T", [130, 2048])
+def test_cuda_rwkv_scan_mixed_decay_same_places(T):
+    """0.1 on channels 0-31, the model's decay on the rest: finite and inf
+    kd meet in one chunk (and in one lane: it takes channels c and c + 32)."""
+    _need_card()
+    inputs = _inputs(2, T, 4, seed=8, mixed=True)
+    y, s = scan.rwkv_scan(*inputs)
+    want_y, want_s = _plain(*inputs)
+    for got, want in ((y, want_y), (s, want_s)):
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        assert torch.equal(got[torch.isinf(got)], want[torch.isinf(want)])
+        fin = torch.isfinite(want)
+        assert fin.any() and not fin.all()
+        assert _err(got[fin], want[fin]) <= F32_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rwkv_scan_two_calls_bitwise(dtype):
+    """No atomics and a fixed order: the serving shape twice, the same
+    bits."""
+    _need_card()
+    inputs = _inputs(8, 2048, 40, seed=3, dtype=dtype)
+    y, s = scan.rwkv_scan(*inputs)
+    y2, s2 = scan.rwkv_scan(*inputs)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.gpu
 def test_cuda_rwkv_scan_rejects_what_it_does_not_take():
     _need_card()
     r, k, v, w, u, S = _inputs(1, 8, 2, seed=1)
@@ -115,6 +155,11 @@ def test_cuda_rwkv_scan_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         scan.rwkv_scan(r.transpose(2, 3).contiguous().transpose(2, 3), k, v,
                        w, u, S)
+    buf = torch.zeros(r.numel() + 1, device="cuda")
+    shifted = buf[1:].view(r.shape)           # storage offset 1: 4 bytes off
+    assert shifted.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        scan.rwkv_scan(shifted, k, v, w, u, S)
     r2 = torch.zeros(1, 8, 2, 32, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         scan.rwkv_scan(r2, r2, r2, r2, torch.zeros(2, 32, device="cuda"),
