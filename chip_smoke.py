@@ -32,6 +32,13 @@
    each against its plain version span by span, timed beside its bound
    and a PyTorch yardstick (torch.quantize_per_channel, QTensor.dequantize,
    the fused nesterov SGD step on a decoded g: none the same function).
+   The update kernels as the windowed exchange launches them: one
+   (window, shard) strip of the stacked gradient read in place (rows
+   `padded` apart), p' into a given buffer and the slots in place, for
+   multi_agg_opt_chunks and adam_opt_chunks at W=4 in 5 windows (a (4,
+   61,792,256) view) and agg_opt_chunks at W=1 in 7 windows, bitwise
+   against their plain versions on the same view, timed beside the
+   strip's bound.
 3. Holds one 4-worker step of a reduced llama3.2-1b on the card against
    the same step on the CPU (plain versions), from the same weights, under
    Nesterov and under Adam (eps 1e-3, where the step is Lipschitz in the
@@ -68,6 +75,16 @@
      and 2, demote_after 2: ok_mask [1,1,1,1], [1,0,1,1], [1,0,1,1], a
      demotion at step 2, step 3 on the static 3-of-4 program (each step
      one health_chunks and one multi_agg_opt_chunks launch).
+   - PHub's gradient processing pipeline, from the same seed and batches:
+     Nesterov W=4 in 5 windows with flat parameter residency, 3 steps;
+     Nesterov W=4 in 5 windows with chunk-ready dispatch, 3 steps; Adam
+     W=4 in 5 windows, flat, 1 step; Nesterov W=1 in 7 windows, flat, 1
+     step.  Each launches its rule's kernel once per (window, shard) a
+     step (20 and 7), asserts that the requested window count takes
+     effect, and equals its monolithic path bitwise: every step's loss,
+     and after every step each leaf's f64 sum, the int64 sum of its bit
+     patterns and every 1009th element (1.22M); its step ms, tokens/s
+     and peak GiB are logged beside the monolithic path's.
    Each checks finite losses, changed parameters, and that every kernel
    launched as often as the path's expected counts say, every other count
    staying 0.
@@ -172,6 +189,10 @@ REPLACES = {"agg_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:38",
             "rwkv_scan_kernel": "src/repro/kernels/rwkv_scan/kernel.py:70"}
 
 ARCH, WORKERS, BATCH, SEQ, STEPS = "llama3.2-1b", 4, 8, 512, 3
+# the gradient processing pipeline's paths: window counts that take effect
+# on llama3.2-1b's domain (37,715 chunks a shard at S=4, 150,857 at S=1)
+WINDOWS_W4, WINDOWS_W1 = 5, 7
+SAMPLE_STRIDE = 1009             # every 1009th parameter: 1.22M of them
 ADAM_LR, SGD_LR = 3e-4, 1e-2
 ADAM_REF_EPS = 1e-3              # card-vs-CPU Adam step (docstring, 3.)
 SPAN = 1 << 26                   # elements per span of the Adam/SGD checks
@@ -388,6 +409,82 @@ def kernel_phase(torch, sizes: dict, lr: float, mu: float) -> dict:
         log(f"small case {dtype} W={W} n={n}: max_abs {err:.3e} "
             f"max_ulp {ulp}")
         check(ulp == 0, f"small case {dtype} W={W} not bitwise")
+    return out
+
+
+def window_kernel_phase(torch, sizes: dict, lr: float, mu: float) -> dict:
+    """The update kernels as the windowed exchange launches them on the
+    new main paths: one (window, shard) strip, ``[j*L + w*Lw, j*L +
+    (w+1)*Lw)``, with the stacked gradient read in place (a (4, Lw) view
+    whose rows lie ``padded`` apart) and p' into a given buffer, the slots
+    updated in place: multi_agg_opt_chunks and adam_opt_chunks at W=4 in 5
+    windows, agg_opt_chunks at W=1 in 7 (a contiguous strip).  Each is
+    held bitwise against its plain version on the same strided view, and
+    timed (CUDA events, median of 10) beside its bound for the strip.
+    Returns {kernel: {"window": {...}}} for the kernels line."""
+    from repro_torch.kernels.agg_opt import (adam_opt_ref, agg_opt_ref,
+                                             fused_adam_opt, fused_agg_opt,
+                                             fused_multi_agg_opt,
+                                             multi_agg_opt_ref)
+    n4 = sizes[WORKERS]
+    g = torch.empty(WORKERS, n4, device="cuda")
+    for w in range(WORKERS):
+        g[w].copy_(draw(torch, "g", n4, 77 + w))
+    out = {}
+    for name, W, windows in (("multi_agg_opt_chunks", WORKERS, WINDOWS_W4),
+                             ("adam_opt_chunks", WORKERS, WINDOWS_W4),
+                             ("agg_opt_chunks", 1, WINDOWS_W1)):
+        n = sizes[W]
+        L = n // W                       # shard_len (S = W)
+        Lw = L // windows
+        w, j = windows // 2, W // 2      # a middle window and shard
+        lo = j * L + w * Lw
+        gw = g[:, lo:lo + Lw] if W > 1 else g[0, lo:lo + Lw]
+        p = draw(torch, "p", Lw, 91)
+        kinds = ("m", "v", "k1", "k2") if name == "adam_opt_chunks" else ("m",)
+        slots = [draw(torch, k, Lw, 92 + i) for i, k in enumerate(kinds)]
+        p_out = torch.empty_like(p)
+        if name == "adam_opt_chunks":
+            kw = dict(lr=ADAM_LR, b1=0.9, b2=0.999, eps=1e-8)
+            want = adam_opt_ref(p, gw, *slots, **kw)
+
+            def run():
+                return fused_adam_opt(p, gw, *slots, p_out=p_out, **kw)
+            n_bytes, n_ops = 4 * (W + 10), W + 22
+        else:
+            kw = dict(lr=lr, momentum=mu)
+            plain = multi_agg_opt_ref if W > 1 else agg_opt_ref
+            kern = fused_multi_agg_opt if W > 1 else fused_agg_opt
+            want = plain(p, gw, slots[0], **kw)
+
+            def run():
+                return kern(p, gw, slots[0], p_out=p_out, **kw)
+            n_bytes, n_ops = 4 * (W + 4), W - 1 + 7
+        got = run()
+        torch.cuda.synchronize()
+        check(got[0] is p_out and all(a is b for a, b in zip(got[1:],
+                                                              slots)),
+              f"{name}: p' not in p_out, or the slots not updated in place")
+        err, ulp = compare(torch, got, want)
+        del got, want
+        check(ulp == 0, f"{name} on a strided window differs from its plain "
+                        f"version (max_ulp {ulp})")
+        ms = median_ms(torch, run, reps=10)
+        bound_ms, bound_by = bound(Lw, n_bytes, n_ops)
+        log(f"{name} windowed: W={W}, window {w} of {windows}, shard {j}: "
+            f"p ({Lw // 8192}, 8192) f32, g {tuple(gw.shape)} with row "
+            f"stride {gw.stride(0) if W > 1 else Lw}: max_abs {err:.3e} "
+            f"max_ulp {ulp}; kernel {ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({bound_by}); {windows * W} such launches a step")
+        out[name] = {"window": {
+            "windows": windows, "workers": W, "elements": Lw,
+            "g_row_stride": gw.stride(0) if W > 1 else Lw,
+            "max_abs_err": err, "max_ulp": ulp, "ms": ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}}
+        del p, p_out, slots, gw
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1053,15 +1150,39 @@ def wire_reference_phase(torch, wire_name: str) -> None:
     check(dmom <= push / WORKERS + 1e-2, f"momentum differs by {dmom}")
 
 
+def fingerprint(torch, model) -> list:
+    """The parameters' fingerprint after a step: per leaf its f64 sum, the
+    int64 sum of its f32 bit patterns (any one changed element changes
+    it) and every SAMPLE_STRIDE-th element (on the host)."""
+    from repro_torch.core.chunking import leaf_paths
+    out = []
+    with torch.no_grad():
+        for path, t in leaf_paths(model.param_tree()):
+            flat = t.detach().reshape(-1)
+            out.append((path, float(flat.sum(dtype=torch.float64)),
+                        int(flat.view(torch.int32).sum(dtype=torch.int64)),
+                        flat[::SAMPLE_STRIDE].to("cpu", copy=True)))
+    return out
+
+
+def same_fingerprint(torch, a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        pa == pb and sa == sb and ia == ib and torch.equal(xa, xb)
+        for (pa, sa, ia, xa), (pb, sb, ib, xb) in zip(a, b))
+
+
 def main_path(torch, workers: int, steps: int, expect: dict,
               optimizer: str = "nesterov", wire: str = "identity",
-              faults=None) -> dict:
+              faults=None, pipeline=None) -> dict:
     """PHubEngine + fit on the full model under ``optimizer`` over
     ``wire``; ``expect`` holds each kernel's launches per step and group
     (every other count must stay 0).  ``faults``: a FaultSchedule; the
     run then goes through fit(supervisor=TrainSupervisor) with injection
     on and demote_after 2, and the supervisor's record is checked.
-    Returns the run's launch counts."""
+    ``pipeline``: TrainConfig's pipeline fields (``pipeline_windows``,
+    ``flat_residency``, ``overlap_backward``); the requested window count
+    must take effect.  Returns the run's launch counts, its losses, the
+    parameters' fingerprint after every step, step ms and peak GiB."""
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.core import PHubEngine, StackedComm
     from repro_torch.core.chunking import leaf_paths
@@ -1072,10 +1193,18 @@ def main_path(torch, workers: int, steps: int, expect: dict,
 
     cfg = get_arch(ARCH)
     lr = {"adam": ADAM_LR, "sgd": SGD_LR}.get(optimizer)
+    from repro_torch.core.pipeline import effective_windows
     tc = TrainConfig(loss_chunk=min(1024, SEQ), optimizer=optimizer,
-                     wire_format=wire, **({"lr": lr} if lr else {}))
+                     wire_format=wire, **({"lr": lr} if lr else {}),
+                     **(pipeline or {}))
     engine = PHubEngine(cfg, tc, StackedComm(workers), device="cuda")
     model, opt = engine.init_state()
+    windows = [effective_windows(g, tc.pipeline_windows)
+               for g in engine.chunk_plan.groups]
+    check(windows == [tc.pipeline_windows] * len(windows),
+          f"{tc.pipeline_windows} windows asked for, {windows} take effect")
+    check((model.flat_store is not None) == tc.flat_residency,
+          "the model's residency is not the engine's")
     state = TrainState(params=model, opt=opt)
     del opt          # fit replaces state.opt; a second reference would
     #                  keep the first step's slots alive through the run
@@ -1093,6 +1222,9 @@ def main_path(torch, workers: int, steps: int, expect: dict,
         f"worker(s), {wire} wire, batch {BATCH} x {SEQ}, {steps} step(s), "
         f"{optimizer} at lr {tc.lr}, {rule}"
         f"{'; supervised, faults ' + str(faults.events) if sup else ''}; "
+        f"windows {tc.pipeline_windows} (effective {windows}), flat "
+        f"residency {tc.flat_residency}, chunk-ready "
+        f"{tc.overlap_backward}; "
         f"groups "
         + ", ".join(f"{g.key}: {g.total:,} -> {g.padded:,} "
                     f"({g.n_chunks} chunks of {g.chunk_elems})"
@@ -1104,23 +1236,28 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     torch.cuda.reset_peak_memory_stats()
     marks = [time.perf_counter()]
 
-    health = []
+    health, step_ms, peaks, prints = [], [], [], []
 
     def on_step(state, metrics):
         torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        ms = (marks[-1] - marks[-2]) * 1e3
+        ms = (time.perf_counter() - marks[-1]) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_ms.append(ms)
+        peaks.append(peak)
         gated = ""
         if sup is not None:
             health.append(metrics)
             gated = (f"  ok_mask {metrics['ok_mask'].tolist()} n_live "
                      f"{metrics['n_live']:g} grad_norms "
                      f"{metrics['grad_norms'].tolist()}")
-        log(f"step {state.step - 1}: loss {state.losses[-1]:.6f}  "
+        log(f"step {state.step - 1}: loss {state.losses[-1]!r}  "
             f"{ms:.1f} ms  {BATCH * SEQ / (ms / 1e3):,.0f} tokens/s  "
-            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
-            + gated)
+            f"peak {peak:.2f} GiB" + gated)
+        # the fingerprint is outside the step's time and peak
+        prints.append(fingerprint(torch, state.params))
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        marks.append(time.perf_counter())
 
     reset_all_launches()
     state = fit(engine, state, data, steps=steps, log_every=0,
@@ -1156,10 +1293,12 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     log(f"{workers}-worker {optimizer} {wire}-wire path: launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
         + " as expected; parameters changed, losses finite")
+    losses = list(state.losses)
     del model, state, engine, sup
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "losses": losses, "prints": prints,
+            "step_ms": step_ms, "peak_gib": peaks}
 
 
 def rollback_phase(torch) -> None:
@@ -1912,6 +2051,9 @@ def main() -> None:
                                    "multi_agg_opt_chunks": padded[WORKERS]},
                            tc.lr, tc.momentum)
     kernels.update(rule_kernel_phase(torch, padded))
+    for name, entry in window_kernel_phase(torch, padded, tc.lr,
+                                           tc.momentum).items():
+        kernels[name].update(entry)
     kernels.update(wire_kernel_phase(torch, padded[WORKERS], ce, tc.lr,
                                      tc.momentum))
     kernels["health_chunks"] = health_kernel_phase(torch, padded, ce)
@@ -1956,22 +2098,64 @@ def main() -> None:
          {"quantize_chunks": WORKERS, "dequantize_chunks": WORKERS,
           "adam_opt_chunks": 1}),
     )
+    # the gradient processing pipeline: (label, workers, steps, rule,
+    # TrainConfig's pipeline fields, launches per step, the monolithic
+    # path whose losses and parameters it must equal bitwise)
+    S4 = WORKERS
+    pipeline_paths = (
+        (f"windows {WINDOWS_W4} flat W=4", WORKERS, STEPS, "nesterov",
+         dict(pipeline_windows=WINDOWS_W4, flat_residency=True),
+         {"multi_agg_opt_chunks": WINDOWS_W4 * S4}, "nesterov W=4"),
+        (f"windows {WINDOWS_W4} chunk-ready W=4", WORKERS, STEPS,
+         "nesterov", dict(pipeline_windows=WINDOWS_W4,
+                          overlap_backward=True),
+         {"multi_agg_opt_chunks": WINDOWS_W4 * S4}, "nesterov W=4"),
+        (f"windows {WINDOWS_W4} flat W=4", WORKERS, 1, "adam",
+         dict(pipeline_windows=WINDOWS_W4, flat_residency=True),
+         {"adam_opt_chunks": WINDOWS_W4 * S4}, "adam W=4"),
+        (f"windows {WINDOWS_W1} flat W=1", 1, 1, "nesterov",
+         dict(pipeline_windows=WINDOWS_W1, flat_residency=True),
+         {"agg_opt_chunks": WINDOWS_W1}, "nesterov W=1"),
+    )
     for k in kernels.values():
         k["launches_by_path"] = {}
+    runs = {}
+
+    def count(label, launches):
+        for name, n in launches.items():
+            if n:
+                kernels[name]["launches_by_path"][label] = n
+                kernels[name]["launches"] += n
+
     for label, workers, steps, rule, wire, expect, *faults in paths:
-        launches = main_path(torch, workers, steps, expect, rule, wire,
-                             *faults)
-        for name, count in launches.items():
-            if count:
-                by = kernels[name]["launches_by_path"]
-                by[f"{rule} {label}"] = count
-                kernels[name]["launches"] += count
+        run = main_path(torch, workers, steps, expect, rule, wire, *faults)
+        runs.setdefault(f"{rule} {label}", run)
+        count(f"{rule} {label}", run["launches"])
+    for label, workers, steps, rule, pipe, expect, base in pipeline_paths:
+        run = main_path(torch, workers, steps, expect, rule,
+                        pipeline=pipe)
+        count(f"{rule} {label}", run["launches"])
+        mono = runs[base]
+        check(run["losses"] == mono["losses"][:steps],
+              f"{rule} {label}: losses {run['losses']} differ from the "
+              f"monolithic path's {mono['losses'][:steps]}")
+        for i in range(steps):
+            check(same_fingerprint(torch, run["prints"][i],
+                                   mono["prints"][i]),
+                  f"{rule} {label}: the parameters after step {i} differ "
+                  f"from the monolithic path's")
+        log(f"{rule} {label}: losses and parameters (f64 sums, bit-pattern "
+            f"sums and {sum(x[3].numel() for x in run['prints'][0]):,} "
+            f"sampled elements a step) bitwise equal to the monolithic "
+            f"path's over {steps} step(s); step ms "
+            f"{[round(x, 3) for x in run['step_ms']]} against "
+            f"{[round(x, 3) for x in mono['step_ms'][:steps]]}, tokens/s "
+            f"{[round(BATCH * SEQ / (x / 1e3)) for x in run['step_ms']]} "
+            f"against {[round(BATCH * SEQ / (x / 1e3)) for x in mono['step_ms'][:steps]]}, "
+            f"peak GiB {[round(x, 3) for x in run['peak_gib']]} against "
+            f"{[round(x, 3) for x in mono['peak_gib'][:steps]]}")
     for arch, batch, prompt, steps in SERVE_PATHS + (SSM_SERVE_PATH,):
-        launches = serve_path(torch, arch, batch, prompt, steps)
-        for name, count in launches.items():
-            if count:
-                kernels[name]["launches_by_path"][f"serve {arch}"] = count
-                kernels[name]["launches"] += count
+        count(f"serve {arch}", serve_path(torch, arch, batch, prompt, steps))
     for k in kernels.values():
         if "tol" in k:            # checked against its tolerance above
             k["verdict"] = "within_tol"

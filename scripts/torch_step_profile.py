@@ -4,18 +4,23 @@
     python3 scripts/torch_step_profile.py [--workers 4] [--batch 8] [--seq 512]
         [--optimizer nesterov|adam|sgd] [--lr LR]
         [--wire-format identity|bf16|f16|int8] [--sanity [--poison W]]
+        [--windows N] [--flat] [--overlap]
     python3 scripts/torch_step_profile.py --serve [--arch llama3.2-1b |
         h2o-danube-3-4b | rwkv6-3b] [--batch 8] [--seq 2048]
 
 Runs the port's main path (full llama3.2-1b, sharded_ps, W workers stacked
 on one card, Nesterov at the TrainConfig defaults over the identity wire
 unless another rule or wire is asked for; ``--sanity``: the sanity-gated
-step, worker ``--poison`` NaN-injected if given) for one warm-up step, one
-timed step, and one step under torch.profiler.  Prints the timed step's
-wall time, the profiled step's device time by kernel class and by kernel
-(top 15), and the device busy share: kernel time over the timed (not the
-profiled) step's wall time, since the profiler slows the host; kernels of
-one stream do not overlap.  Where the device idles it also prints the
+step, worker ``--poison`` NaN-injected if given; ``--windows``,
+``--flat``, ``--overlap``: the gradient processing pipeline's
+``pipeline_windows``, ``flat_residency`` and ``overlap_backward``) for one
+warm-up step, one timed step, and one step under torch.profiler.  Prints
+the timed step's wall time, the profiled step's device time by kernel
+class and by kernel (top 15), and the device busy share: kernel time over
+the timed (not the profiled) step's wall time, since the profiler slows
+the host; kernels of one stream do not overlap, but under ``--overlap``
+the update kernels run on a side stream, so it also prints how long they
+ran beside another kernel (the overlap) and where they started.  Where the device idles it also prints the
 caching allocator's activity in the timed step (segments taken with
 cudaMalloc and returned with cudaFree, and allocations retried after
 freeing the cache: each such retry synchronizes the card) and the host time of the
@@ -83,6 +88,44 @@ def device_split(prof, torch):
     return by_name, runtime, sum(v[0] for v in by_name.values())
 
 
+def update_overlap(prof, torch) -> str:
+    """How the update kernels sat against the others in a profiled step:
+    their own device ms, the ms during which one of them ran beside
+    another kernel, and the start of the first and the end of the last
+    relative to the end of the last other kernel before the first update
+    (the backward's tail, under chunk-ready dispatch)."""
+    upd, other = [], []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (evt.time_range.start, evt.time_range.end)
+        (upd if classify(evt.name) == "update kernel" else other).append(
+            span)
+    if not upd:
+        return "no update kernel in the profiled step"
+    upd.sort()
+    other.sort()
+    overlap = 0.0
+    for a, b in upd:
+        cut = [(max(a, c), min(b, d)) for c, d in other if c < b and d > a]
+        cut.sort()
+        end = a
+        for c, d in cut:                  # the union of the cut spans
+            c = max(c, end)
+            if d > c:
+                overlap += d - c
+                end = d
+    first, last = upd[0][0], max(b for _, b in upd)
+    before = [d for c, d in other if c < first]
+    tail = max(before) if before else first
+    return (f"update kernels: {len(upd)} launches, "
+            f"{sum(b - a for a, b in upd) / 1e3:.3f} ms of device time, "
+            f"{overlap / 1e3:.3f} ms beside another kernel; the first "
+            f"started {(first - tail) / 1e3:+.3f} ms and the last ended "
+            f"{(last - tail) / 1e3:+.3f} ms from the end of the last other "
+            f"kernel that started before it")
+
+
 def print_split(by_name: dict, dev_ms: float, top: int = 15) -> None:
     if dev_ms == 0:
         raise SystemExit("the profiler recorded no device time")
@@ -95,6 +138,10 @@ def print_split(by_name: dict, dev_ms: float, top: int = 15) -> None:
     print("top kernels by device time:")
     for name, (ms, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {ms:10.3f} ms  {n:5d} calls  {name[:110]}")
+    print("top copy / fill kernels:")
+    copies = [kv for kv in by_name.items() if classify(kv[0]) == "copy / fill"]
+    for name, (ms, n) in sorted(copies, key=lambda kv: -kv[1][0])[:6]:
         print(f"  {ms:10.3f} ms  {n:5d} calls  {name[:110]}")
 
 
@@ -183,6 +230,12 @@ def main(argv=None) -> None:
                          "fill, the live count)")
     ap.add_argument("--poison", type=int, default=None,
                     help="with --sanity: NaN-inject this worker's push")
+    ap.add_argument("--windows", type=int, default=1,
+                    help="pipeline windows per dtype group")
+    ap.add_argument("--flat", action="store_true",
+                    help="flat parameter residency")
+    ap.add_argument("--overlap", action="store_true",
+                    help="chunk-ready dispatch of the windows")
     ap.add_argument("--serve", action="store_true",
                     help="profile the serving path: one prefill of "
                          "--batch x --seq and one decode step")
@@ -210,8 +263,14 @@ def main(argv=None) -> None:
     cfg = get_arch("llama3.2-1b")
     tc = TrainConfig(loss_chunk=min(1024, args.seq),
                      optimizer=args.optimizer, wire_format=args.wire_format,
+                     pipeline_windows=args.windows,
+                     flat_residency=args.flat,
+                     overlap_backward=args.overlap,
                      **({} if args.lr is None else {"lr": args.lr}))
     engine = PHubEngine(cfg, tc, StackedComm(args.workers), device="cuda")
+    from repro_torch.core.pipeline import effective_windows
+    windows = [effective_windows(g, tc.pipeline_windows)
+               for g in engine.chunk_plan.groups]
     model, opt = engine.init_state()
     extra = ()
     if args.sanity:
@@ -228,11 +287,13 @@ def main(argv=None) -> None:
     model, opt, _ = step(model, opt, data.torch_batch(0), *extra)  # warm-up
     torch.cuda.synchronize()
     batch = data.torch_batch(1)
+    torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_stats()
     t0 = time.perf_counter()
     model, opt, _ = step(model, opt, batch, *extra)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
     after = torch.cuda.memory_stats()
     alloc = {k: after.get(k, 0) - before.get(k, 0)
              for k in ("segment.all.allocated", "segment.all.freed",
@@ -253,14 +314,17 @@ def main(argv=None) -> None:
                 f"{metrics['ok_mask'].tolist()}), ")
     print(f"step: {gate}{args.optimizer} at lr {tc.lr}, "
           f"{args.wire_format} wire, "
-          f"{args.workers} workers, "
+          f"{args.workers} workers, windows {tc.pipeline_windows} "
+          f"(effective {windows}), flat residency {tc.flat_residency}, "
+          f"chunk-ready {tc.overlap_backward}, "
           f"batch {args.batch} x {args.seq}, wall {step_ms:.1f} ms, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; profiled "
+          f"{peak:.2f} GiB; profiled "
           f"step: loss {loss:.6f}, wall {prof_ms:.1f} ms, device kernel time "
           f"{dev_ms:.1f} ms; busy share {dev_ms / step_ms:.3f} of the "
           f"unprofiled step "
           f"({dev_ms / prof_ms:.3f} of the profiled one)")
     print_split(by_name, dev_ms)
+    print(update_overlap(prof, torch))
     print(f"allocator in the timed step: {alloc['segment.all.allocated']} "
           f"segments taken (cudaMalloc), {alloc['segment.all.freed']} given "
           f"back (cudaFree), {alloc['num_alloc_retries']} allocations "

@@ -15,15 +15,18 @@ so neither side needs numpy's bf16 extension (a reference snapshot's bf16
 arrays load as 2-byte void and are read the same way).
 ``load_checkpoint`` returns CPU tensors.
 
-``restore_train_state`` restores a tree-resident state in place: the
-snapshot's parameters are copied into the model (``copy_``) and the
+A training state's snapshot (``snapshot_tree``) holds the parameters as
+the reference does: the tree, or under flat residency the flat store
+``{dtype_name: (1, padded)}``.  ``restore_train_state`` restores either
+into an engine of either residency: a store is read as a tree of views
+first, the parameters are copied into the model in place (``copy_``; the
+leaves of a flat-resident model are views of its store) and the
 optimizer slots are rebuilt on the engine's device in the engine's
 ``(S, state_len)`` layout, whatever the reference's layout of the same
 elements was.  As in the reference, an encoded-wire snapshot restores
 into an identity-wire engine by dropping ``wire_ef`` and a pre-wire one
 into an encoded-wire engine with a zero ``wire_ef``.  Restoring at
-another world size (the rebalance plan) and converting between tree and
-flat residency are ROADMAP.md queue A item 11.
+another world size (the rebalance plan) is ROADMAP.md queue A item 7.
 """
 from __future__ import annotations
 
@@ -299,10 +302,40 @@ def _check_membership(manifest: dict, membership) -> None:
             f"with an explicit override (membership=None)")
 
 
+def snapshot_tree(model: DecoderLM, opt: dict) -> dict:
+    """The ``{"params", "opt"}`` tree a snapshot of a training state holds:
+    a flat-resident model's parameters as its store ``{dtype_name: (1,
+    padded)}`` (the reference's layout under flat residency), any other
+    model's as the parameter tree."""
+    params = (model.flat_store if model.flat_store is not None
+              else model.param_tree())
+    return {"params": params, "opt": opt}
+
+
+def _is_flat_store(params) -> bool:
+    """A flat store is {dtype_name: (mo, padded) array}; a parameter tree
+    has structured leaf names (embed/blocks/...)."""
+    if not isinstance(params, dict) or not params:
+        return False
+    return all(re.fullmatch(r"(bfloat16|float\d+|int\d+|uint\d+)", k)
+               and getattr(v, "ndim", 0) == 2 for k, v in params.items())
+
+
 def _params_from(engine, params) -> dict:
-    """{path: tensor} of the snapshot's parameters, checked against the
-    engine's model (paths, shapes, dtypes)."""
-    want = dict(leaf_paths(param_specs(engine.cfg)))
+    """The snapshot's parameter tree, from a parameter tree or a flat
+    store (read as views), checked against the engine's model (paths,
+    shapes, dtypes)."""
+    specs = param_specs(engine.cfg)
+    if _is_flat_store(params):
+        shapes = engine.store_layout.store_shapes()
+        got = {k: tuple(v.shape) for k, v in params.items()}
+        if got != shapes:
+            raise ValueError(
+                f"checkpoint flat store {got}, the engine's {shapes}; "
+                f"restoring at another world size is ROADMAP.md queue A "
+                f"item 7")
+        params = engine.store_layout.to_tree(params, specs)
+    want = dict(leaf_paths(specs))
     got = dict(leaf_paths(params))
     if set(want) != set(got):
         raise ValueError(f"checkpoint parameters differ from the model's: "
@@ -314,7 +347,7 @@ def _params_from(engine, params) -> dict:
             raise ValueError(f"checkpoint parameter {path}: {t.dtype} "
                              f"{tuple(t.shape)}, the model's {spec.dtype} "
                              f"{tuple(spec.shape)}")
-    return got
+    return params
 
 
 def _opt_from(engine, opt: dict, step: int) -> dict:
@@ -348,7 +381,7 @@ def _opt_from(engine, opt: dict, step: int) -> dict:
                 raise ValueError(
                     f"opt slot {path!r}: {t.dtype} {tuple(t.shape)}, the "
                     f"engine's {dtype} {shape}; restoring at another world "
-                    f"size is ROADMAP.md queue A item 11")
+                    f"size is ROADMAP.md queue A item 7")
             slots[spec.name] = t.reshape(shape).to(engine.device)
         out[g.key] = slots
     # an encoded-wire snapshot into an identity-wire engine: wire_ef holds
@@ -371,10 +404,12 @@ def _to_device(tree: dict, device) -> dict:
 
 def restore_train_state(directory: str, engine, step: int | None = None,
                         membership=None, model: DecoderLM | None = None):
-    """Load a {"params", "opt"} snapshot for ``engine`` (tree residency).
-    The parameters are copied into ``model`` in place, or into a new
-    ``DecoderLM`` on the engine's device when ``model`` is None; the
-    optimizer slots are rebuilt on the engine's device.  Everything is
+    """Load a {"params", "opt"} snapshot for ``engine``, its parameters a
+    tree or a flat store, into the engine's residency.  The parameters
+    are copied into ``model`` in place, or into a new ``DecoderLM`` on the
+    engine's device when ``model`` is None (then made resident as the
+    engine keeps it: ``PHubEngine.resident``); the optimizer slots are
+    rebuilt on the engine's device.  Everything is
     checked before anything is written.  ``membership``: the restoring
     rack's Membership; a snapshot that records the same world at another
     epoch fails fast (the worker set churned between save and restore).
@@ -385,16 +420,17 @@ def restore_train_state(directory: str, engine, step: int | None = None,
     params, opt = tree["params"], tree.get("opt", {})
     if engine is None:
         return step, params, opt
-    loaded = _params_from(engine, params)
+    params = _params_from(engine, params)
     new_opt = _opt_from(engine, opt, step)
     if model is None:
         model = DecoderLM(engine.cfg, device=engine.device,
                           params=_to_device(params, engine.device))
     else:
+        loaded = dict(leaf_paths(params))
         with torch.no_grad():
             for path, leaf in leaf_paths(model.param_tree()):
                 leaf.copy_(loaded[path])
-    return step, model, new_opt
+    return step, engine.resident(model), new_opt
 
 
 def restore_latest_valid(directory: str, engine, membership=None,

@@ -3,12 +3,13 @@
 ``ModelConfig`` is the reference's (``repro/configs/base.py``) field for
 field, so one architecture means the same widths in both packages.
 ``TrainConfig`` keeps only the fields this port implements: the
-sharded_ps exchange with one window, tree residency, the three rules of
-the sharded-optimizer protocol (Nesterov, SGD, Adam) without weight decay,
-whose fused aggregate+update always runs through the rule's CUDA kernel
-(the reference's ``use_pallas``/``fused_agg_opt`` switches have no
-counterpart), and the wire format of the exchange.  The reference's other
-knobs (the DCN tier's wire, pipeline windows, flat residency,
+sharded_ps exchange, the three rules of the sharded-optimizer protocol
+(Nesterov, SGD, Adam) without weight decay, whose fused aggregate+update
+always runs through the rule's CUDA kernel (the reference's
+``use_pallas``/``fused_agg_opt`` switches have no counterpart), the wire
+format of the exchange, and the gradient processing pipeline's windows,
+chunk-ready dispatch and flat parameter residency (an encoded wire takes
+one window only).  The reference's other knobs (the DCN tier's wire,
 microbatching, the other strategies, weight decay, ``grad_clip``) are
 queued in ROADMAP.md and are not fields here, so a config cannot ask for
 them and be silently ignored.
@@ -106,11 +107,32 @@ class TrainConfig:
     adam_eps: float = 1e-8
 
     # --- PHub exchange (the paper's contribution) ---
-    strategy: str = "sharded_ps"      # the other strategies: ROADMAP A7
+    strategy: str = "sharded_ps"      # the other strategies: ROADMAP A5
     chunk_size_bytes: int = 32 * 1024 # paper default: 32 KB (§3.2.3)
     # the dtype a chunk travels in (core/wire.py): identity | bf16 | f16 |
     # int8; a non-identity wire adds the f32 ``wire_ef`` slot
     wire_format: str = "identity"
+
+    # --- gradient processing pipeline (§3.2, DESIGN.md §8) ---
+    pipeline_windows: int = 1         # split each dtype group's chunk domain
+                                      # into this many windows: window w's
+                                      # ring reduce-scatter overlaps window
+                                      # w-1's fused agg+opt (1 = monolithic
+                                      # collectives, today's behavior);
+                                      # sharded_ps / hierarchical only
+    overlap_backward: bool = False    # chunk-ready dispatch (DESIGN.md §14):
+                                      # each window's reduce-scatter depends
+                                      # only on the cotangents of the leaves
+                                      # it covers, so XLA can start window
+                                      # rings while the rest of the backward
+                                      # is still running; sharded_ps /
+                                      # hierarchical, single model shard
+    flat_residency: bool = False      # params live as flat chunk-domain
+                                      # vectors across steps: the forward
+                                      # pass consumes per-leaf slice views
+                                      # and the train step donates the flat
+                                      # store, eliminating the per-step
+                                      # flatten/unflatten round trip
 
     # --- memory policy ---
     remat: bool = True                # activation checkpointing on blocks

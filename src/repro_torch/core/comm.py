@@ -6,7 +6,7 @@ The reference runs one worker per device and names them by mesh axes
 card the port stacks the workers instead: ``StackedComm`` holds W workers
 as dim 0 of one tensor, and a reduce-scatter is a sum over that dim.  The
 ``torch.distributed`` backend (gloo on the CPU, NCCL across cards) is the
-open part of ROADMAP.md queue A items 1 and 4.
+open part of ROADMAP.md queue A item 4.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ class StackedComm:
             return 1
         raise NotImplementedError(
             f"strategy {strategy!r} has no stacked-worker layout yet "
-            f"(ROADMAP.md queue A item 7)")
+            f"(ROADMAP.md queue A item 5)")
 
     def state_len(self, strategy: str, padded: int) -> int:
         """Optimizer-state length per shard."""

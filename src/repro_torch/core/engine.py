@@ -23,6 +23,27 @@ the pull's parameter delta is encoded, and the parameters written back are
 p plus the decoded delta; the optimizer state then has one more slot,
 ``wire_ef``, last.
 
+PHub's gradient processing pipeline (``TrainConfig``'s
+``pipeline_windows``, ``flat_residency``, ``overlap_backward``; the
+identity wire's, ``core/pipeline.py``):
+- windows: step 2 runs window by window (one launch per window and shard,
+  the strips read in place in the stacked buffer) when the group has more
+  than one effective window, else the monolithic exchange, unchanged;
+- flat residency: the parameters are views of a flat store
+  ``{dtype_name: (1, padded)}`` (``DecoderLM.flat_store``, made by
+  ``resident``); the exchange takes the store as p, and the kernel's new
+  p' becomes the next store, the parameters re-pointed at its views: no
+  flatten before the exchange, no write-back after it;
+- chunk-ready dispatch: workers 0..W-2 fill their rows as in step 1; the
+  last worker's gradients are copied into its row leaf by leaf from
+  autograd hooks as its backward produces them, and each window's update
+  goes on a side CUDA stream once every leaf that meets its strips has
+  arrived (``pipeline.ChunkReadyExchange``).  The sanity gate's verdict
+  needs the whole backward, and a membership that excludes the last
+  worker needs its row zeroed, so both dispatch after the backward.
+Every mode runs the same arithmetic per element, so all of them equal the
+monolithic tree-resident step bitwise.
+
 The reported loss is the mean over the workers, as the reference's
 ``pmean``.
 
@@ -36,15 +57,14 @@ of squares (``health_chunks``, one launch per dtype group); marks a worker
 ok when the sum is finite and its root within ``norm_hi`` (and the
 membership counts it); zeroes a bad row (where-semantics: 0 * NaN would be
 NaN); and divides the mean by ``max(ok count, 1)``, kept on the card, so
-the step needs no host sync.  Both run over the identity wire only.  Tree
-residency and one window only; the reference's flat residency, windows
-and the DCN wire are queued in ROADMAP.md.
+the step needs no host sync.  Both run over the identity wire only
+(ROADMAP.md queue A item 3).
 
 Serving (``make_prefill_step``, ``make_serve_step``) runs the model's
 prefill and decode forwards on one card, for every ported family; the
 launcher builds the engine with ``StackedComm(1)``.  The attention-free
-(ssm) family is served only: its training step raises until B8 has a
-backward kernel.
+(ssm) family is served only: its training step raises until it trains
+through autograd of the chunked form (ROADMAP.md queue A item 1).
 """
 from __future__ import annotations
 
@@ -58,26 +78,31 @@ from ..models import DecoderLM, chunked_cross_entropy, param_specs
 from ..optim.protocol import make_sharded_optimizer
 from . import chunking
 from .comm import StackedComm
-from .exchange import check_strategy, check_wire, exchange_group
-from .pipeline import run_wire_exchange
+from .exchange import check_strategy, check_wire
+from .pipeline import (check_pipeline, run_chunk_ready_exchange,
+                       run_exchange, run_wire_exchange)
 from .wire import WIRE_EF_SLOT, exchange_extra_slots, make_wire_format
 
 
 class PHubEngine:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, comm: StackedComm,
                  *, device="cuda"):
+        self.wire = make_wire_format(tc)
+        check_pipeline(tc, self.wire)
         check_strategy(tc.strategy)
         self.cfg, self.tc, self.comm = cfg, tc, comm
         self.device = torch.device(device)
         self.sopt = make_sharded_optimizer(tc)
-        self.wire = make_wire_format(tc)
         check_wire(tc.strategy, self.wire)
         self.exchange_slots = (self.sopt.slots
                                + exchange_extra_slots(self.wire))
         self.chunk_plan = chunking.build_plan(
             param_specs(cfg), chunk_bytes=tc.chunk_size_bytes,
             n_shards=comm.n_shards(tc.strategy))
+        self.store_layout = chunking.build_store_layout(self.chunk_plan, {},
+                                                        1)
         self._gbuf = None
+        self._side = None
 
     # ------------------------------------------------------------------ state
 
@@ -96,15 +121,66 @@ class PHubEngine:
                 for g in self.chunk_plan.groups}
 
     def init_model(self, seed: int | None = None) -> DecoderLM:
-        """Fresh weights drawn from ``seed`` (default ``tc.seed``)."""
+        """Fresh weights drawn from ``seed`` (default ``tc.seed``), resident
+        as the engine keeps them (``resident``)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.tc.seed if seed is None else seed)
-        return DecoderLM(self.cfg, device=self.device, generator=gen)
+        return self.resident(DecoderLM(self.cfg, device=self.device,
+                                       generator=gen))
 
     def init_state(self, seed: int | None = None):
         """(model, opt): fresh weights drawn from ``seed`` (default
         ``tc.seed``) and zero optimizer slots."""
         return self.init_model(seed), self.init_opt()
+
+    # --------------------------------------------------------- flat residency
+
+    def resident(self, model: DecoderLM) -> DecoderLM:
+        """The model as this engine trains it: under flat residency its
+        parameters are moved into a new flat store (one copy, the pad
+        zero) and become views of it; otherwise, or when they already
+        are, the model as it is."""
+        if self.tc.flat_residency and model.flat_store is None:
+            with torch.no_grad():
+                store = self.store_layout.from_tree(model.param_tree())
+            self._adopt_store(model, store)
+        return model
+
+    def _adopt_store(self, model: DecoderLM, store: dict) -> None:
+        """Re-point every parameter at its view of ``store``."""
+        views = dict(chunking.leaf_paths(
+            self.store_layout.to_tree(store, model.param_tree())))
+        with torch.no_grad():
+            for path, param in chunking.leaf_paths(model.param_tree()):
+                param.data = views[path]
+        model.flat_store = store
+
+    def _flat_params(self, model: DecoderLM) -> dict:
+        """{dtype_name: (padded,)} parameters for the exchange: the store's
+        row under flat residency, a fresh flatten of the tree otherwise."""
+        if not self.tc.flat_residency:
+            with torch.no_grad():
+                return chunking.flatten_groups(self.chunk_plan,
+                                               model.param_tree())
+        if model.flat_store is None:
+            raise ValueError("flat_residency: the model's parameters are not "
+                             "views of a flat store; pass it through "
+                             "PHubEngine.resident first")
+        return {k: v[0] for k, v in model.flat_store.items()}
+
+    def _write_params(self, model: DecoderLM, new_p: dict) -> None:
+        """The exchange's new parameters into the model: the next store
+        under flat residency, copied into the leaves otherwise."""
+        if self.tc.flat_residency:
+            self._adopt_store(model, {k: v.view(1, -1)
+                                      for k, v in new_p.items()})
+            return
+        leaves = dict(chunking.leaf_paths(model.param_tree()))
+        with torch.no_grad():
+            for g in self.chunk_plan.groups:
+                for path, new in chunking.group_leaves(
+                        g, new_p.pop(g.key)).items():
+                    leaves[path].copy_(new)
 
     # ------------------------------------------------------------ train step
 
@@ -114,10 +190,10 @@ class PHubEngine:
         builds its loss here first)."""
         if self.cfg.attn_free:
             raise NotImplementedError(
-                f"{self.cfg.arch_id}: training the ssm family needs the "
-                f"backward of rwkv_scan_kernel (B8), which is not written "
-                f"yet (ROADMAP.md queue A item 1: rwkv6-3b training); it "
-                f"can be served")
+                f"{self.cfg.arch_id}: training the ssm family is not ported "
+                f"yet (ROADMAP.md queue A item 1: rwkv6-3b training through "
+                f"autograd of the chunked form, as the reference trains it "
+                f"without Pallas); it can be served")
         tc = self.tc
 
         def loss_fn(model: DecoderLM, tokens, labels):
@@ -144,13 +220,23 @@ class PHubEngine:
     def grad_buffers(self) -> dict:
         """The stacked gradient buffers {dtype_name: (W, padded)}, allocated
         once and shared by every step function of this engine (a step of
-        another membership reuses them)."""
+        another membership reuses them); the chunk-ready windows read
+        their strips in place."""
         if self._gbuf is None:
             W = self.comm.n_workers
             self._gbuf = {g.key: torch.zeros((W, g.padded), dtype=g.dtype,
                                              device=self.device)
                           for g in self.chunk_plan.groups}
         return self._gbuf
+
+    def side_stream(self):
+        """The CUDA stream the chunk-ready windows run on (one per engine),
+        or None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=self.device)
+        return self._side
 
     def elastic_mask(self, membership):
         """(mask, n_live) for an elastic membership, or (None, None) on
@@ -207,43 +293,91 @@ class PHubEngine:
             v.masked_fill_(bad, 0)
         return okf, norms, okf.sum().clamp_min(1.0)
 
-    def exchange_stage(self, gbuf: dict, model: DecoderLM, opt: dict,
-                       n_live=None):
-        """Flatten the parameters into the chunk domain, run the exchange
-        per dtype group on the stacked gradients ``gbuf`` ({dtype_name:
-        (W, padded)}), and write the new parameters back into ``model``.
-        ``n_live`` (a number or a 0-dim tensor on the card) divides the
-        worker sum instead of W.  Returns the new optimizer state.  A rule
-        whose kernel updates its slots in place (Adam) returns the tensors
-        of ``opt`` themselves: four model-sized vectors that are never
-        allocated twice."""
+    def exchange_stage(self, gbuf: dict, flats_p: dict, opt: dict,
+                       n_live=None, ready=None):
+        """Run the exchange per dtype group on the stacked gradients
+        ``gbuf`` ({dtype_name: (W, padded)}) and the flat parameters
+        ``flats_p`` ({dtype_name: (padded,)}, consumed).  ``n_live`` (a
+        number or a 0-dim tensor on the card) divides the worker sum
+        instead of W.  ``ready``: {dtype_name: ChunkReadyExchange} of the
+        groups whose windows were dispatched during the backward; they are
+        finished here.  Returns ({dtype_name: p'}, the new optimizer
+        state).  A rule whose kernel updates its slots in place (Adam, and
+        every rule in windows) returns the tensors of ``opt`` themselves."""
         cp = self.chunk_plan
-        leaves = dict(chunking.leaf_paths(model.param_tree()))
         names = self.sopt.slot_names
         encoded = self.wire.error_feedback
-        new_opt = {}
+        new_p, new_opt = {}, {}
         with torch.no_grad():
-            flats_p = chunking.flatten_leaves(cp, leaves)
             for g in cp.groups:
                 slots = tuple(opt[g.key][n].view(-1) for n in names)
-                if encoded:
+                p = flats_p.pop(g.key)
+                if ready and g.key in ready:
+                    p2, s2 = ready[g.key].finish()
+                elif encoded:
                     p2, s2, r2 = run_wire_exchange(
-                        self.tc.strategy, self.comm, gbuf[g.key],
-                        flats_p.pop(g.key), slots, self.update_fn(g), g,
-                        self.wire, opt[g.key][WIRE_EF_SLOT].view(-1),
+                        self.tc.strategy, self.comm, gbuf[g.key], p, slots,
+                        self.update_fn(g), g, self.wire,
+                        opt[g.key][WIRE_EF_SLOT].view(-1),
                         self.fused_dequant(g))
                 else:
-                    p2, s2 = exchange_group(self.comm, gbuf[g.key],
-                                            flats_p.pop(g.key), slots,
-                                            self.update_fn(g), n_live)
+                    p2, s2 = run_exchange(self.tc.strategy, self.comm,
+                                          gbuf[g.key], p, slots,
+                                          self.update_fn(g), g,
+                                          self.tc.pipeline_windows, n_live)
+                del p
+                new_p[g.key] = p2
                 new_opt[g.key] = {n: v.view(opt[g.key][n].shape)
                                   for n, v in zip(names, s2)}
                 if encoded:
                     new_opt[g.key][WIRE_EF_SLOT] = r2.view(
                         opt[g.key][WIRE_EF_SLOT].shape)
-                for path, new in chunking.group_leaves(g, p2).items():
-                    leaves[path].copy_(new)
-        return new_opt
+        return new_p, new_opt
+
+    def _chunk_ready_backward(self, loss, paths, leaves, gbuf, flats_p, opt,
+                              n_live) -> dict:
+        """The last worker's backward with chunk-ready dispatch: each
+        leaf's gradient is copied into the last row of its group's buffer
+        from an autograd hook as the backward produces it (in the
+        backward's stream), and each window with more than one effective
+        window starts once its leaves are in.  Returns {dtype_name:
+        ChunkReadyExchange} for ``exchange_stage``; a group with one
+        effective window is not in it and exchanges after the backward."""
+        last = self.comm.n_workers - 1
+        names = self.sopt.slot_names
+        ready, where = {}, {}
+        for g in self.chunk_plan.groups:
+            row = gbuf[g.key][last]
+            row[g.total:].zero_()
+            slots = tuple(opt[g.key][n].view(-1) for n in names)
+            ex = run_chunk_ready_exchange(
+                self.tc.strategy, self.comm, gbuf[g.key], flats_p[g.key],
+                slots, self.update_fn(g), g, self.tc.pipeline_windows,
+                n_live, self.side_stream())
+            if ex is not None:
+                ready[g.key] = ex
+            for i, (path, off) in enumerate(zip(
+                    g.paths, self.store_layout.offsets[g.key])):
+                where[path] = (row, off, i, ex)
+
+        def hook(path):
+            row, off, i, ex = where[path]
+
+            def copy_in(grad):
+                row[off:off + grad.numel()].copy_(grad.reshape(-1))
+                if ex is not None:
+                    ex.leaf_ready(i)
+            return copy_in
+
+        handles = [leaf.register_hook(hook(path))
+                   for path, leaf in zip(paths, leaves)]
+        try:
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for h in handles:
+                h.remove()
+        del grads
+        return ready
 
     def make_train_step(self, membership=None, sanity=None):
         """``step(model, opt, batch) -> (model, opt, metrics)``, or with
@@ -253,8 +387,10 @@ class PHubEngine:
         factors; its metrics add ``ok_mask`` and ``grad_norms`` (W,) and
         ``n_live``.  ``membership``: an elastic ``Membership`` whose
         excluded workers' pushes are masked.  The model is updated in
-        place (saves a second copy of the weights); ``opt`` is replaced.
-        The steps share the engine's (W, padded) gradient buffers."""
+        place (saves a second copy of the weights; under flat residency
+        its parameters are re-pointed at the new store); ``opt`` is
+        replaced.  The steps share the engine's (W, padded) gradient
+        buffers."""
         W = self.comm.n_workers
         cp = self.chunk_plan
         loss_fn = self.build_loss_fn()
@@ -270,8 +406,13 @@ class PHubEngine:
             raise NotImplementedError(
                 f"elastic membership and the sanity gate over the "
                 f"{self.wire.name!r} wire are not ported yet: the int8 "
-                f"tail kernel takes 1/N by value (ROADMAP.md queue A items "
-                f"13 and 14)")
+                f"tail kernel takes 1/N by value (ROADMAP.md queue A item "
+                f"3)")
+        # chunk-ready dispatch needs the last worker's push to join as it
+        # is: the gate judges the whole backward, and an excluded worker's
+        # row must stay zero
+        chunk_ready = (self.tc.overlap_backward and sanity is None
+                       and (mask is None or mask[-1] == 1))
         gbuf = self.grad_buffers()
 
         def step(model: DecoderLM, opt: dict, batch: dict, health=None):
@@ -283,7 +424,7 @@ class PHubEngine:
             bw = B // W
             paths, leaves = zip(*chunking.leaf_paths(model.param_tree()))
             losses = []
-            for w in range(W):
+            for w in range(W - 1 if chunk_ready else W):
                 sl = slice(w * bw, (w + 1) * bw)
                 loss = loss_fn(model, tokens[sl], labels[sl])
                 grads = torch.autograd.grad(loss, leaves)
@@ -291,15 +432,26 @@ class PHubEngine:
                                         out={k: v[w] for k, v in gbuf.items()})
                 del grads
                 losses.append(loss.detach())
-            metrics = {"loss": torch.stack(losses).mean()}
             n_live = divisor
+            metrics = {}
             if sanity is not None:
                 ok, norms, n_live = self.sanity_gate(gbuf, health, sanity,
                                                      mask_t)
                 metrics.update(ok_mask=ok, grad_norms=norms, n_live=n_live)
             elif mask is not None:
                 self._masked_grads(gbuf, mask)
-            new_opt = self.exchange_stage(gbuf, model, opt, n_live)
+            flats_p = self._flat_params(model)
+            ready = None
+            if chunk_ready:
+                sl = slice((W - 1) * bw, W * bw)
+                loss = loss_fn(model, tokens[sl], labels[sl])
+                ready = self._chunk_ready_backward(loss, paths, leaves, gbuf,
+                                                   flats_p, opt, n_live)
+                losses.append(loss.detach())
+            metrics["loss"] = torch.stack(losses).mean()
+            new_p, new_opt = self.exchange_stage(gbuf, flats_p, opt, n_live,
+                                                 ready)
+            self._write_params(model, new_p)
             return model, new_opt, metrics
 
         return step

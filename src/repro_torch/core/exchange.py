@@ -5,8 +5,10 @@ reduce-scatter, the fused agg+opt on the chunks each shard owns, and the
 all-gather of the updated chunks.  On one card the W workers' gradients
 are the rows of one ``(W, padded)`` tensor and every shard lives there
 too, so the three steps collapse into one pass over the whole domain.
-The other strategies are ROADMAP.md queue A item 7.  This is the identity
-wire's path; an encoded wire takes ``core/pipeline.py::run_wire_exchange``.
+The other strategies are ROADMAP.md queue A item 5.  This is the identity
+wire's path at one window (``core/pipeline.py::run_exchange`` dispatches
+here or to the windowed exchange); an encoded wire takes
+``core/pipeline.py::run_wire_exchange``.
 """
 from __future__ import annotations
 
@@ -15,14 +17,15 @@ from typing import Callable
 import torch
 
 from .comm import StackedComm
-from .pipeline import PIPELINED_STRATEGIES
+from .pipeline import PIPELINED_STRATEGIES, check_stacked, mean_divisor
 
 STRATEGIES = ("allreduce", "sharded_ps", "centralized_ps", "hierarchical",
               "fsdp_stream")
 
-# update_fn(p, g, slots, divisor=None) -> (p', slots'): the protocol's fused
-# rule, taking g pre-aggregated or stacked (W, n), the stacked mean divided
-# by W or by a one-element f32 tensor on the card (optim/protocol.py)
+# update_fn(p, g, slots, divisor=None, p_out=None) -> (p', slots'): the
+# protocol's fused rule, taking g pre-aggregated or stacked (W, n), the
+# stacked mean divided by W or by a one-element f32 tensor on the card
+# (optim/protocol.py)
 UpdateFn = Callable[..., tuple[torch.Tensor, tuple]]
 
 
@@ -34,7 +37,7 @@ def check_strategy(strategy: str) -> None:
     if strategy != "sharded_ps":
         raise NotImplementedError(
             f"strategy {strategy!r} is not ported yet (ROADMAP.md queue A "
-            f"item 7)")
+            f"item 5)")
 
 
 def check_wire(strategy: str, wire) -> None:
@@ -61,11 +64,8 @@ def exchange_group(comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
     kernel on the card (the reference's ``psum_scatter(...) / N``).
     Returns (p', slots'); the rule may update ``slots`` in place and
     return them."""
-    W = comm.n_workers
-    if tuple(g.shape) != (W, p.numel()):
-        raise ValueError(f"g {tuple(g.shape)} is not (n_workers={W}, "
-                         f"{p.numel()})")
-    if W == 1:
+    check_stacked(comm, g, p)
+    if comm.n_workers == 1:
         # the reduce-scatter over one worker is the identity, and /1 (or
         # /max(n_live, 1) = /1) is exact: the reference's path into
         # agg_opt_chunks
@@ -75,5 +75,4 @@ def exchange_group(comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
     # (sum over workers, /W, update) passes of the reference
     if n_live is None:
         return update_fn(p, g, slots)
-    divisor = torch.as_tensor(n_live, dtype=torch.float32).to(g.device)
-    return update_fn(p, g, slots, divisor=divisor.reshape(1))
+    return update_fn(p, g, slots, divisor=mean_divisor(n_live, g.device))

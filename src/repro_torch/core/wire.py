@@ -16,7 +16,7 @@ slot ``wire_ef``, an f32 slot laid out as momentum and appended last.
 
 ``pack_words``/``unpack_words`` (the uint32 framing of payloads for
 collectives) wait for the ``torch.distributed`` backend, and the DCN tier's
-wire for the ``hierarchical`` strategy (ROADMAP.md queue A items 9 and 7).
+wire for the ``hierarchical`` strategy (ROADMAP.md queue A items 4 and 5).
 """
 from __future__ import annotations
 
@@ -130,5 +130,5 @@ def exchange_extra_slots(wire: WireFormat, wire_dcn=None
     if wire_dcn is not None:
         raise NotImplementedError(
             "a DCN-tier wire needs the 'hierarchical' strategy (ROADMAP.md "
-            "queue A item 7)")
+            "queue A item 5)")
     return wire.extra_slots()

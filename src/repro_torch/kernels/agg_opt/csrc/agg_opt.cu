@@ -77,6 +77,18 @@
 // shared memory the same way (by 4, 2, 1).  NaN and Inf propagate: nothing
 // is clamped or skipped, and a square that overflows is +Inf.
 //
+// The four update kernels take n, the elements of a row, and run
+// ceil(n / chunk_elems) blocks: the last chunk may be ragged, and its
+// elements past n are neither read nor written (a partial 4-vector goes
+// element by element), so no input is padded.  The stacked gradient's
+// rows lie g_row_stride elements apart: the whole (W, n) buffer
+// (stride n), or a window of it read in place, the strip [a, a + n) of
+// each row of the (W, padded) buffer (stride padded), as the windowed and
+// chunk-ready exchanges hand it (core/pipeline.py); every row must start
+// 16 bytes aligned.  Nesterov's m_out may be m itself (the windowed
+// exchange updates m in place, as Adam updates its slots): each thread
+// reads an element before it writes the same one.
+//
 // Launches on the caller's stream and allocates nothing.  Each entry point
 // returns cudaGetLastError() so the caller sees a refused launch.
 
@@ -115,23 +127,64 @@ __device__ __forceinline__ void store4(__nv_bfloat16* ptr, const float v[4]) {
   *reinterpret_cast<uint2*>(ptr) = t;
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void from_float(float* ptr, float x) { *ptr = x; }
+__device__ __forceinline__ void from_float(__nv_bfloat16* ptr, float x) {
+  *ptr = __float2bfloat16_rn(x);
+}
+
+// The 4 elements at ptr, or the first cnt of them (the ragged end of a
+// row; the others read as 0 and are never stored).
+template <typename X>
+__device__ __forceinline__ void load4(const X* ptr, float v[4], int cnt) {
+  if (cnt >= kVec) {
+    load4(ptr, v);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) v[k] = k < cnt ? to_float(ptr[k]) : 0.0f;
+}
+
+template <typename X>
+__device__ __forceinline__ void store4(X* ptr, const float v[4], int cnt) {
+  if (cnt >= kVec) {
+    store4(ptr, v);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kVec; ++k)
+    if (k < cnt) from_float(ptr + k, v[k]);
+}
+
+// Elements of this block's chunk that lie in the row (n of them): the whole
+// chunk but for the last block of a ragged row.
+__device__ __forceinline__ int chunk_valid(int64_t base, int64_t n,
+                                           int chunk_elems) {
+  const int64_t rest = n - base;
+  return rest < chunk_elems ? static_cast<int>(rest) : chunk_elems;
+}
+
 // The mean's divisor: W, or the live count the caller keeps on the card.
 __device__ __forceinline__ float mean_divisor(const float* divisor,
                                               int n_workers) {
   return divisor != nullptr ? *divisor : static_cast<float>(n_workers);
 }
 
-// g = (g_0 + ... + g_{W-1}) / d for the 4 elements at off, in worker order.
+// g = (g_0 + ... + g_{W-1}) / d for the 4 elements at off (the first cnt
+// of them), in worker order; worker w's row starts at g + w * row_stride.
 template <typename G>
 __device__ __forceinline__ void worker_mean4(const G* __restrict__ g,
                                              int64_t off,
-                                             int64_t worker_stride,
+                                             int64_t row_stride,
                                              int n_workers, float d,
-                                             float acc[4]) {
+                                             float acc[4], int cnt) {
   float gw[4];
-  load4(g + off, acc);
+  load4(g + off, acc, cnt);
   for (int w = 1; w < n_workers; ++w) {
-    load4(g + w * worker_stride + off, gw);
+    load4(g + w * row_stride + off, gw, cnt);
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[k] = __fadd_rn(acc[k], gw[k]);
   }
@@ -152,69 +205,77 @@ __device__ __forceinline__ void nesterov4(float pv[4], float mv[4],
   }
 }
 
-// p, m, p_out, m_out: (n_chunks, chunk_elems); g: (n_workers, n_chunks,
-// chunk_elems), worker w at g + w * n_chunks * chunk_elems.
+// p, m, p_out, m_out: (n,) in chunks of chunk_elems; g: n_workers rows of
+// n, row w at g + w * row_stride.  m_out may be m (not __restrict__).
 template <typename T, typename G>
 __global__ void __launch_bounds__(kThreads)
 agg_opt_kernel(const T* __restrict__ p, const G* __restrict__ g,
-               const T* __restrict__ m, T* __restrict__ p_out,
-               T* __restrict__ m_out, int64_t worker_stride, int n_workers,
+               const T* m, T* __restrict__ p_out, T* m_out, int64_t n,
+               int64_t row_stride, int n_workers,
                const float* __restrict__ divisor, int chunk_elems, float lr,
                float mu) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
+  const int valid = chunk_valid(base, n, chunk_elems);
   const float d = mean_divisor(divisor, n_workers);
-  for (int i = threadIdx.x * kVec; i < chunk_elems; i += kThreads * kVec) {
+  for (int i = threadIdx.x * kVec; i < valid; i += kThreads * kVec) {
     const int64_t off = base + i;
+    const int cnt = valid - i;
     float gg[4], mv[4], pv[4];
-    worker_mean4(g, off, worker_stride, n_workers, d, gg);
-    load4(m + off, mv);
-    load4(p + off, pv);
+    worker_mean4(g, off, row_stride, n_workers, d, gg, cnt);
+    load4(m + off, mv, cnt);
+    load4(p + off, pv, cnt);
     nesterov4(pv, mv, gg, lr, mu);
-    store4(p_out + off, pv);
-    store4(m_out + off, mv);
+    store4(p_out + off, pv, cnt);
+    store4(m_out + off, mv, cnt);
   }
 }
 
-// p, p_out: (n_chunks, chunk_elems); g as for agg_opt_kernel.
+// p, p_out: (n,) in chunks of chunk_elems; g as for agg_opt_kernel.
 template <typename T, typename G>
 __global__ void __launch_bounds__(kThreads)
 sgd_opt_kernel(const T* __restrict__ p, const G* __restrict__ g,
-               T* __restrict__ p_out, int64_t worker_stride, int n_workers,
-               const float* __restrict__ divisor, int chunk_elems, float lr) {
+               T* __restrict__ p_out, int64_t n, int64_t row_stride,
+               int n_workers, const float* __restrict__ divisor,
+               int chunk_elems, float lr) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
+  const int valid = chunk_valid(base, n, chunk_elems);
   const float d = mean_divisor(divisor, n_workers);
-  for (int i = threadIdx.x * kVec; i < chunk_elems; i += kThreads * kVec) {
+  for (int i = threadIdx.x * kVec; i < valid; i += kThreads * kVec) {
     const int64_t off = base + i;
+    const int cnt = valid - i;
     float gg[4], pv[4];
-    worker_mean4(g, off, worker_stride, n_workers, d, gg);
-    load4(p + off, pv);
+    worker_mean4(g, off, row_stride, n_workers, d, gg, cnt);
+    load4(p + off, pv, cnt);
 #pragma unroll
     for (int k = 0; k < 4; ++k) pv[k] = __fsub_rn(pv[k], __fmul_rn(lr, gg[k]));
-    store4(p_out + off, pv);
+    store4(p_out + off, pv, cnt);
   }
 }
 
-// p, p_out, m, v: (n_chunks, chunk_elems) of T; k1, k2 the same shape in
-// f32; m, v, k1, k2 are read and overwritten in place.
+// p, p_out, m, v: (n,) of T in chunks of chunk_elems; k1, k2 the same in
+// f32; m, v, k1, k2 are read and overwritten in place; g as for
+// agg_opt_kernel.
 template <typename T, typename G>
 __global__ void __launch_bounds__(kThreads)
 adam_opt_kernel(const T* __restrict__ p, const G* __restrict__ g,
                 T* __restrict__ m, T* __restrict__ v, float* __restrict__ k1,
-                float* __restrict__ k2, T* __restrict__ p_out,
-                int64_t worker_stride, int n_workers,
+                float* __restrict__ k2, T* __restrict__ p_out, int64_t n,
+                int64_t row_stride, int n_workers,
                 const float* __restrict__ divisor, int chunk_elems, float lr,
                 float b1, float c1, float b2, float c2, float eps) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
+  const int valid = chunk_valid(base, n, chunk_elems);
   const float d = mean_divisor(divisor, n_workers);
-  for (int i = threadIdx.x * kVec; i < chunk_elems; i += kThreads * kVec) {
+  for (int i = threadIdx.x * kVec; i < valid; i += kThreads * kVec) {
     const int64_t off = base + i;
+    const int cnt = valid - i;
     float gg[4], pv[4], mv[4], vv[4], k1v[4], k2v[4];
-    worker_mean4(g, off, worker_stride, n_workers, d, gg);
-    load4(m + off, mv);
-    load4(v + off, vv);
-    load4(k1 + off, k1v);
-    load4(k2 + off, k2v);
-    load4(p + off, pv);
+    worker_mean4(g, off, row_stride, n_workers, d, gg, cnt);
+    load4(m + off, mv, cnt);
+    load4(v + off, vv, cnt);
+    load4(k1 + off, k1v, cnt);
+    load4(k2 + off, k2v, cnt);
+    load4(p + off, pv, cnt);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const bool alive = (gg[k] != 0.0f) || (k1v[k] != 0.0f);
@@ -234,11 +295,11 @@ adam_opt_kernel(const T* __restrict__ p, const G* __restrict__ g,
       k1v[k] = k1n;
       k2v[k] = k2n;
     }
-    store4(p_out + off, pv);
-    store4(m + off, mv);
-    store4(v + off, vv);
-    store4(k1 + off, k1v);
-    store4(k2 + off, k2v);
+    store4(p_out + off, pv, cnt);
+    store4(m + off, mv, cnt);
+    store4(v + off, vv, cnt);
+    store4(k1 + off, k1v, cnt);
+    store4(k2 + off, k2v, cnt);
   }
 }
 
@@ -326,19 +387,23 @@ int with_dtypes(int dtype, F f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Blocks for n elements in chunks of chunk_elems (the last may be ragged).
+unsigned n_blocks(long long n, int chunk_elems) {
+  return static_cast<unsigned>((n + chunk_elems - 1) / chunk_elems);
+}
+
 int dispatch(const void* p, const void* g, const void* m, void* p_out,
-             void* m_out, long long n_chunks, int chunk_elems, int n_workers,
-             int dtype, float lr, float mu, const void* divisor,
-             void* stream) {
+             void* m_out, long long n, int chunk_elems, int n_workers,
+             long long g_row_stride, int dtype, float lr, float mu,
+             const void* divisor, void* stream) {
   return with_dtypes(dtype, [&](auto tt, auto tg) {
     using T = typename decltype(tt)::type;
     using G = typename decltype(tg)::type;
-    const int64_t stride = static_cast<int64_t>(n_chunks) * chunk_elems;
-    agg_opt_kernel<T, G><<<static_cast<unsigned>(n_chunks), kThreads, 0,
+    agg_opt_kernel<T, G><<<n_blocks(n, chunk_elems), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(p), static_cast<const G*>(g),
         static_cast<const T*>(m), static_cast<T*>(p_out),
-        static_cast<T*>(m_out), stride, n_workers,
+        static_cast<T*>(m_out), n, g_row_stride, n_workers,
         static_cast<const float*>(divisor), chunk_elems, lr, mu);
     return static_cast<int>(cudaGetLastError());
   });
@@ -346,63 +411,64 @@ int dispatch(const void* p, const void* g, const void* m, void* p_out,
 
 }  // namespace
 
+// n: elements of p (and of each row of g); the wrapper has checked the
+// rest.  m_out may be m.
 extern "C" int agg_opt_chunks(const void* p, const void* g, const void* m,
-                              void* p_out, void* m_out, long long n_chunks,
+                              void* p_out, void* m_out, long long n,
                               int chunk_elems, int dtype, float lr, float mu,
                               void* stream) {
-  return dispatch(p, g, m, p_out, m_out, n_chunks, chunk_elems, 1, dtype, lr,
-                  mu, nullptr, stream);
+  return dispatch(p, g, m, p_out, m_out, n, chunk_elems, 1, n, dtype, lr, mu,
+                  nullptr, stream);
 }
 
-// divisor: null (divide by n_workers) or a device pointer to one f32, here
-// and in sgd_opt_chunks and adam_opt_chunks.
+// g_row_stride: elements from one worker's row of g to the next, here and
+// in sgd_opt_chunks and adam_opt_chunks.  divisor: null (divide by
+// n_workers) or a device pointer to one f32.
 extern "C" int multi_agg_opt_chunks(const void* p, const void* g,
                                     const void* m, void* p_out, void* m_out,
-                                    long long n_chunks, int chunk_elems,
-                                    int n_workers, int dtype, float lr,
-                                    float mu, const void* divisor,
-                                    void* stream) {
-  return dispatch(p, g, m, p_out, m_out, n_chunks, chunk_elems, n_workers,
-                  dtype, lr, mu, divisor, stream);
+                                    long long n, int chunk_elems,
+                                    int n_workers, long long g_row_stride,
+                                    int dtype, float lr, float mu,
+                                    const void* divisor, void* stream) {
+  return dispatch(p, g, m, p_out, m_out, n, chunk_elems, n_workers,
+                  g_row_stride, dtype, lr, mu, divisor, stream);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 for p, g (and Adam's m, v), 2 = a
 // bfloat16 p (m, v) with a float32 g; Adam's k1 and k2 are float32 always.
 // The wrapper has checked everything else.
 extern "C" int sgd_opt_chunks(const void* p, const void* g, void* p_out,
-                              long long n_chunks, int chunk_elems,
-                              int n_workers, int dtype, float lr,
+                              long long n, int chunk_elems, int n_workers,
+                              long long g_row_stride, int dtype, float lr,
                               const void* divisor, void* stream) {
   return with_dtypes(dtype, [&](auto tt, auto tg) {
     using T = typename decltype(tt)::type;
     using G = typename decltype(tg)::type;
-    const int64_t stride = static_cast<int64_t>(n_chunks) * chunk_elems;
-    sgd_opt_kernel<T, G><<<static_cast<unsigned>(n_chunks), kThreads, 0,
+    sgd_opt_kernel<T, G><<<n_blocks(n, chunk_elems), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(p), static_cast<const G*>(g),
-        static_cast<T*>(p_out), stride, n_workers,
+        static_cast<T*>(p_out), n, g_row_stride, n_workers,
         static_cast<const float*>(divisor), chunk_elems, lr);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
 extern "C" int adam_opt_chunks(const void* p, const void* g, void* m, void* v,
-                               void* k1, void* k2, void* p_out,
-                               long long n_chunks, int chunk_elems,
-                               int n_workers, int dtype, float lr, float b1,
-                               float c1, float b2, float c2, float eps,
-                               const void* divisor, void* stream) {
+                               void* k1, void* k2, void* p_out, long long n,
+                               int chunk_elems, int n_workers,
+                               long long g_row_stride, int dtype, float lr,
+                               float b1, float c1, float b2, float c2,
+                               float eps, const void* divisor, void* stream) {
   return with_dtypes(dtype, [&](auto tt, auto tg) {
     using T = typename decltype(tt)::type;
     using G = typename decltype(tg)::type;
-    const int64_t stride = static_cast<int64_t>(n_chunks) * chunk_elems;
-    adam_opt_kernel<T, G><<<static_cast<unsigned>(n_chunks), kThreads, 0,
+    adam_opt_kernel<T, G><<<n_blocks(n, chunk_elems), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(p), static_cast<const G*>(g),
         static_cast<T*>(m), static_cast<T*>(v), static_cast<float*>(k1),
-        static_cast<float*>(k2), static_cast<T*>(p_out), stride, n_workers,
-        static_cast<const float*>(divisor), chunk_elems, lr, b1, c1, b2, c2,
-        eps);
+        static_cast<float*>(k2), static_cast<T*>(p_out), n, g_row_stride,
+        n_workers, static_cast<const float*>(divisor), chunk_elems, lr, b1,
+        c1, b2, c2, eps);
     return static_cast<int>(cudaGetLastError());
   });
 }

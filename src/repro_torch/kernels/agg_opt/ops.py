@@ -12,10 +12,18 @@ squares); SGD and Adam take ``g`` pre-aggregated ``(n,)`` or stacked
 optional ``divisor``, a one-element f32 tensor on the card that the mean
 divides by instead of W (the live count of an elastic or gated step).  A
 bf16 group may hand the rules an f32 ``g`` (the int8 wire's decoded mean).
-Vectors are padded to whole chunks (chunk_elems rounded down to a multiple
-of 128, at least 128: the rules are elementwise, so the blocking does not
-change a bit) and handed to the kernel as (n_chunks, chunk_elems); the
-dequant kernel's chunk is the wire's own, since each carries one scale.
+The rules' kernels take the vectors as they are, in chunks of chunk_elems
+rounded down to a multiple of 128 (at least 128: the rules are
+elementwise, so the blocking does not change a bit), the last chunk
+possibly ragged.  A stacked ``g`` may be a view whose rows lie further
+apart than ``n`` (``g.stride(0)``, the row stride the kernels take): the
+windowed exchange hands a window's strip of the (W, padded) buffer in
+place.  Every row must start 16 bytes aligned; a contiguous ``g`` whose
+rows do not (n not a multiple of 16 bytes) is the one input still padded
+by a copy.  With ``p_out`` (the windowed exchange's form) the rules write
+p' there and update their slots in place.  The dequant and health
+kernels take whole chunks (zero-padded copies otherwise); the dequant
+kernel's chunk is the wire's own, since each carries one scale.
 
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
 the kernel, and a library that cannot be built or loaded raises.
@@ -59,11 +67,12 @@ def _lib() -> ctypes.CDLL:
         for name, args in (
                 ("agg_opt_chunks", [vp] * 5 + [i64, i32, i32, f32, f32, vp]),
                 ("multi_agg_opt_chunks",
-                 [vp] * 5 + [i64, i32, i32, i32, f32, f32, vp, vp]),
+                 [vp] * 5 + [i64, i32, i32, i64, i32, f32, f32, vp, vp]),
                 ("sgd_opt_chunks",
-                 [vp] * 3 + [i64, i32, i32, i32, f32, vp, vp]),
+                 [vp] * 3 + [i64, i32, i32, i64, i32, f32, vp, vp]),
                 ("adam_opt_chunks",
-                 [vp] * 7 + [i64, i32, i32, i32] + [f32] * 6 + [vp, vp]),
+                 [vp] * 7 + [i64, i32, i32, i64, i32] + [f32] * 6
+                 + [vp, vp]),
                 ("dequant_agg_opt_chunks",
                  [vp] * 7 + [i64, i32, i64, i64, i32] + [f32] * 3 + [vp]),
                 ("health_chunks", [vp] * 2 + [i64, i32, i32, vp])):
@@ -82,9 +91,10 @@ def _check_vec(name: str, t: torch.Tensor, p: torch.Tensor, dtype) -> None:
         raise ValueError(f"{name} is on {t.device}, p on {p.device}")
 
 
-def _check(p, g, state=(), f32_state=()) -> bool:
+def _check(p, g, state=(), f32_state=(), p_out=None) -> bool:
     """Check p (n,), g (n,) or (W, n) in p's dtype (or f32 in a bf16
-    group), the group-dtype state vectors and the f32 state vectors;
+    group; a stacked g's rows may lie any distance >= n apart), the
+    group-dtype state vectors, the f32 state vectors and ``p_out``;
     return whether g is stacked."""
     if p.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {p.device}")
@@ -93,13 +103,23 @@ def _check(p, g, state=(), f32_state=()) -> bool:
     _check_vec("p", p, p, p.dtype)
     if p.dim() != 1:
         raise ValueError(f"p must be a flat vector, got {tuple(p.shape)}")
-    _check_vec("g", g, p, torch.float32 if g.dtype == torch.float32
-               else p.dtype)
     stacked = g.dim() == 2
+    g_dtype = torch.float32 if g.dtype == torch.float32 else p.dtype
+    if stacked:
+        _check_vec("g", g[0], p, g_dtype)
+        if g.shape[0] > 1 and g.stride(0) < g.shape[1]:
+            raise ValueError(f"g's rows overlap: stride {g.stride()}")
+    else:
+        _check_vec("g", g, p, g_dtype)
     if (tuple(g.shape[1:] if stacked else g.shape) != tuple(p.shape)
             or g.shape[0] < 1):
         raise ValueError(f"g shape {tuple(g.shape)} is neither "
                          f"{tuple(p.shape)} nor (W, {p.numel()})")
+    if p_out is not None:
+        _check_vec("p_out", p_out, p, p.dtype)
+        if p_out.shape != p.shape:
+            raise ValueError(f"p_out {tuple(p_out.shape)} != p "
+                             f"{tuple(p.shape)}")
     for i, t in enumerate(state):
         _check_vec(f"state[{i}]", t, p, p.dtype)
     for i, t in enumerate(f32_state):
@@ -107,9 +127,10 @@ def _check(p, g, state=(), f32_state=()) -> bool:
     for t in (*state, *f32_state):
         if t.shape != p.shape:
             raise ValueError(f"state {tuple(t.shape)} != p {tuple(p.shape)}")
-    ptrs = [t.data_ptr() for t in (p, *state, *f32_state)]
+    ptrs = [t.data_ptr() for t in (p, *state, *f32_state)
+            + ((p_out,) if p_out is not None else ())]
     if len(set(ptrs)) != len(ptrs):
-        raise ValueError("p and the state vectors must not alias")
+        raise ValueError("p, p_out and the state vectors must not alias")
     return stacked
 
 
@@ -136,9 +157,33 @@ def _chunked(v: torch.Tensor, ce: int) -> torch.Tensor:
     if pad:
         v = F.pad(v, (0, pad))
     out = v.reshape(*v.shape[:-1], -1, ce)
-    if out.data_ptr() % 16:
-        raise ValueError("vector is not 16-byte aligned")
+    _check_aligned(out)
     return out
+
+
+def _check_aligned(v: torch.Tensor) -> None:
+    if v.data_ptr() % 16:
+        raise ValueError("vector is not 16-byte aligned")
+
+
+def _rows(g: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(g, row stride in elements) as the rules' kernels read it: a
+    stacked g in place, its rows ``g.stride(0)`` apart, each 16 bytes
+    aligned; a contiguous one whose rows are not is padded (a copy) to
+    rows of a multiple of 16 bytes.  A pre-aggregated g: stride n."""
+    _check_aligned(g)
+    if g.dim() == 1:
+        return g, g.numel()
+    W, n = g.shape
+    stride = g.stride(0) if W > 1 else n
+    if (stride * g.element_size()) % 16:
+        if not g.is_contiguous():
+            raise ValueError(f"the rows of g (stride {stride}) do not "
+                             f"start 16 bytes aligned")
+        per = 16 // g.element_size()
+        g = F.pad(g, (0, -(-n // per) * per - n))
+        stride = g.shape[1]
+    return g, stride
 
 
 def _lane(chunk_elems: int) -> int:
@@ -155,86 +200,105 @@ def _call(name: str, device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _launch(name: str, pc, gc, mc, lr: float, momentum: float,
-            n_workers: int, divisor_ptr=None):
-    nc, ce = pc.shape
-    p2, m2 = torch.empty_like(pc), torch.empty_like(mc)
-    args = [pc.data_ptr(), gc.data_ptr(), mc.data_ptr(), p2.data_ptr(),
-            m2.data_ptr(), nc, ce]
+def _nesterov(name: str, p, g, m, lr: float, momentum: float,
+              chunk_elems: int, divisor_ptr, p_out):
+    """Launch a Nesterov kernel; with ``p_out`` m is updated in place."""
+    for t in (p, m):
+        _check_aligned(t)
+    gk, stride = _rows(g)
+    if p_out is None:
+        p2, m2 = torch.empty_like(p), torch.empty_like(m)
+    else:
+        p2, m2 = p_out, m
+    args = [p.data_ptr(), gk.data_ptr(), m.data_ptr(), p2.data_ptr(),
+            m2.data_ptr(), p.numel(), _lane(chunk_elems)]
     if name == "multi_agg_opt_chunks":
-        args.append(n_workers)
-    args += [_DTYPE_CODE[pc.dtype, gc.dtype], lr, momentum]
+        args += [g.shape[0], stride]
+    args += [_DTYPE_CODE[p.dtype, g.dtype], lr, momentum]
     if name == "multi_agg_opt_chunks":
         args.append(divisor_ptr)
-    _call(name, pc.device, *args)
+    _call(name, p.device, *args)
     return p2, m2
 
 
+def _plain_nesterov(ref, p_out, m, *args, **kw):
+    """A plain Nesterov version's (p', m'), written into p_out and m when
+    ``p_out`` is given."""
+    p2, m2 = ref(*args, **kw)
+    if p_out is None:
+        return p2, m2
+    p_out.copy_(p2)
+    m.copy_(m2)
+    return p_out, m
+
+
 def fused_agg_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
-                  lr: float, momentum: float, chunk_elems: int = 8192):
-    """Flat fused Nesterov update. p/g/m: (n,). Returns (p', m')."""
-    if _check(p, g, (m,)):
+                  lr: float, momentum: float, chunk_elems: int = 8192,
+                  p_out: torch.Tensor | None = None):
+    """Flat fused Nesterov update. p/g/m: (n,). Returns (p', m'); with
+    ``p_out``, p' is written there and m updated in place."""
+    if _check(p, g, (m,), p_out=p_out):
         raise ValueError("fused_agg_opt takes a pre-aggregated g; stacked "
                          "workers go to fused_multi_agg_opt")
     if p.device.type == "cpu":
-        return agg_opt_ref(p, g, m, lr=lr, momentum=momentum)
-    ce = _lane(chunk_elems)
-    n = p.numel()
-    p2, m2 = _launch("agg_opt_chunks", _chunked(p, ce), _chunked(g, ce),
-                     _chunked(m, ce), lr, momentum, 1)
-    return p2.view(-1)[:n], m2.view(-1)[:n]
+        return _plain_nesterov(agg_opt_ref, p_out, m, p, g, m, lr=lr,
+                               momentum=momentum)
+    return _nesterov("agg_opt_chunks", p, g, m, lr, momentum, chunk_elems,
+                     None, p_out)
 
 
 def fused_multi_agg_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
                         lr: float, momentum: float, chunk_elems: int = 8192,
-                        divisor: torch.Tensor | None = None):
-    """Tall aggregation: g is (W, n) worker gradients; the worker mean (over
-    W, or ``divisor``) and the Nesterov update run in one pass per chunk.
-    Returns (p', m')."""
-    if not _check(p, g, (m,)):
+                        divisor: torch.Tensor | None = None,
+                        p_out: torch.Tensor | None = None):
+    """Tall aggregation: g is (W, n) worker gradients, its rows
+    ``g.stride(0)`` apart; the worker mean (over W, or ``divisor``) and the
+    Nesterov update run in one pass per chunk.  Returns (p', m'); with
+    ``p_out``, p' is written there and m updated in place."""
+    if not _check(p, g, (m,), p_out=p_out):
         raise ValueError(f"g must be (W, n), got {tuple(g.shape)}")
     dptr = _divisor_ptr(divisor, p, True)
     if p.device.type == "cpu":
-        return multi_agg_opt_ref(p, g, m, lr=lr, momentum=momentum,
-                                 divisor=divisor)
-    ce = _lane(chunk_elems)
-    n = p.numel()
-    p2, m2 = _launch("multi_agg_opt_chunks", _chunked(p, ce),
-                     _chunked(g, ce), _chunked(m, ce), lr, momentum,
-                     g.shape[0], dptr)
-    return p2.view(-1)[:n], m2.view(-1)[:n]
+        return _plain_nesterov(multi_agg_opt_ref, p_out, m, p, g, m, lr=lr,
+                               momentum=momentum, divisor=divisor)
+    return _nesterov("multi_agg_opt_chunks", p, g, m, lr, momentum,
+                     chunk_elems, dptr, p_out)
 
 
 def fused_sgd_opt(p: torch.Tensor, g: torch.Tensor, *, lr: float,
                   chunk_elems: int = 8192,
-                  divisor: torch.Tensor | None = None) -> torch.Tensor:
-    """Flat fused SGD update; g is (n,) or stacked (W, n), averaged over
-    the workers (divided by W, or ``divisor``) in the same pass.
-    Returns p'."""
-    stacked = _check(p, g)
+                  divisor: torch.Tensor | None = None,
+                  p_out: torch.Tensor | None = None) -> torch.Tensor:
+    """Flat fused SGD update; g is (n,) or stacked (W, n) (rows
+    ``g.stride(0)`` apart), averaged over the workers (divided by W, or
+    ``divisor``) in the same pass.  Returns p' (``p_out`` when given)."""
+    stacked = _check(p, g, p_out=p_out)
     dptr = _divisor_ptr(divisor, p, stacked)
     if p.device.type == "cpu":
-        return sgd_opt_ref(p, g, lr=lr, divisor=divisor)
-    ce = _lane(chunk_elems)
-    n = p.numel()
-    pc, gc = _chunked(p, ce), _chunked(g, ce)
-    p2 = torch.empty_like(pc)
-    _call("sgd_opt_chunks", p.device, pc.data_ptr(), gc.data_ptr(),
-          p2.data_ptr(), pc.shape[0], ce, g.shape[0] if stacked else 1,
+        p2 = sgd_opt_ref(p, g, lr=lr, divisor=divisor)
+        return p2 if p_out is None else p_out.copy_(p2)
+    _check_aligned(p)
+    gk, stride = _rows(g)
+    p2 = torch.empty_like(p) if p_out is None else p_out
+    _call("sgd_opt_chunks", p.device, p.data_ptr(), gk.data_ptr(),
+          p2.data_ptr(), p.numel(), _lane(chunk_elems),
+          g.shape[0] if stacked else 1, stride,
           _DTYPE_CODE[p.dtype, g.dtype], lr, dptr)
-    return p2.view(-1)[:n]
+    return p2
 
 
 def fused_adam_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                    v: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor, *,
                    lr: float, b1: float = 0.9, b2: float = 0.999,
                    eps: float = 1e-8, chunk_elems: int = 8192,
-                   divisor: torch.Tensor | None = None):
+                   divisor: torch.Tensor | None = None,
+                   p_out: torch.Tensor | None = None):
     """Flat fused Adam update with per-position bias-correction state
-    k1/k2 (f32); g is (n,) or stacked (W, n), averaged over the workers
-    (divided by W, or ``divisor``) in the same pass.  m, v, k1, k2 are
-    updated in place.  Returns (p', m, v, k1, k2)."""
-    stacked = _check(p, g, (m, v), (k1, k2))
+    k1/k2 (f32); g is (n,) or stacked (W, n) (rows ``g.stride(0)``
+    apart), averaged over the workers (divided by W, or ``divisor``) in
+    the same pass.  m, v, k1, k2 are updated in place.  Returns (p', m, v,
+    k1, k2), p' in ``p_out`` when given."""
+    stacked = _check(p, g, (m, v), (k1, k2), p_out=p_out)
     dptr = _divisor_ptr(divisor, p, stacked)
     slots = (m, v, k1, k2)
     if p.device.type == "cpu":
@@ -242,22 +306,17 @@ def fused_adam_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                            divisor=divisor)
         for s, s2 in zip(slots, new[1:]):
             s.copy_(s2)
-        return (new[0], *slots)
-    ce = _lane(chunk_elems)
-    n = p.numel()
-    pc, gc = _chunked(p, ce), _chunked(g, ce)
-    # whole chunks: views the kernel updates in place; else padded copies,
-    # copied back below
-    sc = [_chunked(s, ce) for s in slots]
-    p2 = torch.empty_like(pc)
-    _call("adam_opt_chunks", p.device, pc.data_ptr(), gc.data_ptr(),
-          *(s.data_ptr() for s in sc), p2.data_ptr(), pc.shape[0], ce,
-          g.shape[0] if stacked else 1, _DTYPE_CODE[p.dtype, g.dtype], lr,
-          b1, 1 - b1, b2, 1 - b2, eps, dptr)
-    if pc.numel() != n:
-        for s, c in zip(slots, sc):
-            s.copy_(c.view(-1)[:n])
-    return (p2.view(-1)[:n], *slots)
+        return (new[0] if p_out is None else p_out.copy_(new[0]), *slots)
+    for t in (p, *slots):
+        _check_aligned(t)
+    gk, stride = _rows(g)
+    p2 = torch.empty_like(p) if p_out is None else p_out
+    _call("adam_opt_chunks", p.device, p.data_ptr(), gk.data_ptr(),
+          *(s.data_ptr() for s in slots), p2.data_ptr(), p.numel(),
+          _lane(chunk_elems), g.shape[0] if stacked else 1, stride,
+          _DTYPE_CODE[p.dtype, g.dtype], lr, b1, 1 - b1, b2, 1 - b2, eps,
+          dptr)
+    return (p2, *slots)
 
 
 def fused_dequant_agg_opt(p: torch.Tensor, q: torch.Tensor,

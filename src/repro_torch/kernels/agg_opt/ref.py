@@ -15,7 +15,10 @@ ulp off the IEEE root on some inputs.
 Each rule takes ``g`` pre-aggregated (same shape as ``p``, in ``p``'s
 dtype or f32) or stacked ``(W, *p.shape)``; the stacked form is averaged
 with ``worker_mean`` first, divided by W or by ``divisor``, a one-element
-f32 tensor (the live count of an elastic or sanity-gated step).
+f32 tensor (the live count of an elastic or sanity-gated step).  A
+stacked ``g`` may be a view whose rows lie any distance apart (the row
+stride the kernels take, ``g.stride(0)``): row w is read as ``g[w]``, so
+the same values give the same bits whatever the stride.
 ``dequant_agg_opt_ref``, the int8 wire's tail, takes the owner's own rows
 contiguous or as the block diagonal of the stacked buffer
 (``block_diagonal``).  They are functional: the slots they are given are

@@ -9,6 +9,7 @@ Usage:
   ... --supervise --chaos-faults --workers 4 --checkpoint-dir ckpt \
       --checkpoint-every 2          # the self-healing loop, seeded faults
   ... --chaos --workers 4           # seeded kill/slow/rejoin membership
+  ... --workers 4 --windows 5 --overlap   # windowed exchange, chunk-ready
 
 Values the port does not implement (another strategy or architecture, a
 batch that does not split over the workers) raise.
@@ -55,6 +56,11 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--strategy", default="sharded_ps")
     ap.add_argument("--chunk-kb", type=int, default=32)
+    ap.add_argument("--windows", type=int, default=1,
+                    help="pipeline windows per dtype group")
+    ap.add_argument("--overlap", action="store_true",
+                    help="chunk-ready dispatch: window rings launch "
+                         "mid-backward (DESIGN.md §14)")
     ap.add_argument("--wire-format", default="identity",
                     help="identity | bf16 | f16 | int8 (core/wire.py)")
     ap.add_argument("--workers", type=int, default=1,
@@ -92,6 +98,7 @@ def main(argv=None):
 
     from ..configs import TrainConfig, get_arch, reduced
     from ..core import PHubEngine, StackedComm
+    from ..core.pipeline import effective_windows
     from ..data import SyntheticTokens
     from ..training import TrainState, fit
 
@@ -101,13 +108,18 @@ def main(argv=None):
     tc = TrainConfig(strategy=args.strategy, lr=args.lr,
                      chunk_size_bytes=args.chunk_kb * 1024,
                      wire_format=args.wire_format,
+                     pipeline_windows=args.windows,
+                     overlap_backward=args.overlap,
                      loss_chunk=min(1024, args.seq))
     engine = PHubEngine(cfg, tc, StackedComm(args.workers), device=args.device)
     params, opt = engine.init_state()
     data = SyntheticTokens(cfg, args.batch, args.seq, seed=tc.seed)
+    windows = [effective_windows(g, tc.pipeline_windows)
+               for g in engine.chunk_plan.groups]
     print(f"[train] arch={cfg.arch_id} params={cfg.n_params() / 1e6:.1f}M "
           f"workers={args.workers} strategy={tc.strategy} "
-          f"wire={tc.wire_format} "
+          f"wire={tc.wire_format} windows={tc.pipeline_windows} "
+          f"(effective {windows}) overlap={tc.overlap_backward} "
           f"device={engine.device}")
     state = TrainState(params=params, opt=opt)
     del opt

@@ -254,7 +254,12 @@ def _fill_ring(ck: torch.Tensor, cv: torch.Tensor, cpos: torch.Tensor,
 class DecoderLM(nn.Module):
     """The dense decoder.  ``params`` (a tree as ``init_params`` returns,
     e.g. from ``convert.params_from_numpy``) is adopted as is; otherwise
-    the weights are drawn from ``generator`` on ``device``."""
+    the weights are drawn from ``generator`` on ``device``.
+
+    ``flat_store`` is None, or under flat residency the flat parameter
+    store ``{dtype_name: (1, padded)}`` whose views the parameters are
+    (``PHubEngine.resident`` sets it, and the train step re-points the
+    parameters at each new store)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None,
@@ -271,6 +276,7 @@ class DecoderLM(nn.Module):
         self.final_norm = nn.Parameter(params["final_norm"])
         self.lm_head = (nn.Parameter(params["lm_head"])
                         if "lm_head" in params else None)
+        self.flat_store: Optional[dict] = None
 
     def param_tree(self) -> dict:
         """The parameters as the reference's nested dict (same keys)."""

@@ -13,8 +13,12 @@ slots, divisor=None)`` takes ``g`` either pre-aggregated (same shape as
 averages over dim 0 (summed in worker order, divided by W, or by
 ``divisor``, a one-element f32 tensor on the card) before the rule: that
 is the tall aggregation the stacked exchange fuses into the update
-(``core/exchange.py``).  It returns ``(p', slots')``; Adam's kernel updates
-its slots in place and returns the same tensors.  ``tuple_update`` closes
+(``core/exchange.py``); the rows of a stacked ``g`` may lie further apart
+than ``p``'s length (a window's strip of the stacked buffer, read in
+place).  It returns ``(p', slots')``; Adam's kernel updates its slots in
+place and returns the same tensors.  ``update_fn(..., p_out=buf)`` is the
+windowed exchange's form (``core/pipeline.py``): p' is written into
+``buf`` and every slot is updated in place.  ``tuple_update`` closes
 the plain rule over its coefficients, for a pre-aggregated ``g``.
 ``kernel_dequant_update`` is the counterpart of ``pallas_dequant_update``:
 the int8 wire's tail (decode the ring partial, add the owner's own rows,
@@ -110,16 +114,16 @@ class NesterovOptimizer(ShardedOptimizer):
         from ..kernels.agg_opt.ops import fused_agg_opt, fused_multi_agg_opt
         lr, mu = coefs
 
-        def upd(p, g, slots, divisor=None):
+        def upd(p, g, slots, divisor=None, p_out=None):
             if g.dim() == p.dim() + 1:
                 p2, m2 = fused_multi_agg_opt(
                     p, g, slots[0], lr=lr, momentum=mu,
-                    chunk_elems=chunk_elems, divisor=divisor)
+                    chunk_elems=chunk_elems, divisor=divisor, p_out=p_out)
             elif divisor is not None:
                 raise ValueError("a divisor needs stacked worker gradients")
             else:
                 p2, m2 = fused_agg_opt(p, g, slots[0], lr=lr, momentum=mu,
-                                       chunk_elems=chunk_elems)
+                                       chunk_elems=chunk_elems, p_out=p_out)
             return p2, (m2,)
         return upd
 
@@ -151,9 +155,9 @@ class SGDOptimizer(ShardedOptimizer):
         from ..kernels.agg_opt.ops import fused_sgd_opt
         (lr,) = coefs
 
-        def upd(p, g, slots, divisor=None):
+        def upd(p, g, slots, divisor=None, p_out=None):
             return fused_sgd_opt(p, g, lr=lr, chunk_elems=chunk_elems,
-                                 divisor=divisor), ()
+                                 divisor=divisor, p_out=p_out), ()
         return upd
 
 
@@ -199,11 +203,11 @@ class AdamOptimizer(ShardedOptimizer):
         from ..kernels.agg_opt.ops import fused_adam_opt
         (lr,) = coefs
 
-        def upd(p, g, slots, divisor=None):
+        def upd(p, g, slots, divisor=None, p_out=None):
             p2, *slots2 = fused_adam_opt(p, g, *slots, lr=lr, b1=self.b1,
                                          b2=self.b2, eps=self.eps,
                                          chunk_elems=chunk_elems,
-                                         divisor=divisor)
+                                         divisor=divisor, p_out=p_out)
             return p2, tuple(slots2)
         return upd
 

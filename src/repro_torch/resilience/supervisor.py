@@ -26,7 +26,7 @@ The supervisor is host-side and slow-path: the per-step cost on a clean
 rack is one (world,)-vector host sync.  The norm threshold rides as a step
 input (``HealthTracker.norm_hi``), so adapting it builds no new step.
 The reference's metrics-registry counters and tracer spans are not ported
-(ROADMAP.md queue A item 16); ``events``, ``incidents``,
+(ROADMAP.md queue A item 9); ``events``, ``incidents``,
 ``incident_history`` and ``event_kinds`` are the record.
 """
 from __future__ import annotations
@@ -38,7 +38,7 @@ from typing import Optional
 import numpy as np
 
 from ..checkpoint import (latest_step, restore_latest_valid,
-                          save_checkpoint)
+                          save_checkpoint, snapshot_tree)
 from ..elastic import Membership
 from ..elastic.chaos import GRAD_FAULTS, STALL, corrupt_checkpoint
 from .sanity import HealthTracker, SanityConfig
@@ -219,8 +219,7 @@ class TrainSupervisor:
         elif (self.cfg.checkpoint_dir and self.cfg.checkpoint_every
                 and state.step % self.cfg.checkpoint_every == 0):
             save_checkpoint(self.cfg.checkpoint_dir, state.step,
-                            {"params": state.params.param_tree(),
-                             "opt": state.opt},
+                            snapshot_tree(state.params, state.opt),
                             membership=self.membership,
                             keep_k=self.cfg.keep_k)
             self._event(step, "checkpoint", f"step {state.step} "

@@ -1,14 +1,14 @@
 """Training loop over a PHubEngine (``repro/training/loop.py``): plain
 steps, an elastic membership per step, periodic checkpoints, or the
 self-healing ``TrainSupervisor``.  The reference's telemetry hooks (tracer
-spans, the metrics registry) are ROADMAP.md queue A item 16."""
+spans, the metrics registry) are ROADMAP.md queue A item 9."""
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
-from ..checkpoint import save_checkpoint
+from ..checkpoint import save_checkpoint, snapshot_tree
 
 
 @dataclass
@@ -86,8 +86,8 @@ def fit(engine, state: TrainState, data, *, steps: int,
         if (checkpoint_dir and checkpoint_every
                 and state.step % checkpoint_every == 0):
             save_checkpoint(checkpoint_dir, state.step,
-                            {"params": state.params.param_tree(),
-                             "opt": state.opt}, membership=membership)
+                            snapshot_tree(state.params, state.opt),
+                            membership=membership)
     return state
 
 
