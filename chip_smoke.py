@@ -38,7 +38,13 @@
    multi_agg_opt_chunks and adam_opt_chunks at W=4 in 5 windows (a (4,
    61,792,256) view) and agg_opt_chunks at W=1 in 7 windows, bitwise
    against their plain versions on the same view, timed beside the
-   strip's bound.
+   strip's bound; and dequant_agg_opt_chunks as the int8 wire's windows
+   launch it: one launch over window 2 of 5's strip of all four shards (p
+   and m rows 308,961,280 apart, the owners' rows read on the block
+   diagonal of the (4, n) buffer, rows n + L apart), p' into a given
+   buffer and m in place, with inv_n 1/4 and with the sanity gate's
+   device divisor set to 3 (a division), each bitwise against its plain
+   version and timed beside the strip's bound.
 3. Holds one 4-worker step of a reduced llama3.2-1b on the card against
    the same step on the CPU (plain versions), from the same weights, under
    Nesterov and under Adam (eps 1e-3, where the step is Lipschitz in the
@@ -51,7 +57,10 @@
    n_live 3 exact, grad_norms within rtol 1e-5, parameters within the
    rule's bound above (SGD's first step moves less than Nesterov's: the
    Nesterov bound); on the card the gated step equals the static k-of-n
-   step with worker 1 dead, bitwise.
+   step with worker 1 dead, bitwise.  A reduced rwkv6-3b step (f32
+   activations, T 128: the chunked scan under autograd, two chunks) card
+   vs CPU under Nesterov and Adam within the same bounds, launching
+   rwkv_scan_kernel no time.
 4. Rollback, on a reduced llama3.2-1b (a full-model snapshot is 9.9 GB of
    disk I/O, not device work): 4 workers, a snapshot every step, keep_k 2,
    every worker NaN-pushing for divergence_patience steps and the newest
@@ -85,6 +94,23 @@
      and after every step each leaf's f64 sum, the int64 sum of its bit
      patterns and every 1009th element (1.22M); its step ms, tokens/s
      and peak GiB are logged beside the monolithic path's.
+   - the int8 wire in every mode (llama3.2-1b, W=4): in 5 windows (3
+     steps; each step 16 quantize_chunks, 11 dequantize_chunks, 5
+     dequant_agg_opt_chunks) and in 5 windows chunk-ready and
+     flat-resident (2 steps), each equal to the one-window int8 path
+     bitwise; a static 3-of-4 membership, worker 1 dead (1 step, the tail
+     kernel with inv_n 1/3); the supervised path with worker 1
+     NaN-poisoned and demoted as above (4 steps; the tail kernel reads
+     the gate's live count from the card).
+   - rwkv6-3b training (full width and depth, 32 layers, 3,073,313,280
+     f32 parameters in the tree; batch 8 x 512; chunked scan under
+     autograd), flat-resident: Nesterov W=1 (1 step, agg_opt_chunks 1),
+     W=2 in one window (2 steps, multi_agg_opt_chunks 1 a step), W=2 in
+     3 windows (2 steps, 6 a step) and chunk-ready in 3 windows (1 step),
+     both bitwise equal to one window; Adam W=1 at 24 of the 32 layers (1
+     step: at full depth Adam's slots, the gradient row and one worker's
+     gradients are 7 parameter copies, 80.1 GiB); rwkv_scan_kernel 0 on
+     every path.
    Each checks finite losses, changed parameters, and that every kernel
    launched as often as the path's expected counts say, every other count
    staying 0.
@@ -189,6 +215,10 @@ REPLACES = {"agg_opt_chunks": "src/repro/kernels/agg_opt/kernel.py:38",
             "rwkv_scan_kernel": "src/repro/kernels/rwkv_scan/kernel.py:70"}
 
 ARCH, WORKERS, BATCH, SEQ, STEPS = "llama3.2-1b", 4, 8, 512, 3
+# the int8 wire at one window, W=4: 4 quantizes (3 ring hops, the pull), 3
+# dequantizes (2 hops, the pull), the tail kernel once
+INT8_W4 = {"quantize_chunks": WORKERS, "dequantize_chunks": WORKERS - 1,
+           "dequant_agg_opt_chunks": 1}
 # the gradient processing pipeline's paths: window counts that take effect
 # on llama3.2-1b's domain (37,715 chunks a shard at S=4, 150,857 at S=1)
 WINDOWS_W4, WINDOWS_W1 = 5, 7
@@ -207,6 +237,35 @@ SERVE_TOL = 5e-3                 # reduced serving, card vs CPU (item 7)
 # the attention-free path (item 10): (arch, batch, prompt, decode tokens)
 SSM_SERVE_PATH = ("rwkv6-3b", 8, 2048, 32)
 RWKV_TOL, RWKV_BF16_TOL = 1e-5, 1e-2     # * max(1, max|want|)
+# rwkv6-3b training (the memory plan is in PERF.md): 375,161 chunks of 8192
+# at W=1 (one effective window for any count), 187,581 = 3 * 31 * 2,017 a
+# shard at W=2 (3 windows), all flat-resident.  Adam at W=1 holds p, m, v,
+# k1, k2, the gradient row and one worker's gradients (or p'): 7 x 11.45
+# GiB = 80.1 GiB of the card's 79.1, so it runs at 24 of the 32 layers
+# (full width).  (label, workers, steps, rule, pipeline fields, launches
+# per step, layers (0: all))
+SSM_ARCH, SSM_REF_SEQ, SSM_WINDOWS, SSM_ADAM_LAYERS = "rwkv6-3b", 128, 3, 24
+SSM_TRAIN_PATHS = (
+    ("W=1 flat", 1, 1, "nesterov", dict(flat_residency=True),
+     {"agg_opt_chunks": 1}, 0),
+    ("W=2 flat", 2, 2, "nesterov", dict(flat_residency=True),
+     {"multi_agg_opt_chunks": 1}, 0),
+    (f"W=1 flat, {SSM_ADAM_LAYERS} layers", 1, 1, "adam",
+     dict(flat_residency=True), {"adam_opt_chunks": 1}, SSM_ADAM_LAYERS),
+)
+# (label, workers, steps, rule, pipeline fields, launches per step, the
+# monolithic path, arch): equal to it bitwise
+SSM_PIPELINE_PATHS = (
+    (f"windows {SSM_WINDOWS} flat W=2", 2, 2, "nesterov",
+     dict(pipeline_windows=SSM_WINDOWS, flat_residency=True),
+     {"multi_agg_opt_chunks": SSM_WINDOWS * 2},
+     f"{SSM_ARCH} nesterov W=2 flat", SSM_ARCH),
+    (f"windows {SSM_WINDOWS} chunk-ready flat W=2", 2, 1, "nesterov",
+     dict(pipeline_windows=SSM_WINDOWS, flat_residency=True,
+          overlap_backward=True),
+     {"multi_agg_opt_chunks": SSM_WINDOWS * 2},
+     f"{SSM_ARCH} nesterov W=2 flat", SSM_ARCH),
+)
 
 
 def log(msg: str) -> None:
@@ -412,7 +471,8 @@ def kernel_phase(torch, sizes: dict, lr: float, mu: float) -> dict:
     return out
 
 
-def window_kernel_phase(torch, sizes: dict, lr: float, mu: float) -> dict:
+def window_kernel_phase(torch, sizes: dict, lr: float, mu: float,
+                        ce: int) -> dict:
     """The update kernels as the windowed exchange launches them on the
     new main paths: one (window, shard) strip, ``[j*L + w*Lw, j*L +
     (w+1)*Lw)``, with the stacked gradient read in place (a (4, Lw) view
@@ -482,10 +542,74 @@ def window_kernel_phase(torch, sizes: dict, lr: float, mu: float) -> dict:
             "max_abs_err": err, "max_ulp": ulp, "ms": ms,
             "bound_ms": bound_ms, "bound_by": bound_by}}
         del p, p_out, slots, gw
+    out["dequant_agg_opt_chunks"] = dequant_window_phase(torch, g, lr, mu,
+                                                         ce)
     del g
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def dequant_window_phase(torch, g, lr: float, mu: float, ce: int) -> dict:
+    """dequant_agg_opt_chunks (B7) as the int8 wire's windowed exchange
+    launches it at W=4 in 5 windows: one launch over window w's strip of
+    all four shards, p and m (4, Lw) views whose rows lie L apart, the
+    owners' rows the block diagonal of the stacked buffer ``g`` read in
+    place (rows padded + L apart), q and the scales the window's packed
+    ring payload, p' into a given buffer and m in place; with the static
+    ``inv_n = 1/4`` and with the sanity gate's device divisor set to 3 (a
+    division).  Each bitwise against its plain version, timed (CUDA
+    events, median of 10) beside the strip's bound: p, m and g_own read
+    (4 bytes each), q read (1), p and m written, one f32 scale a chunk."""
+    from repro_torch.core.pipeline import own_strips
+    from repro_torch.kernels.agg_opt import (dequant_agg_opt_ref,
+                                             fused_dequant_agg_opt)
+    from repro_torch.kernels.quant import quantize_int8
+    S, n = g.shape
+    windows, w = WINDOWS_W4, WINDOWS_W4 // 2
+    L = n // S
+    Lw = L // windows
+    p, m = draw(torch, "p", n, 95), draw(torch, "m", n, 96)
+    strip = lambda v: v.view(S, L)[:, w * Lw:(w + 1) * Lw]
+    own = own_strips(g, windows, w)
+    q, sc = quantize_int8(draw(torch, "g", S * Lw, 97), chunk_elems=ce)
+    p_out = torch.empty_like(p)
+    entry = {}
+    for label, inv_n, divisor in (
+            ("window", 1.0 / S, None),
+            ("divisor", 1.0 / S, torch.tensor([3.0], device="cuda"))):
+        kw = dict(lr=lr, momentum=mu, inv_n=inv_n, chunk_elems=ce,
+                  divisor=divisor)
+        want = dequant_agg_opt_ref(strip(p), q, sc, own, strip(m), **kw)
+        m_in = m.clone()
+        po, mi = strip(p_out), strip(m_in)
+        got = fused_dequant_agg_opt(strip(p), q, sc, own, mi, p_out=po,
+                                    **kw)
+        torch.cuda.synchronize()
+        check(got[0] is po and got[1] is mi,
+              "B7's p' not in p_out, or m not updated in place")
+        err, ulp = compare(torch, [po, mi], want)
+        del want, got
+        check(ulp == 0, f"dequant_agg_opt_chunks on a window ({label}) "
+                        f"differs from its plain version (max_ulp {ulp})")
+        ms = median_ms(torch, lambda: fused_dequant_agg_opt(
+            strip(p), q, sc, own, mi, p_out=po, **kw), reps=10)
+        bound_ms, bound_by = bound(S * Lw, 21, 9, 4 * (S * Lw // ce))
+        log(f"dequant_agg_opt_chunks windowed ({label}: "
+            + (f"divisor {float(divisor)}" if divisor is not None
+               else f"inv_n 1/{S}")
+            + f"): window {w} of {windows}, p/m {tuple(strip(p).shape)} rows "
+            f"{L} apart, g_own rows {own.stride(0)} apart, q "
+            f"({S * Lw // ce}, {ce}) int8: max_abs {err:.3e} max_ulp {ulp}; "
+            f"kernel {ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
+            f"{windows} such launches a step")
+        entry[label] = {"windows": windows, "workers": S, "elements": S * Lw,
+                        "pm_row_stride": L, "own_row_stride": own.stride(0),
+                        "max_abs_err": err, "max_ulp": ulp, "ms": ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+        del m_in, po, mi
+    del p, m, q, sc, p_out, own
+    return entry
 
 
 def draw(torch, kind: str, n: int, seed: int):
@@ -946,9 +1070,13 @@ def tree_to(tree: dict, device) -> dict:
             else v.detach().clone().to(device) for k, v in tree.items()}
 
 
-def reference_phase(torch, optimizer: str, gated: bool = False) -> None:
-    """One 4-worker step of a reduced model: card (kernel) vs CPU (plain
-    versions), same weights and batch.  ``gated``: the sanity-gated step
+def reference_phase(torch, optimizer: str, gated: bool = False,
+                    arch: str = ARCH, seq: int = 64) -> None:
+    """One 4-worker step of a reduced ``arch``: card (kernel) vs CPU (plain
+    versions), same weights and batch of ``seq`` tokens.  The attention-free
+    family runs at f32 activations and T 128, so its chunked scan (two
+    chunks of 64) runs under autograd on both devices and their gradients
+    differ by summation order only.  ``gated``: the sanity-gated step
     with worker ``POISONED`` NaN-injected; its verdicts must agree, and on
     the card it must equal the static k-of-n step with that worker dead,
     bitwise.  The gated step runs at f32 activations: with bf16 ones the
@@ -967,8 +1095,9 @@ def reference_phase(torch, optimizer: str, gated: bool = False) -> None:
     from repro_torch.models import DecoderLM
     from repro_torch.resilience import SanityConfig
 
-    cfg = reduced(get_arch(ARCH))
-    if gated:
+    reset_all_launches()
+    cfg = reduced(get_arch(arch))
+    if gated or cfg.attn_free:
         cfg = dataclasses.replace(cfg, dtype="float32")
     if optimizer == "adam":
         tc = TrainConfig(loss_chunk=64, optimizer="adam", lr=ADAM_LR,
@@ -983,7 +1112,7 @@ def reference_phase(torch, optimizer: str, gated: bool = False) -> None:
     init = model_c.param_tree()
     model_g = DecoderLM(cfg, device="cuda", params=tree_to(init, "cuda"))
     opt_g = eng_gpu.init_opt()
-    data = SyntheticTokens(cfg, BATCH, 64, seed=0)
+    data = SyntheticTokens(cfg, BATCH, seq, seed=0)
     extra = ()
     if gated:
         inject = np.ones(WORKERS, np.float32)
@@ -1034,8 +1163,11 @@ def reference_phase(torch, optimizer: str, gated: bool = False) -> None:
                                            leaf_paths(model_c.param_tree())))
     dslot = {n: float((t.cpu().float() - opt_c["float32"][n].float())
                       .abs().max()) for n, t in opt_g["float32"].items()}
-    log(f"reduced {ARCH} (d_model={cfg.d_model}, {cfg.n_layers} layers, "
-        f"{cfg.dtype} activations), {WORKERS} workers, 1 "
+    scans = all_launches()["rwkv_scan_kernel"]
+    check(scans == 0, f"a train step launched rwkv_scan_kernel {scans} "
+                      f"times: training runs autograd of the chunked form")
+    log(f"reduced {arch} (d_model={cfg.d_model}, {cfg.n_layers} layers, "
+        f"{cfg.dtype} activations, T {seq}), {WORKERS} workers, 1 "
         f"{'gated ' if gated else ''}{optimizer} step, card vs CPU: loss "
         f"{float(met_g['loss']):.6f} |dloss| {dloss:.3e}, max |dparam| "
         f"{dparam:.3e}, "
@@ -1150,6 +1282,15 @@ def wire_reference_phase(torch, wire_name: str) -> None:
     check(dmom <= push / WORKERS + 1e-2, f"momentum differs by {dmom}")
 
 
+def bit_sum(torch, t) -> int:
+    """The int64 sum of an f32 tensor's bit patterns: any one changed
+    element changes it (an untied embedding's rows of tokens the batch
+    does not hold keep their values, so a prefix is no test)."""
+    with torch.no_grad():
+        return int(t.detach().reshape(-1).view(torch.int32).sum(
+            dtype=torch.int64))
+
+
 def fingerprint(torch, model) -> list:
     """The parameters' fingerprint after a step: per leaf its f64 sum, the
     int64 sum of its f32 bit patterns (any one changed element changes
@@ -1160,7 +1301,7 @@ def fingerprint(torch, model) -> list:
         for path, t in leaf_paths(model.param_tree()):
             flat = t.detach().reshape(-1)
             out.append((path, float(flat.sum(dtype=torch.float64)),
-                        int(flat.view(torch.int32).sum(dtype=torch.int64)),
+                        bit_sum(torch, flat),
                         flat[::SAMPLE_STRIDE].to("cpu", copy=True)))
     return out
 
@@ -1173,16 +1314,19 @@ def same_fingerprint(torch, a: list, b: list) -> bool:
 
 def main_path(torch, workers: int, steps: int, expect: dict,
               optimizer: str = "nesterov", wire: str = "identity",
-              faults=None, pipeline=None) -> dict:
-    """PHubEngine + fit on the full model under ``optimizer`` over
-    ``wire``; ``expect`` holds each kernel's launches per step and group
-    (every other count must stay 0).  ``faults``: a FaultSchedule; the
-    run then goes through fit(supervisor=TrainSupervisor) with injection
-    on and demote_after 2, and the supervisor's record is checked.
-    ``pipeline``: TrainConfig's pipeline fields (``pipeline_windows``,
-    ``flat_residency``, ``overlap_backward``); the requested window count
-    must take effect.  Returns the run's launch counts, its losses, the
-    parameters' fingerprint after every step, step ms and peak GiB."""
+              faults=None, pipeline=None, arch: str = ARCH,
+              layers: int = 0, dead: int | None = None) -> dict:
+    """PHubEngine + fit on the full ``arch`` (full width; ``layers``, if
+    given, cuts its depth) under ``optimizer`` over ``wire``; ``expect``
+    holds each kernel's launches per step and group (every other count
+    must stay 0).  ``faults``: a FaultSchedule; the run then goes through
+    fit(supervisor=TrainSupervisor) with injection on and demote_after 2,
+    and the supervisor's record is checked.  ``pipeline``: TrainConfig's
+    pipeline fields (``pipeline_windows``, ``flat_residency``,
+    ``overlap_backward``); the requested window count must take effect.
+    ``dead``: a static k-of-n membership with that worker left out.
+    Returns the run's launch counts, its losses, the parameters'
+    fingerprint after every step, step ms and peak GiB."""
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.core import PHubEngine, StackedComm
     from repro_torch.core.chunking import leaf_paths
@@ -1191,7 +1335,12 @@ def main_path(torch, workers: int, steps: int, expect: dict,
                                         TrainSupervisor)
     from repro_torch.training import TrainState, fit
 
-    cfg = get_arch(ARCH)
+    import dataclasses
+
+    from repro_torch.elastic import Membership
+    cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     lr = {"adam": ADAM_LR, "sgd": SGD_LR}.get(optimizer)
     from repro_torch.core.pipeline import effective_windows
     tc = TrainConfig(loss_chunk=min(1024, SEQ), optimizer=optimizer,
@@ -1217,9 +1366,16 @@ def main_path(torch, workers: int, steps: int, expect: dict,
         sup = TrainSupervisor(engine, SupervisorConfig(
             sanity=SanityConfig(allow_injection=True), demote_after=2),
             faults=faults, log_fn=log)
-    log(f"main path: {ARCH} {cfg.n_params():,} params, {cfg.n_layers} "
-        f"layers, d_model {cfg.d_model}; sharded_ps, {workers} stacked "
-        f"worker(s), {wire} wire, batch {BATCH} x {SEQ}, {steps} step(s), "
+    n_tree = sum(g.total for g in engine.chunk_plan.groups)
+    membership_fn = None
+    if dead is not None:
+        members = Membership.full(workers).leave(dead)
+        membership_fn = lambda step: members        # noqa: E731
+    log(f"main path: {arch} {n_tree:,} parameters in the tree, "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}; sharded_ps, "
+        f"{workers} stacked worker(s)"
+        f"{f', worker {dead} dead (static k-of-n)' if dead is not None else ''}"
+        f", {wire} wire, batch {BATCH} x {SEQ}, {steps} step(s), "
         f"{optimizer} at lr {tc.lr}, {rule}"
         f"{'; supervised, faults ' + str(faults.events) if sup else ''}; "
         f"windows {tc.pipeline_windows} (effective {windows}), flat "
@@ -1229,8 +1385,7 @@ def main_path(torch, workers: int, steps: int, expect: dict,
         + ", ".join(f"{g.key}: {g.total:,} -> {g.padded:,} "
                     f"({g.n_chunks} chunks of {g.chunk_elems})"
                     for g in groups))
-    before = {p: t.detach().reshape(-1)[:4096].clone()
-              for p, t in leaf_paths(model.param_tree())}
+    before = {p: bit_sum(torch, t) for p, t in leaf_paths(model.param_tree())}
     data = SyntheticTokens(cfg, BATCH, SEQ, seed=tc.seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1261,7 +1416,8 @@ def main_path(torch, workers: int, steps: int, expect: dict,
 
     reset_all_launches()
     state = fit(engine, state, data, steps=steps, log_every=0,
-                hooks=[on_step], supervisor=sup)
+                hooks=[on_step], supervisor=sup,
+                membership_fn=membership_fn)
     launches = all_launches()
     if sup is not None:
         masks = [h["ok_mask"].tolist() for h in health]
@@ -1283,14 +1439,13 @@ def main_path(torch, workers: int, steps: int, expect: dict,
           f"non-finite loss {state.losses}")
     check(len(state.losses) == steps, f"{len(state.losses)} losses")
     for p, t in leaf_paths(model.param_tree()):
-        check(not torch.equal(before[p], t.detach().reshape(-1)[:4096]),
-              f"parameter {p} did not change")
+        check(bit_sum(torch, t) != before[p], f"parameter {p} did not change")
     for name, count in launches.items():
         want = expect.get(name, 0) * steps * len(groups)
         check(count == want, f"{name} launched {count} times on the "
-                             f"{workers}-worker {optimizer} {wire} path, "
-                             f"want {want}")
-    log(f"{workers}-worker {optimizer} {wire}-wire path: launches "
+                             f"{arch} {workers}-worker {optimizer} {wire} "
+                             f"path, want {want}")
+    log(f"{arch} {workers}-worker {optimizer} {wire}-wire path: launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
         + " as expected; parameters changed, losses finite")
     losses = list(state.losses)
@@ -2051,11 +2206,11 @@ def main() -> None:
                                    "multi_agg_opt_chunks": padded[WORKERS]},
                            tc.lr, tc.momentum)
     kernels.update(rule_kernel_phase(torch, padded))
-    for name, entry in window_kernel_phase(torch, padded, tc.lr,
-                                           tc.momentum).items():
-        kernels[name].update(entry)
     kernels.update(wire_kernel_phase(torch, padded[WORKERS], ce, tc.lr,
                                      tc.momentum))
+    for name, entry in window_kernel_phase(torch, padded, tc.lr,
+                                           tc.momentum, ce).items():
+        kernels[name].update(entry)
     kernels["health_chunks"] = health_kernel_phase(torch, padded, ce)
     kernels.update(attention_kernel_phase(torch))
     kernels.update(rwkv_kernel_phase(torch))
@@ -2065,6 +2220,8 @@ def main() -> None:
     wire_reference_phase(torch, "bf16")
     for rule in ("nesterov", "sgd", "adam"):
         reference_phase(torch, rule, gated=True)
+    for rule in ("nesterov", "adam"):
+        reference_phase(torch, rule, arch=SSM_ARCH, seq=SSM_REF_SEQ)
     rollback_phase(torch)
     serve_reference_phase(torch, "llama3.2-1b", prompt=40)
     serve_reference_phase(torch, "h2o-danube-3-4b", prompt=96)
@@ -2085,9 +2242,7 @@ def main() -> None:
         ("W=1", 1, 1, "adam", "identity", {"adam_opt_chunks": 1}),
         ("W=4", WORKERS, 1, "sgd", "identity", {"sgd_opt_chunks": 1}),
         ("W=1", 1, 1, "sgd", "identity", {"sgd_opt_chunks": 1}),
-        ("int8 W=4", WORKERS, STEPS, "nesterov", "int8",
-         {"quantize_chunks": WORKERS, "dequantize_chunks": WORKERS - 1,
-          "dequant_agg_opt_chunks": 1}),
+        ("int8 W=4", WORKERS, STEPS, "nesterov", "int8", INT8_W4),
         ("int8 W=1", 1, 1, "nesterov", "int8",
          {"quantize_chunks": 1, "dequantize_chunks": 1,
           "agg_opt_chunks": 1}),
@@ -2097,25 +2252,41 @@ def main() -> None:
         ("int8 W=4", WORKERS, 1, "adam", "int8",
          {"quantize_chunks": WORKERS, "dequantize_chunks": WORKERS,
           "adam_opt_chunks": 1}),
+        ("int8 supervised W=4", WORKERS, 4, "nesterov", "int8",
+         dict(INT8_W4, health_chunks=1),
+         FaultSchedule((FaultEvent(1, NAN_PUSH, POISONED, duration=2),),
+                       world=WORKERS)),
     )
     # the gradient processing pipeline: (label, workers, steps, rule,
     # TrainConfig's pipeline fields, launches per step, the monolithic
-    # path whose losses and parameters it must equal bitwise)
+    # path whose losses and parameters it must equal bitwise); the int8
+    # wire's windows: 3 quantizes and 2 dequantizes on each window's ring
+    # hops, one of each for the pull, one tail launch a window
     S4 = WORKERS
+    int8_windows = {"quantize_chunks": 3 * WINDOWS_W4 + 1,
+                    "dequantize_chunks": 2 * WINDOWS_W4 + 1,
+                    "dequant_agg_opt_chunks": WINDOWS_W4}
     pipeline_paths = (
         (f"windows {WINDOWS_W4} flat W=4", WORKERS, STEPS, "nesterov",
          dict(pipeline_windows=WINDOWS_W4, flat_residency=True),
-         {"multi_agg_opt_chunks": WINDOWS_W4 * S4}, "nesterov W=4"),
+         {"multi_agg_opt_chunks": WINDOWS_W4 * S4}, "nesterov W=4", ARCH),
         (f"windows {WINDOWS_W4} chunk-ready W=4", WORKERS, STEPS,
          "nesterov", dict(pipeline_windows=WINDOWS_W4,
                           overlap_backward=True),
-         {"multi_agg_opt_chunks": WINDOWS_W4 * S4}, "nesterov W=4"),
+         {"multi_agg_opt_chunks": WINDOWS_W4 * S4}, "nesterov W=4", ARCH),
         (f"windows {WINDOWS_W4} flat W=4", WORKERS, 1, "adam",
          dict(pipeline_windows=WINDOWS_W4, flat_residency=True),
-         {"adam_opt_chunks": WINDOWS_W4 * S4}, "adam W=4"),
+         {"adam_opt_chunks": WINDOWS_W4 * S4}, "adam W=4", ARCH),
         (f"windows {WINDOWS_W1} flat W=1", 1, 1, "nesterov",
          dict(pipeline_windows=WINDOWS_W1, flat_residency=True),
-         {"agg_opt_chunks": WINDOWS_W1}, "nesterov W=1"),
+         {"agg_opt_chunks": WINDOWS_W1}, "nesterov W=1", ARCH),
+        (f"int8 windows {WINDOWS_W4} W=4", WORKERS, STEPS, "nesterov",
+         dict(wire_format="int8", pipeline_windows=WINDOWS_W4),
+         int8_windows, "nesterov int8 W=4", ARCH),
+        (f"int8 windows {WINDOWS_W4} chunk-ready flat W=4", WORKERS, 2,
+         "nesterov", dict(wire_format="int8", pipeline_windows=WINDOWS_W4,
+                          overlap_backward=True, flat_residency=True),
+         int8_windows, "nesterov int8 W=4", ARCH),
     )
     for k in kernels.values():
         k["launches_by_path"] = {}
@@ -2131,23 +2302,39 @@ def main() -> None:
         run = main_path(torch, workers, steps, expect, rule, wire, *faults)
         runs.setdefault(f"{rule} {label}", run)
         count(f"{rule} {label}", run["launches"])
-    for label, workers, steps, rule, pipe, expect, base in pipeline_paths:
-        run = main_path(torch, workers, steps, expect, rule,
-                        pipeline=pipe)
-        count(f"{rule} {label}", run["launches"])
+    count("nesterov int8 W=4, worker 1 dead", main_path(
+        torch, WORKERS, 1, INT8_W4, "nesterov", "int8",
+        dead=POISONED)["launches"])
+
+    # rwkv6-3b training (the ssm family, chunked scan under autograd): one
+    # window at W=2 first, the monolithic path the windowed ones must equal
+    for label, workers, steps, rule, pipe, expect, layers in SSM_TRAIN_PATHS:
+        run = main_path(torch, workers, steps, expect, rule, pipeline=pipe,
+                        layers=layers, arch=SSM_ARCH)
+        runs[f"{SSM_ARCH} {rule} {label}"] = run
+        count(f"{SSM_ARCH} {rule} {label}", run["launches"])
+    for label, workers, steps, rule, pipe, expect, base, arch in (
+            pipeline_paths + SSM_PIPELINE_PATHS):
+        pipe = dict(pipe)
+        wire = pipe.pop("wire_format", "identity")
+        run = main_path(torch, workers, steps, expect, rule, wire,
+                        pipeline=pipe, arch=arch)
+        label = f"{rule} {label}" if arch == ARCH else \
+            f"{arch} {rule} {label}"
+        count(label, run["launches"])
         mono = runs[base]
         check(run["losses"] == mono["losses"][:steps],
-              f"{rule} {label}: losses {run['losses']} differ from the "
+              f"{label}: losses {run['losses']} differ from the "
               f"monolithic path's {mono['losses'][:steps]}")
         for i in range(steps):
             check(same_fingerprint(torch, run["prints"][i],
                                    mono["prints"][i]),
-                  f"{rule} {label}: the parameters after step {i} differ "
+                  f"{label}: the parameters after step {i} differ "
                   f"from the monolithic path's")
-        log(f"{rule} {label}: losses and parameters (f64 sums, bit-pattern "
+        log(f"{label}: losses and parameters (f64 sums, bit-pattern "
             f"sums and {sum(x[3].numel() for x in run['prints'][0]):,} "
             f"sampled elements a step) bitwise equal to the monolithic "
-            f"path's over {steps} step(s); step ms "
+            f"path's ({base}) over {steps} step(s); step ms "
             f"{[round(x, 3) for x in run['step_ms']]} against "
             f"{[round(x, 3) for x in mono['step_ms'][:steps]]}, tokens/s "
             f"{[round(BATCH * SEQ / (x / 1e3)) for x in run['step_ms']]} "

@@ -4,13 +4,13 @@
     python3 scripts/torch_step_profile.py [--workers 4] [--batch 8] [--seq 512]
         [--optimizer nesterov|adam|sgd] [--lr LR]
         [--wire-format identity|bf16|f16|int8] [--sanity [--poison W]]
-        [--windows N] [--flat] [--overlap]
+        [--windows N] [--flat] [--overlap] [--arch llama3.2-1b | rwkv6-3b]
     python3 scripts/torch_step_profile.py --serve [--arch llama3.2-1b |
         h2o-danube-3-4b | rwkv6-3b] [--batch 8] [--seq 2048]
 
-Runs the port's main path (full llama3.2-1b, sharded_ps, W workers stacked
-on one card, Nesterov at the TrainConfig defaults over the identity wire
-unless another rule or wire is asked for; ``--sanity``: the sanity-gated
+Runs the port's main path (full ``--arch``, llama3.2-1b by default,
+sharded_ps, W workers stacked on one card, Nesterov at the TrainConfig
+defaults over the identity wire unless another rule or wire is asked for; ``--sanity``: the sanity-gated
 step, worker ``--poison`` NaN-injected if given; ``--windows``,
 ``--flat``, ``--overlap``: the gradient processing pipeline's
 ``pipeline_windows``, ``flat_residency`` and ``overlap_backward``) for one
@@ -24,8 +24,13 @@ ran beside another kernel (the overlap) and where they started.  Where the devic
 caching allocator's activity in the timed step (segments taken with
 cudaMalloc and returned with cudaFree, and allocations retried after
 freeing the cache: each such retry synchronizes the card) and the host time of the
-CUDA runtime calls in the profiled step.  Needs a CUDA card; imports no
-JAX.
+CUDA runtime calls in the profiled step.  For the attention-free family
+(rwkv6-3b) it also times the chunked scan alone (``rwkv_chunked``, one
+layer's shape for one worker, forward and forward + backward, CUDA events)
+and scales it to the step's layers, workers and the remat's second
+forward: the scan's share, which the kernel classes cannot separate from
+the projections' matmuls and elementwise kernels.  Needs a CUDA card;
+imports no JAX.
 
 ``--serve``: the serving path instead (``--arch``, full width and depth,
 a greedy batch of ``--batch`` prompts of ``--seq`` tokens): one prefill
@@ -240,7 +245,7 @@ def main(argv=None) -> None:
                     help="profile the serving path: one prefill of "
                          "--batch x --seq and one decode step")
     ap.add_argument("--arch", default="llama3.2-1b",
-                    help="with --serve: the architecture")
+                    help="the architecture (full width and depth)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -260,7 +265,7 @@ def main(argv=None) -> None:
     if args.serve:
         serve_profile(args)
         return
-    cfg = get_arch("llama3.2-1b")
+    cfg = get_arch(args.arch)
     tc = TrainConfig(loss_chunk=min(1024, args.seq),
                      optimizer=args.optimizer, wire_format=args.wire_format,
                      pipeline_windows=args.windows,
@@ -312,7 +317,7 @@ def main(argv=None) -> None:
     if args.sanity:
         gate = (f"sanity-gated (poisoned: {args.poison}, ok_mask "
                 f"{metrics['ok_mask'].tolist()}), ")
-    print(f"step: {gate}{args.optimizer} at lr {tc.lr}, "
+    print(f"step: {cfg.arch_id}, {gate}{args.optimizer} at lr {tc.lr}, "
           f"{args.wire_format} wire, "
           f"{args.workers} workers, windows {tc.pipeline_windows} "
           f"(effective {windows}), flat residency {tc.flat_residency}, "
@@ -332,6 +337,58 @@ def main(argv=None) -> None:
     print("host time of CUDA runtime calls in the profiled step:")
     for name, (ms, n) in sorted(runtime.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"  {ms:10.2f} ms  {n:5d} calls  {name}")
+    if cfg.attn_free:
+        del model, opt, metrics, step, engine
+        torch.cuda.empty_cache()
+        scan_share(cfg, args, torch)
+
+
+def scan_share(cfg, args, torch) -> None:
+    """The chunked scan alone at one worker's shape of the step: forward
+    and forward + backward of ``rwkv_chunked`` (CUDA events, median of
+    10), scaled to the step (the layers, the workers, and a second forward
+    under remat)."""
+    from repro_torch.models.rwkv import rwkv_chunked
+    B = args.batch // args.workers
+    H, hd = cfg.n_heads, cfg.hd
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (B, args.seq, H, hd)
+    r, k, v = (torch.randn(shape, device="cuda", generator=gen)
+               .to(getattr(torch, cfg.dtype)).requires_grad_()
+               for _ in range(3))
+    w = (torch.rand(shape, device="cuda", generator=gen) * 0.1 + 0.9) \
+        .to(r.dtype).requires_grad_()
+    u = torch.randn(H, hd, device="cuda", generator=gen).requires_grad_()
+    S0 = torch.zeros(B, H, hd, hd, device="cuda", dtype=r.dtype)
+
+    def fwd():
+        with torch.no_grad():
+            rwkv_chunked(r, k, v, w, u, S0)
+
+    def fwd_bwd():
+        y, _ = rwkv_chunked(r, k, v, w, u, S0)
+        torch.autograd.grad(y.float().sum(), (r, k, v, w, u))
+
+    def median(fn):
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(10):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[5]
+    f_ms, fb_ms = median(fwd), median(fwd_bwd)
+    per_step = cfg.n_layers * args.workers * (f_ms + fb_ms)
+    print(f"chunked scan alone (rwkv_chunked, B {B} T {args.seq} H {H} hd "
+          f"{hd} {cfg.dtype}): forward {f_ms:.3f} ms, forward + backward "
+          f"{fb_ms:.3f} ms (wall, events around the host's launches); x "
+          f"{cfg.n_layers} layers x {args.workers} workers with the remat's "
+          f"second forward: {per_step:.1f} ms a step")
 
 
 if __name__ == "__main__":

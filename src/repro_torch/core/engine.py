@@ -24,8 +24,9 @@ p plus the decoded delta; the optimizer state then has one more slot,
 ``wire_ef``, last.
 
 PHub's gradient processing pipeline (``TrainConfig``'s
-``pipeline_windows``, ``flat_residency``, ``overlap_backward``; the
-identity wire's, ``core/pipeline.py``):
+``pipeline_windows``, ``flat_residency``, ``overlap_backward``;
+``core/pipeline.py``), over every wire (an encoded one runs each window's
+ring and tail, then one pull):
 - windows: step 2 runs window by window (one launch per window and shard,
   the strips read in place in the stacked buffer) when the group has more
   than one effective window, else the monolithic exchange, unchanged;
@@ -57,14 +58,20 @@ of squares (``health_chunks``, one launch per dtype group); marks a worker
 ok when the sum is finite and its root within ``norm_hi`` (and the
 membership counts it); zeroes a bad row (where-semantics: 0 * NaN would be
 NaN); and divides the mean by ``max(ok count, 1)``, kept on the card, so
-the step needs no host sync.  Both run over the identity wire only
-(ROADMAP.md queue A item 3).
+the step needs no host sync.  Over an encoded wire a static membership
+passes its live count by value (the int8 tail kernel bakes ``1/n_live``,
+as the reference's does), and the gate's count on the card goes to the
+tail kernel's divisor pointer (the reference takes its jnp tail there,
+``/ n_live``, the same arithmetic); the rules without a tail kernel
+divide the decoded sum by the count.
 
-Serving (``make_prefill_step``, ``make_serve_step``) runs the model's
-prefill and decode forwards on one card, for every ported family; the
-launcher builds the engine with ``StackedComm(1)``.  The attention-free
-(ssm) family is served only: its training step raises until it trains
-through autograd of the chunked form (ROADMAP.md queue A item 1).
+Every ported family trains: the attention-free (ssm) family through
+autograd of its chunked scan (``models/rwkv.py::rwkv_chunked``), as the
+reference trains it without Pallas; the scan kernel serves only (the
+reference has no backward for it).  Serving (``make_prefill_step``,
+``make_serve_step``) runs the model's prefill and decode forwards on one
+card, for every ported family; the launcher builds the engine with
+``StackedComm(1)``.
 """
 from __future__ import annotations
 
@@ -88,7 +95,7 @@ class PHubEngine:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, comm: StackedComm,
                  *, device="cuda"):
         self.wire = make_wire_format(tc)
-        check_pipeline(tc, self.wire)
+        check_pipeline(tc)
         check_strategy(tc.strategy)
         self.cfg, self.tc, self.comm = cfg, tc, comm
         self.device = torch.device(device)
@@ -185,15 +192,7 @@ class PHubEngine:
     # ------------------------------------------------------------ train step
 
     def build_loss_fn(self):
-        """Per-worker loss: forward + chunked cross-entropy.  Raises for
-        the attention-free family, which is served only (the train step
-        builds its loss here first)."""
-        if self.cfg.attn_free:
-            raise NotImplementedError(
-                f"{self.cfg.arch_id}: training the ssm family is not ported "
-                f"yet (ROADMAP.md queue A item 1: rwkv6-3b training through "
-                f"autograd of the chunked form, as the reference trains it "
-                f"without Pallas); it can be served")
+        """Per-worker loss: forward + chunked cross-entropy."""
         tc = self.tc
 
         def loss_fn(model: DecoderLM, tokens, labels):
@@ -208,14 +207,25 @@ class PHubEngine:
         return self.sopt.kernel_update(group.chunk_elems,
                                        self.sopt.coefs(self.tc))
 
-    def fused_dequant(self, group):
+    def fused_dequant(self, group, n_live=None):
         """The int8 wire's tail kernel for one group (decode + own rows +
-        mean + rule), or None: another wire, or a rule without one."""
+        mean + rule), or None: another wire, or a rule without one.  A
+        static live count ``n_live`` (a number) is baked in as
+        ``1/n_live``, as the reference's ``_fused_dequant`` does; the
+        gate's (a tensor on the card) goes to the kernel's divisor at the
+        call."""
         if not self.wire.has_scales:
             return None
+        n = n_live if isinstance(n_live, (int, float)) else \
+            self.comm.n_workers
         return self.sopt.kernel_dequant_update(
-            group.chunk_elems, self.sopt.coefs(self.tc),
-            1.0 / self.comm.n_workers)
+            group.chunk_elems, self.sopt.coefs(self.tc), 1.0 / n)
+
+    def _wire_args(self, group, opt, n_live) -> dict:
+        """The encoded-wire arguments of one group's exchange."""
+        return dict(wire=self.wire,
+                    residual=opt[group.key][WIRE_EF_SLOT].view(-1),
+                    fused_dequant=self.fused_dequant(group, n_live))
 
     def grad_buffers(self) -> dict:
         """The stacked gradient buffers {dtype_name: (W, padded)}, allocated
@@ -298,10 +308,11 @@ class PHubEngine:
         """Run the exchange per dtype group on the stacked gradients
         ``gbuf`` ({dtype_name: (W, padded)}) and the flat parameters
         ``flats_p`` ({dtype_name: (padded,)}, consumed).  ``n_live`` (a
-        number or a 0-dim tensor on the card) divides the worker sum
-        instead of W.  ``ready``: {dtype_name: ChunkReadyExchange} of the
-        groups whose windows were dispatched during the backward; they are
-        finished here.  Returns ({dtype_name: p'}, the new optimizer
+        number: a static membership over an encoded wire; or a 0-dim
+        tensor on the card) divides the worker sum instead of W.
+        ``ready``: {dtype_name: ChunkReadyExchange} of the groups whose
+        windows were dispatched during the backward; they are finished
+        here.  Returns ({dtype_name: p'}, the new optimizer
         state).  A rule whose kernel updates its slots in place (Adam, and
         every rule in windows) returns the tensors of ``opt`` themselves."""
         cp = self.chunk_plan
@@ -313,13 +324,13 @@ class PHubEngine:
                 slots = tuple(opt[g.key][n].view(-1) for n in names)
                 p = flats_p.pop(g.key)
                 if ready and g.key in ready:
-                    p2, s2 = ready[g.key].finish()
+                    p2, s2, *r2 = ready[g.key].finish()
                 elif encoded:
-                    p2, s2, r2 = run_wire_exchange(
+                    p2, s2, *r2 = run_wire_exchange(
                         self.tc.strategy, self.comm, gbuf[g.key], p, slots,
-                        self.update_fn(g), g, self.wire,
-                        opt[g.key][WIRE_EF_SLOT].view(-1),
-                        self.fused_dequant(g))
+                        self.update_fn(g), g,
+                        windows=self.tc.pipeline_windows, n_live=n_live,
+                        **self._wire_args(g, opt, n_live))
                 else:
                     p2, s2 = run_exchange(self.tc.strategy, self.comm,
                                           gbuf[g.key], p, slots,
@@ -330,7 +341,7 @@ class PHubEngine:
                 new_opt[g.key] = {n: v.view(opt[g.key][n].shape)
                                   for n, v in zip(names, s2)}
                 if encoded:
-                    new_opt[g.key][WIRE_EF_SLOT] = r2.view(
+                    new_opt[g.key][WIRE_EF_SLOT] = r2[0].view(
                         opt[g.key][WIRE_EF_SLOT].shape)
         return new_p, new_opt
 
@@ -353,7 +364,9 @@ class PHubEngine:
             ex = run_chunk_ready_exchange(
                 self.tc.strategy, self.comm, gbuf[g.key], flats_p[g.key],
                 slots, self.update_fn(g), g, self.tc.pipeline_windows,
-                n_live, self.side_stream())
+                n_live, self.side_stream(),
+                **(self._wire_args(g, opt, n_live)
+                   if self.wire.error_feedback else {}))
             if ex is not None:
                 ready[g.key] = ex
             for i, (path, off) in enumerate(zip(
@@ -400,14 +413,10 @@ class PHubEngine:
         mask_t = divisor = None
         if mask is not None:
             mask_t = torch.from_numpy(mask).to(self.device)
-            divisor = torch.tensor(live, device=self.device)
-        if (mask is not None or sanity is not None) and \
-                not self.wire.is_identity:
-            raise NotImplementedError(
-                f"elastic membership and the sanity gate over the "
-                f"{self.wire.name!r} wire are not ported yet: the int8 "
-                f"tail kernel takes 1/N by value (ROADMAP.md queue A item "
-                f"3)")
+            # an encoded wire's static count goes by value (the int8 tail
+            # kernel bakes 1/n_live), the identity rules' on the card
+            divisor = (live if self.wire.error_feedback
+                       else torch.tensor(live, device=self.device))
         # chunk-ready dispatch needs the last worker's push to join as it
         # is: the gate judges the whole backward, and an excluded worker's
         # row must stay zero

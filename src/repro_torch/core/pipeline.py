@@ -1,6 +1,6 @@
 """PHub's gradient processing pipeline on stacked workers
 (``repro/core/pipeline.py``): the windowed exchange, the chunk-ready
-dispatch, and the encoded-wire exchange.
+dispatch, and the encoded-wire exchange, in windows too.
 
 **Windows.**  The reference splits each dtype group's chunk domain into
 ``W`` windows (``effective_windows``: a whole number of chunks each) and
@@ -21,33 +21,37 @@ and every slot is updated in place.  The rules are elementwise, so a
 windowed exchange equals the monolithic one bitwise.
 
 **Chunk-ready** (``ChunkReadyExchange``, the reference's
-``chunk_ready_exchange``).  Window w's update may start once every leaf
-that meets its strips has its gradient; the engine reports each leaf as
-the last worker's backward produces it, and the window's launches go on a
-side CUDA stream, ordered after the gradient copies by an event.
+``chunk_ready_exchange`` and ``run_chunk_ready_wire_exchange``).  Window
+w's update may start once every leaf that meets its strips has its
+gradient; the engine reports each leaf as the last worker's backward
+produces it, and the window's launches go on a side CUDA stream, ordered
+after the gradient copies by an event.
 
-**The encoded wire** (``run_wire_exchange``): the reference's
-``pipelined_wire_exchange`` runs on each device: the ring partial of every
-shard hops the S workers encoded, each hop decoding it, adding its own
-rows and encoding it again; the owner decodes the last partial, adds its
-own rows and updates; the parameter delta is encoded for the pull, and
-what the rounding drops is carried in ``wire_ef``.  On one
-card the S workers are the rows of the ``(S, padded)`` gradient buffer
-(``core/comm.py``), and shard j's partial starts at worker j+1, as in the
-reference's ring:
+**The encoded wire** (``pipelined_wire_exchange``, the reference's):
+the ring partial of every shard hops the S workers encoded, each hop
+decoding it, adding its own rows and encoding it again; the owner decodes
+the last partial, adds its own rows and updates; after the last window
+the parameter delta of the whole domain is encoded for the pull, and what
+the rounding drops is carried in ``wire_ef``.  On one card the S workers
+are the rows of the ``(S, padded)`` gradient buffer (``core/comm.py``),
+and shard j's partial starts at worker j+1, as in the reference's ring:
 
     acc_j = G[j+1, j],  encoded
     acc_j = decode(acc_j) + G[j+k, j],  encoded,   k = 2 .. S-1
     g_j   = (decode(acc_j) + G[j, j]) / N          (at the owner, j)
 
-(indices mod S; G[w, j] is worker w's run of shard j, ``[j*L, (j+1)*L)`` of
-row w).  The codec works chunk by chunk and every shard is whole chunks,
-so each hop runs over all S shards at once: one ``quantize_chunks`` or
-``dequantize_chunks`` launch over the whole ``(padded,)`` domain.  Every
-hop re-quantizes, so the order is part of the result.  It runs at one
-window: the encoded wire in windows and chunk-ready over a wire
-(``pipelined_wire_exchange`` at W > 1, ``run_chunk_ready_wire_exchange``)
-are ROADMAP.md queue A item 11, and ``check_pipeline`` refuses them.
+(indices mod S; G[w, j] is worker w's run of window w's strip of shard j
+in row w).  The codec works chunk by chunk and every strip is whole
+chunks, so each hop of a window runs over the window's strips of all S
+shards at once, packed: one ``quantize_chunks`` or ``dequantize_chunks``
+launch a hop, and the owners' tail (``dequant_agg_opt_chunks``, for
+Nesterov) one launch a window reading p, m and the owners' rows in place.
+Every hop re-quantizes, so the order is part of the result; windows are
+whole chunks, so the windowed schedule equals one window bitwise.  N is
+the worker count, or a membership's live count: a number (a static
+membership: the tail kernel's ``inv_n`` is baked from it, as in the
+reference) or a tensor on the card (the sanity gate's, the tail kernel's
+divisor pointer; the other rules divide the decoded sum by it).
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..kernels.agg_opt.ref import own_strips
 from . import chunking
 from .chunking import GroupPlan
 from .comm import StackedComm
@@ -62,12 +67,11 @@ from .comm import StackedComm
 PIPELINED_STRATEGIES = ("sharded_ps", "hierarchical")
 
 
-def check_pipeline(tc, wire) -> None:
+def check_pipeline(tc) -> None:
     """Raise where the reference's engine raises for the pipeline's
     options: chunk-ready dispatch or windows on a strategy with no shard
-    dimension, flat residency on one with no chunk domain; and
-    ``NotImplementedError`` for an encoded wire at windows > 1 or with
-    chunk-ready dispatch, which the port does not run yet."""
+    dimension, flat residency on one with no chunk domain.  Every wire
+    runs in windows and with chunk-ready dispatch."""
     if tc.overlap_backward and tc.strategy not in PIPELINED_STRATEGIES:
         raise ValueError(
             f"overlap_backward windows the shard dimension "
@@ -81,14 +85,6 @@ def check_pipeline(tc, wire) -> None:
         raise ValueError(
             "flat_residency requires a chunk-domain strategy: fsdp_stream "
             "shards leaves over 'data' and has no flat parameter store")
-    if not wire.is_identity and (tc.pipeline_windows > 1
-                                 or tc.overlap_backward):
-        raise NotImplementedError(
-            f"the {wire.name!r} wire runs at one window without chunk-ready "
-            f"dispatch (pipeline_windows={tc.pipeline_windows}, "
-            f"overlap_backward={tc.overlap_backward}); windows and "
-            f"chunk-ready over an encoded wire are ROADMAP.md queue A "
-            f"item 11")
 
 
 def effective_windows(group, requested: int) -> int:
@@ -114,43 +110,26 @@ def window_runs(group: GroupPlan, windows: int, w: int) -> tuple:
 def mean_divisor(n_live, device):
     """The stacked mean's divisor for the rules' kernels: None (divide by
     W), or ``n_live`` (a number or a 0-dim tensor on the card) as a
-    one-element f32 tensor on ``device``."""
+    one-element f32 tensor on ``device`` (a number by a fill: no copy from
+    the host)."""
     if n_live is None:
         return None
-    return torch.as_tensor(n_live, dtype=torch.float32).to(device).reshape(1)
-
-
-def exchange_window(comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
-                    slots: tuple, update_fn: Callable, group: GroupPlan,
-                    windows: int, w: int, p_out: torch.Tensor,
-                    divisor=None) -> None:
-    """Window w of the stacked windowed exchange: for every shard j, the
-    fused aggregate+update of its strip, one launch reading the strip of
-    every worker's row of ``g`` (W, padded) in place; p' into ``p_out``
-    at the strip's offsets, the slots updated in place.  At W == 1 the
-    reduce-scatter is the identity and the mean over one worker exact
-    (the reference's path into agg_opt_chunks), as in ``exchange_group``."""
-    for sl in window_runs(group, windows, w):
-        sw = tuple(s[sl] for s in slots)
-        if comm.n_workers == 1:
-            update_fn(p[sl], g[0, sl], sw, p_out=p_out[sl])
-        else:
-            update_fn(p[sl], g[:, sl], sw, divisor=divisor, p_out=p_out[sl])
+    if isinstance(n_live, torch.Tensor):
+        return n_live.to(device, torch.float32).reshape(1)
+    return torch.full((1,), float(n_live), dtype=torch.float32,
+                      device=device)
 
 
 def pipelined_exchange(comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
-                       slots: tuple, update_fn: Callable, group: GroupPlan,
-                       windows: int, n_live=None) -> tuple:
+                       slots: tuple, update_fn: Callable, windows: int,
+                       n_live=None) -> tuple:
     """The windowed counterpart of ``exchange_group``: windows 0 .. W-1 in
     order, each ``exchange_window``.  Returns (p', slots), the slots
     updated in place; p' equals the monolithic exchange's bitwise."""
-    check_stacked(comm, g, p)
-    p_out = torch.empty_like(p)
-    divisor = mean_divisor(n_live, g.device)
+    ex = WindowedExchange(comm, g, p, slots, update_fn, windows, n_live)
     for w in range(windows):
-        exchange_window(comm, g, p, slots, update_fn, group, windows, w,
-                        p_out, divisor)
-    return p_out, slots
+        ex.window(w)
+    return ex.finish()
 
 
 def run_exchange(strategy: str, comm: StackedComm, g: torch.Tensor,
@@ -163,8 +142,8 @@ def run_exchange(strategy: str, comm: StackedComm, g: torch.Tensor,
     if strategy in PIPELINED_STRATEGIES:
         w = effective_windows(group, windows)
         if w > 1:
-            return pipelined_exchange(comm, g, p, slots, update_fn, group,
-                                      w, n_live)
+            return pipelined_exchange(comm, g, p, slots, update_fn, w,
+                                      n_live)
     return exchange_group(comm, g, p, slots, update_fn, n_live)
 
 
@@ -176,32 +155,225 @@ def check_stacked(comm: StackedComm, g: torch.Tensor, p: torch.Tensor):
                          f"{p.numel()})")
 
 
+def _check_wire_strategy(strategy: str, wire) -> None:
+    if wire.is_identity:
+        raise ValueError("identity wire travels exchange_group (the "
+                         "pre-wire path); run_wire_exchange is the encoded "
+                         "datapath")
+    if strategy not in PIPELINED_STRATEGIES:
+        raise ValueError(
+            f"wire format {wire.name!r} needs a strategy with a shard "
+            f"dimension {PIPELINED_STRATEGIES}; {strategy!r} has none")
+
+
 def run_chunk_ready_exchange(strategy: str, comm: StackedComm,
                              g: torch.Tensor, p: torch.Tensor, slots: tuple,
                              update_fn: Callable, group: GroupPlan,
-                             windows: int, n_live=None, stream=None):
+                             windows: int, n_live=None, stream=None, *,
+                             wire=None, residual=None, fused_dequant=None):
     """The chunk-ready dispatch of one dtype group: a ``ChunkReadyExchange``
     at the effective window count, or None when that is 1 (one window
-    waits for the whole backward: the caller runs the monolithic
-    ``exchange_group`` after it, as the reference does)."""
+    waits for the whole backward: the caller runs the monolithic exchange
+    after it, as the reference does).  With an encoded ``wire`` (and its
+    ``residual``, the ``wire_ef`` slot, and ``fused_dequant``) each window
+    runs the encoded ring and ``finish`` the pull, as
+    ``run_chunk_ready_wire_exchange`` does."""
     if strategy not in PIPELINED_STRATEGIES:
         raise ValueError(f"strategy {strategy!r} has no shard dimension to "
                          f"window; use exchange_group")
+    if wire is not None:
+        _check_wire_strategy(strategy, wire)
     w = effective_windows(group, windows)
     if w == 1:
         return None
     return ChunkReadyExchange(comm, g, p, slots, update_fn, group, w, n_live,
-                              stream)
+                              stream, wire=wire, residual=residual,
+                              fused_dequant=fused_dequant)
+
+
+def _strip(v: torch.Tensor, S: int, windows: int, w: int) -> torch.Tensor:
+    """Window w's strip of every shard of the (n,) vector v, in place: an
+    (S, Lw) view whose rows lie L = n/S apart."""
+    L = v.numel() // S
+    Lw = L // windows
+    return v.view(S, L)[:, w * Lw:(w + 1) * Lw]
+
+
+def _runs(g: torch.Tensor, k: int, windows: int, w: int):
+    """(the packed columns, the row and its columns that hold G[j+k, j])
+    of window w for every shard j."""
+    S, n = g.shape
+    L = n // S
+    Lw = L // windows
+    return [(slice(j * Lw, (j + 1) * Lw), (j + k) % S,
+             slice(j * L + w * Lw, j * L + (w + 1) * Lw)) for j in range(S)]
+
+
+def add_ring_rows_(acc: torch.Tensor, g: torch.Tensor, k: int,
+                   windows: int = 1, w: int = 0) -> torch.Tensor:
+    """acc[shard j] += G[j+k, j] for every shard j of window w (acc holds
+    the window's strips packed), in f32, in place."""
+    for packed, row, cols in _runs(g, k, windows, w):
+        acc[packed].add_(g[row, cols])
+    return acc
+
+
+def ring_rows(g: torch.Tensor, k: int, windows: int = 1, w: int = 0
+              ) -> torch.Tensor:
+    """The f32 vector of window w's strips packed, shard j's being
+    G[j+k, j]; at one window the (padded,) vector whose shard j is
+    G[j+k, j]."""
+    S, n = g.shape
+    out = torch.empty(n // windows, dtype=torch.float32, device=g.device)
+    for packed, row, cols in _runs(g, k, windows, w):
+        out[packed].copy_(g[row, cols])
+    return out
+
+
+def ring_reduce_scatter(g: torch.Tensor, wire, chunk_elems: int,
+                        windows: int = 1, w: int = 0) -> Optional[tuple]:
+    """The encoded ring reduce-scatter of window w of every shard at once:
+    g is the (S, padded) stacked gradient buffer; returns the
+    still-encoded partial that arrives at each owner (the window's strips
+    packed in one wire tuple), without the owner's own rows; None when
+    S == 1 (nothing crosses a wire).  The reference's ``rs_window``."""
+    S = g.shape[0]
+    if S == 1:
+        return None
+    parts = wire.encode(ring_rows(g, 1, windows, w), chunk_elems)
+    for k in range(2, S):
+        acc = wire.decode(parts, chunk_elems)
+        del parts                          # free the payload before encoding
+        parts = wire.encode(add_ring_rows_(acc, g, k, windows, w),
+                            chunk_elems)
+        del acc
+    return parts
+
+
+class WindowedExchange:
+    """One dtype group's windowed exchange for one step, over the identity
+    wire or an encoded one: ``window(w)`` runs window w (any order), and
+    ``finish()`` returns (p', slots) (identity) or (p', slots, wire_ef')
+    (encoded, after the pull).  p' is allocated at the first window, the
+    slots are updated in place.
+
+    Identity: ``exchange_window``, the divisor the live count (None:
+    divide by W).  Encoded: window w's ring over its strips
+    (``ring_reduce_scatter``), then the owners' tail: ``fused_dequant``
+    (one launch over the window's strips, p, m and the owners' rows read
+    in place; a gate's ``n_live`` tensor goes to its divisor pointer, a
+    static membership's is baked in its ``inv_n``) or the decoded sum plus
+    the owners' rows divided by N and the rule, per (window, shard) (one
+    call over the domain at one window); at S == 1 the rule on the own row
+    (the mean over one worker is exact).  ``finish`` runs the pull: the
+    delta of the whole domain plus ``residual`` encoded and decoded, the
+    parameters written back p plus the decoded delta."""
+
+    def __init__(self, comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
+                 slots: tuple, update_fn: Callable, windows: int,
+                 n_live=None, *, wire=None, chunk_elems: int = 0,
+                 residual=None, fused_dequant=None):
+        check_stacked(comm, g, p)
+        self.comm, self.g, self.p, self.slots = comm, g, p, slots
+        self.update_fn, self.windows = update_fn, windows
+        self.wire, self.ce = wire, chunk_elems
+        self.residual, self.fused_dequant = residual, fused_dequant
+        self.gate = isinstance(n_live, torch.Tensor)
+        if wire is None:
+            self.divisor = mean_divisor(n_live, g.device)
+        elif comm.n_workers > 1:       # the decoded sum is divided by N
+            self.divisor = mean_divisor(
+                comm.n_workers if n_live is None else n_live, g.device)
+        self.p_out = None
+
+    def window(self, w: int) -> None:
+        if self.p_out is None:
+            self.p_out = torch.empty_like(self.p)
+        g, p, p_out, slots = self.g, self.p, self.p_out, self.slots
+        if self.wire is None:
+            exchange_window(self.comm, g, p, slots, self.update_fn,
+                            self.windows, w, p_out, self.divisor)
+            return
+        S, W = self.comm.n_workers, self.windows
+        if S == 1:
+            Lw = p.numel() // W
+            cols = slice(w * Lw, (w + 1) * Lw)
+            self.update_fn(p[cols], g[0, cols], tuple(s[cols] for s in slots),
+                           p_out=p_out[cols])
+            return
+        parts = ring_reduce_scatter(g, self.wire, self.ce, W, w)
+        if self.fused_dequant is not None:
+            self.fused_dequant(
+                _strip(p, S, W, w), parts, own_strips(g, W, w),
+                tuple(_strip(s, S, W, w) for s in slots),
+                divisor=self.divisor if self.gate else None,
+                p_out=_strip(p_out, S, W, w))
+            return
+        gsum = self.wire.decode(parts, self.ce)
+        del parts
+        add_ring_rows_(gsum, g, 0, W, w)
+        # divided, by a tensor on the device: PyTorch's CUDA division by a
+        # Python number multiplies by the reciprocal
+        gsum.div_(self.divisor)
+        if W == 1:                       # the strips are the whole domain
+            self.update_fn(p, gsum, slots, p_out=p_out)
+            return
+        L = p.numel() // S
+        Lw = L // W
+        for j in range(S):
+            cols = slice(j * L + w * Lw, j * L + (w + 1) * Lw)
+            self.update_fn(p[cols], gsum[j * Lw:(j + 1) * Lw],
+                           tuple(s[cols] for s in slots), p_out=p_out[cols])
+
+    def finish(self) -> tuple:
+        if self.wire is None:
+            return self.p_out, self.slots
+        # pull: encode the delta plus the carried residual; the decoded
+        # payload is both what the residual keeps and what the workers add
+        # to p
+        p, ce = self.p, self.ce
+        e = (self.p_out.float() - p.float()).add_(self.residual)
+        self.p_out = None
+        parts = self.wire.encode(e, ce)
+        d = self.wire.decode(parts, ce)
+        del parts
+        r = e.sub_(d)
+        return d.add_(p).to(p.dtype), self.slots, r
+
+
+def exchange_window(comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
+                    slots: tuple, update_fn: Callable, windows: int, w: int,
+                    p_out: torch.Tensor, divisor=None) -> None:
+    """Window w of the stacked windowed exchange over the identity wire:
+    for every shard j, the fused aggregate+update of its strip, one launch
+    reading the strip of every worker's row of ``g`` (W, padded) in place;
+    p' into ``p_out`` at the strip's offsets, the slots updated in place.
+    At W == 1 the reduce-scatter is the identity and the mean over one
+    worker exact (the reference's path into agg_opt_chunks), as in
+    ``exchange_group``."""
+    S = comm.n_workers
+    L = p.numel() // S
+    Lw = L // windows
+    for j in range(S):
+        sl = slice(j * L + w * Lw, j * L + (w + 1) * Lw)
+        sw = tuple(s[sl] for s in slots)
+        if S == 1:
+            update_fn(p[sl], g[0, sl], sw, p_out=p_out[sl])
+        else:
+            update_fn(p[sl], g[:, sl], sw, divisor=divisor, p_out=p_out[sl])
 
 
 class ChunkReadyExchange:
     """One dtype group's chunk-ready exchange for one step (the
-    reference's ``chunk_ready_exchange``): the windowed exchange, each
+    reference's ``chunk_ready_exchange``, and over an encoded ``wire``
+    its ``run_chunk_ready_wire_exchange``): the windowed exchange, each
     window launched once every leaf that meets its strips has its
     gradient in ``g``.  Build it after every row but the last worker's is
     in ``g`` (and ``p``, ``slots`` are final); call ``leaf_ready(i)``
     once leaf i (an index into ``group.paths``) is in the last row, in
-    the stream order of the copy; ``finish()`` returns (p', slots).
+    the stream order of the copy; ``finish()`` returns what
+    ``WindowedExchange.finish`` does (the encoded wire's pull runs there,
+    after every window).
 
     On the card each window goes on ``stream``, ordered after the work
     queued so far on the current stream by an event (the leaf's copy, in
@@ -216,11 +388,14 @@ class ChunkReadyExchange:
 
     def __init__(self, comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
                  slots: tuple, update_fn: Callable, group: GroupPlan,
-                 windows: int, n_live=None, stream=None):
-        check_stacked(comm, g, p)
-        self.args = (comm, g, p, slots, update_fn, group, windows)
-        self.p_out = None
-        self.divisor = mean_divisor(n_live, g.device)
+                 windows: int, n_live=None, stream=None, *, wire=None,
+                 residual=None, fused_dequant=None):
+        self.ex = WindowedExchange(comm, g, p, slots, update_fn, windows,
+                                   n_live, wire=wire,
+                                   chunk_elems=group.chunk_elems,
+                                   residual=residual,
+                                   fused_dequant=fused_dequant)
+        self.g = g
         self.stream = stream
         self.waiting = [set(ix)
                         for ix in chunking.window_leaves(group, windows)]
@@ -237,20 +412,17 @@ class ChunkReadyExchange:
                     self._launch(w)
 
     def _launch(self, w: int) -> None:
-        comm, g, p, slots, update_fn, group, windows = self.args
         with torch.no_grad():
-            if self.p_out is None:
-                self.p_out = torch.empty_like(p)
-            run = (comm, g, p, slots, update_fn, group, windows, w,
-                   self.p_out, self.divisor)
+            if self.ex.p_out is None:        # on the backward's stream
+                self.ex.p_out = torch.empty_like(self.ex.p)
             if self.stream is None:
-                exchange_window(*run)
+                self.ex.window(w)
             else:
                 done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(g.device))
+                done.record(torch.cuda.current_stream(self.g.device))
                 self.stream.wait_event(done)
                 with torch.cuda.stream(self.stream):
-                    exchange_window(*run)
+                    self.ex.window(w)
         self.order.append(w)
 
     def finish(self) -> tuple:
@@ -259,109 +431,49 @@ class ChunkReadyExchange:
             raise RuntimeError(f"windows {missing} never became ready: "
                                f"their leaves' gradients did not arrive")
         if self.stream is not None:
-            torch.cuda.current_stream(self.p_out.device).wait_stream(
+            torch.cuda.current_stream(self.g.device).wait_stream(
                 self.stream)
-        return self.p_out, self.args[3]
-
-
-def _runs(g: torch.Tensor, k: int):
-    """(shard j's columns, the row that holds G[j+k, j]) for every j."""
-    S, n = g.shape
-    L = n // S
-    return [(slice(j * L, (j + 1) * L), (j + k) % S) for j in range(S)]
-
-
-def add_ring_rows_(acc: torch.Tensor, g: torch.Tensor, k: int
-                   ) -> torch.Tensor:
-    """acc[shard j] += G[j+k, j] for every shard j, in f32, in place."""
-    for cols, w in _runs(g, k):
-        acc[cols].add_(g[w, cols])
-    return acc
-
-
-def ring_rows(g: torch.Tensor, k: int) -> torch.Tensor:
-    """The (padded,) f32 vector whose shard j is G[j+k, j]."""
-    out = torch.empty(g.shape[1], dtype=torch.float32, device=g.device)
-    for cols, w in _runs(g, k):
-        out[cols].copy_(g[w, cols])
-    return out
-
-
-def ring_reduce_scatter(g: torch.Tensor, wire, chunk_elems: int
-                        ) -> Optional[tuple]:
-    """The encoded ring reduce-scatter of every shard at once: g is the
-    (S, padded) stacked gradient buffer; returns the still-encoded partial
-    that arrives at each owner (all shards in one wire tuple), without the
-    owner's own rows; None when S == 1 (nothing crosses a wire).  The
-    counterpart of the reference's ``rs_window`` at one window."""
-    S = g.shape[0]
-    if S == 1:
-        return None
-    parts = wire.encode(ring_rows(g, 1), chunk_elems)
-    for k in range(2, S):
-        acc = wire.decode(parts, chunk_elems)
-        del parts                          # free the payload before encoding
-        parts = wire.encode(add_ring_rows_(acc, g, k), chunk_elems)
-        del acc
-    return parts
+        with torch.no_grad():
+            return self.ex.finish()
 
 
 def pipelined_wire_exchange(comm: StackedComm, g: torch.Tensor,
                             p: torch.Tensor, slots: tuple,
                             update_fn: Callable, wire, chunk_elems: int,
                             residual: torch.Tensor,
-                            fused_dequant: Optional[Callable] = None):
-    """One dtype group's sharded_ps exchange over an encoded wire, at one
-    window.  g: (S, padded) stacked gradients; p: (padded,); ``slots``:
-    the rule's (padded,) state vectors; ``residual``: the (padded,) f32
-    ``wire_ef`` slot.  ``fused_dequant(p, parts, g, slots)`` fuses the
-    owner's decode, its own rows (read on g's block diagonal) and the mean
-    into the rule (``ShardedOptimizer.kernel_dequant_update``); without it
-    the partial is decoded, the own rows added, the sum divided by N and
-    handed to ``update_fn``.  Returns (p', slots', residual'), where p' is
-    p plus the decoded pull delta (not the rule's p'): what every worker
-    applies after the all-gather, which is the identity on one card."""
-    S, ce = comm.n_workers, chunk_elems
-    check_stacked(comm, g, p)
-    parts = ring_reduce_scatter(g, wire, ce)
-    if parts is None:
-        # S == 1: the own row alone, and the mean over one worker is exact
-        p2, s2 = update_fn(p, g[0], slots)
-    elif fused_dequant is not None:
-        p2, s2 = fused_dequant(p, parts, g, slots)
-    else:
-        gsum = wire.decode(parts, ce)
-        del parts
-        add_ring_rows_(gsum, g, 0)
-        # divided, by a tensor on the device: PyTorch's CUDA division by a
-        # Python number multiplies by the reciprocal
-        p2, s2 = update_fn(p, gsum.div_(gsum.new_tensor(float(S))), slots)
-        del gsum
-
-    # pull: encode the delta plus the carried residual; the decoded payload
-    # is both what the residual keeps and what the workers add to p
-    e = (p2.float() - p.float()).add_(residual)
-    del p2
-    parts = wire.encode(e, ce)
-    d = wire.decode(parts, ce)
-    del parts
-    r = e.sub_(d)
-    return d.add_(p).to(p.dtype), s2, r
+                            fused_dequant: Optional[Callable] = None,
+                            windows: int = 1, n_live=None):
+    """One dtype group's sharded_ps exchange over an encoded wire, windows
+    0 .. W-1 in order, then the pull.  g: (S, padded) stacked gradients;
+    p: (padded,); ``slots``: the rule's (padded,) state vectors, updated
+    in place; ``residual``: the (padded,) f32 ``wire_ef`` slot.
+    ``fused_dequant(p, parts, g_own, slots, divisor=, p_out=)`` fuses the
+    owner's decode, its own rows and the mean into the rule
+    (``ShardedOptimizer.kernel_dequant_update``); without it the partial
+    is decoded, the own rows added, the sum divided by N and handed to
+    ``update_fn``.  ``n_live``: None (N = S), a number (a static
+    membership) or a 0-dim tensor on the card (the gate's).  Returns (p',
+    slots', residual'), where p' is p plus the decoded pull delta (not the
+    rule's p'): what every worker applies after the all-gather, which is
+    the identity on one card."""
+    ex = WindowedExchange(comm, g, p, slots, update_fn, windows, n_live,
+                          wire=wire, chunk_elems=chunk_elems,
+                          residual=residual, fused_dequant=fused_dequant)
+    for w in range(windows):
+        ex.window(w)
+    return ex.finish()
 
 
 def run_wire_exchange(strategy: str, comm: StackedComm, g: torch.Tensor,
                       p: torch.Tensor, slots: tuple, update_fn: Callable,
                       group: GroupPlan, wire, residual: torch.Tensor,
-                      fused_dequant: Optional[Callable] = None):
-    """Dispatch one dtype group over a non-identity wire; the identity wire
-    takes ``core/exchange.py::exchange_group``, the pre-wire path."""
-    if wire.is_identity:
-        raise ValueError("identity wire travels exchange_group (the "
-                         "pre-wire path); run_wire_exchange is the encoded "
-                         "datapath")
-    if strategy not in PIPELINED_STRATEGIES:
-        raise ValueError(
-            f"wire format {wire.name!r} needs a strategy with a shard "
-            f"dimension {PIPELINED_STRATEGIES}; {strategy!r} has none")
+                      fused_dequant: Optional[Callable] = None,
+                      windows: int = 1, n_live=None):
+    """Dispatch one dtype group over a non-identity wire at the effective
+    window count (one window is the schedule's W = 1, as in the
+    reference); the identity wire takes ``run_exchange``."""
+    _check_wire_strategy(strategy, wire)
     return pipelined_wire_exchange(comm, g, p, slots, update_fn, wire,
-                                   group.chunk_elems, residual, fused_dequant)
+                                   group.chunk_elems, residual,
+                                   fused_dequant,
+                                   effective_windows(group, windows), n_live)

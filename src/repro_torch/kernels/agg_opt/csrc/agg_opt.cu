@@ -30,7 +30,8 @@
 //             p2 = p - (k1n > 0 ? step : +0)
 // and for dequant_agg_opt_chunks, with the int8 ring partial q, its chunk's
 // f32 scale s and the owner's own gradient row g_own,
-//   g = (q * s + g_own) * inv_n,  then the Nesterov update;
+//   g = (q * s + g_own) * inv_n   (or / d, d = *divisor),
+// then the Nesterov update;
 // then every result is stored in its input's dtype (f32 or bf16, RNE; Adam's
 // k1/k2 are always f32).  The gradient g of the three rules has the dtype
 // of p, or is f32 in a bf16 group: the decoded int8 wire partial, which the
@@ -303,39 +304,52 @@ adam_opt_kernel(const T* __restrict__ p, const G* __restrict__ g,
   }
 }
 
-// p, m, g_own, p_out, m_out: (n_chunks, chunk_elems) of T, except that
-// g_own's chunk c starts at c * chunk_elems + (c * chunk_elems / shard_len)
-// * own_stride: own_stride = 0 reads a contiguous g_own, and own_stride =
-// S * shard_len reads the block diagonal of the stacked (S, S * shard_len)
-// gradient buffer in place (shard j's own row j).  q: (n_chunks,
-// chunk_elems) int8; scales: (n_chunks,) f32.  chunk_elems is the wire's
-// chunk (one scale each), a multiple of 4; shard_len a multiple of it.
+// The launch covers n_rows runs of row_len elements each (row_len a whole
+// number of the wire's chunks, chunk_elems a multiple of 4): run j of p, m,
+// p_out and m_out starts at j * pm_stride, run j of g_own at j * own_stride,
+// and q and scales hold the runs packed one after another (the ring's
+// payload of the launch).  So one launch takes a window's strip of every
+// shard in place: p's runs lie shard_len apart, and g_own's runs are the
+// block diagonal of the stacked (S, padded) gradient buffer (shard j's strip
+// of row j, padded + shard_len apart).  The whole domain is the one-window
+// case (row_len = pm_stride = shard_len).  divisor: null takes the mean as
+// * inv_n (the static form: the full rack or a fixed k-of-n membership,
+// 1/N baked on the host, as the reference bakes it into its kernel); set,
+// as / *divisor (the sanity gate's live count on the card).  m_out may be m
+// (not __restrict__): the windowed exchange updates m in place.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dequant_agg_opt_kernel(const T* __restrict__ p, const int8_t* __restrict__ q,
                        const float* __restrict__ scales,
-                       const T* __restrict__ g_own, const T* __restrict__ m,
-                       T* __restrict__ p_out, T* __restrict__ m_out,
-                       int64_t shard_len, int64_t own_stride,
-                       int chunk_elems, float lr, float mu, float inv_n) {
+                       const T* __restrict__ g_own, const T* m,
+                       T* __restrict__ p_out, T* m_out, int64_t row_len,
+                       int64_t pm_stride, int64_t own_stride,
+                       int chunk_elems, float lr, float mu, float inv_n,
+                       const float* __restrict__ divisor) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
-  const T* own = g_own + base + (base / shard_len) * own_stride;
+  const int64_t row = base / row_len;
+  const int64_t col = base - row * row_len;
+  const int64_t at = row * pm_stride + col;
+  const T* own = g_own + row * own_stride + col;
   const float s = scales[blockIdx.x];
+  const bool divide = divisor != nullptr;
+  const float d = divide ? *divisor : 0.0f;
   for (int i = threadIdx.x * kVec; i < chunk_elems; i += kThreads * kVec) {
-    const int64_t off = base + i;
-    const char4 c = *reinterpret_cast<const char4*>(q + off);
+    const char4 c = *reinterpret_cast<const char4*>(q + base + i);
     const float qv[4] = {static_cast<float>(c.x), static_cast<float>(c.y),
                          static_cast<float>(c.z), static_cast<float>(c.w)};
     float gg[4], mv[4], pv[4];
     load4(own + i, gg);
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      gg[k] = __fmul_rn(__fadd_rn(__fmul_rn(qv[k], s), gg[k]), inv_n);
-    load4(m + off, mv);
-    load4(p + off, pv);
+    for (int k = 0; k < 4; ++k) {
+      const float sum = __fadd_rn(__fmul_rn(qv[k], s), gg[k]);
+      gg[k] = divide ? __fdiv_rn(sum, d) : __fmul_rn(sum, inv_n);
+    }
+    load4(m + at + i, mv);
+    load4(p + at + i, pv);
     nesterov4(pv, mv, gg, lr, mu);
-    store4(p_out + off, pv);
-    store4(m_out + off, mv);
+    store4(p_out + at + i, pv);
+    store4(m_out + at + i, mv);
   }
 }
 
@@ -473,16 +487,18 @@ extern "C" int adam_opt_chunks(const void* p, const void* g, void* m, void* v,
   });
 }
 
-// dtype: 0 = float32, 1 = bfloat16 for p, g_own and m.  own_stride and
-// shard_len as for dequant_agg_opt_kernel.
+// dtype: 0 = float32, 1 = bfloat16 for p, g_own and m.  row_len,
+// pm_stride, own_stride and divisor as for dequant_agg_opt_kernel; n_chunks
+// = n_rows * row_len / chunk_elems.
 extern "C" int dequant_agg_opt_chunks(const void* p, const void* q,
                                       const void* scales, const void* g_own,
                                       const void* m, void* p_out,
                                       void* m_out, long long n_chunks,
-                                      int chunk_elems, long long shard_len,
+                                      int chunk_elems, long long row_len,
+                                      long long pm_stride,
                                       long long own_stride, int dtype,
                                       float lr, float mu, float inv_n,
-                                      void* stream) {
+                                      const void* divisor, void* stream) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return with_dtypes(dtype, [&](auto tt, auto) {
     using T = typename decltype(tt)::type;
@@ -491,8 +507,8 @@ extern "C" int dequant_agg_opt_chunks(const void* p, const void* q,
         static_cast<const T*>(p), static_cast<const int8_t*>(q),
         static_cast<const float*>(scales), static_cast<const T*>(g_own),
         static_cast<const T*>(m), static_cast<T*>(p_out),
-        static_cast<T*>(m_out), shard_len, own_stride, chunk_elems, lr, mu,
-        inv_n);
+        static_cast<T*>(m_out), row_len, pm_stride, own_stride, chunk_elems,
+        lr, mu, inv_n, static_cast<const float*>(divisor));
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -21,9 +21,11 @@ windowed exchange hands a window's strip of the (W, padded) buffer in
 place.  Every row must start 16 bytes aligned; a contiguous ``g`` whose
 rows do not (n not a multiple of 16 bytes) is the one input still padded
 by a copy.  With ``p_out`` (the windowed exchange's form) the rules write
-p' there and update their slots in place.  The dequant and health
-kernels take whole chunks (zero-padded copies otherwise); the dequant
-kernel's chunk is the wire's own, since each carries one scale.
+p' there and update their slots in place.  The dequant kernel takes whole
+chunks of the wire's own size (each carries one scale), as runs: a
+window's strip of every shard, p's runs and the owners' rows read in
+place; the health kernel takes whole chunks (a zero-padded copy
+otherwise).
 
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
 the kernel, and a library that cannot be built or loaded raises.
@@ -41,7 +43,8 @@ import torch.nn.functional as F
 
 from .. import _build
 from .ref import (adam_opt_ref, agg_opt_ref, dequant_agg_opt_ref,
-                  health_chunks_ref, multi_agg_opt_ref, sgd_opt_ref)
+                  health_chunks_ref, multi_agg_opt_ref, own_strips,
+                  sgd_opt_ref)
 
 _LANE = 128
 # (state dtype, gradient dtype) -> the kernels' dtype code
@@ -74,7 +77,8 @@ def _lib() -> ctypes.CDLL:
                  [vp] * 7 + [i64, i32, i32, i64, i32] + [f32] * 6
                  + [vp, vp]),
                 ("dequant_agg_opt_chunks",
-                 [vp] * 7 + [i64, i32, i64, i64, i32] + [f32] * 3 + [vp]),
+                 [vp] * 7 + [i64, i32, i64, i64, i64, i32] + [f32] * 3
+                 + [vp, vp]),
                 ("health_chunks", [vp] * 2 + [i64, i32, i32, vp])):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, i32
@@ -319,48 +323,127 @@ def fused_adam_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     return (p2, *slots)
 
 
+def _runs_of(t: torch.Tensor, name: str) -> torch.Tensor:
+    """A (R, Lr) view of runs: unit inner stride, rows non-overlapping."""
+    if t.dim() != 2 or t.stride(1) != 1 or (
+            t.shape[0] > 1 and t.stride(0) < t.shape[1]):
+        raise ValueError(f"{name} {tuple(t.shape)} (strides {t.stride()}) "
+                         f"is not a view of non-overlapping unit-stride "
+                         f"runs")
+    return t
+
+
+def _dequant_runs(p, g_own, m, p_out, ce):
+    """(p, g_own, m, p_out) as (R, Lr) run views: a 2-D p as it is (its
+    runs, a window's strip of every shard); a flat p with a flat g_own as
+    one run; a flat p with the stacked (S, n) g_own as S shards, g_own's
+    run j its block diagonal (shard j's run of row j, read in place)."""
+    if p.dim() == 2:
+        if tuple(g_own.shape) != tuple(p.shape):
+            raise ValueError(f"g_own {tuple(g_own.shape)} is not p's runs "
+                             f"{tuple(p.shape)}")
+        return p, g_own, m, p_out
+    if p.dim() != 1:
+        raise ValueError(f"p must be (n,) or (R, Lr), got {tuple(p.shape)}")
+    n = p.numel()
+    if g_own.dim() == 1:
+        S, own = 1, g_own.view(1, n)
+    else:
+        S = g_own.shape[0]
+        L = n // S
+        if tuple(g_own.shape) != (S, n) or S * L != n or L % ce:
+            raise ValueError(f"the stacked g_own {tuple(g_own.shape)} does "
+                             f"not split into {S} shards of whole chunks")
+        own = own_strips(g_own)
+    L = n // S
+    return (p.view(S, L), own, m.view(S, L),
+            None if p_out is None else p_out.view(S, L))
+
+
 def fused_dequant_agg_opt(p: torch.Tensor, q: torch.Tensor,
                           scales: torch.Tensor, g_own: torch.Tensor,
                           m: torch.Tensor, *, lr: float, momentum: float,
-                          inv_n: float, chunk_elems: int = 8192):
+                          inv_n: float, chunk_elems: int = 8192,
+                          divisor: torch.Tensor | None = None,
+                          p_out: torch.Tensor | None = None):
     """Fused int8-wire dequant + mean + Nesterov: ``g = (q * s + g_own) *
     inv_n`` per chunk of ``chunk_elems`` (the wire's chunk, one scale
-    each), then the update.  p, m: (n,); q: (n,) int8; scales: (n/ce,)
-    f32; g_own: (n,) in p's dtype, or the stacked (S, n) gradient buffer,
-    whose block diagonal (shard j's run of row j, n/S a multiple of
-    chunk_elems) the kernel reads in place.  Returns (p', m')."""
-    stacked = _check(p, g_own, (m,))
-    if g_own.dtype != p.dtype:
-        raise TypeError(f"g_own: dtype {g_own.dtype}, want {p.dtype}")
-    n, ce = p.numel(), chunk_elems
-    if ce < 1 or n % ce:
-        raise ValueError(f"fused_dequant_agg_opt takes whole chunks: n={n}, "
-                         f"chunk_elems={ce}")
-    S = g_own.shape[0] if stacked else 1
-    L = n // S
-    if S * L != n or L % ce:
-        raise ValueError(f"the stacked g_own {tuple(g_own.shape)} does not "
-                         f"split into {S} shards of whole chunks")
+    each), or ``/ divisor`` (a one-element f32 tensor on p's device, the
+    sanity gate's live count), then the update.  p, m: (n,), or (R, Lr)
+    runs whose rows lie ``p.stride(0)`` apart (a window's strip of every
+    shard, read in place; Lr whole chunks); g_own: p's shape (its rows any
+    distance apart: the block diagonal of a window), or for p (n,) the
+    stacked (S, n) gradient buffer, read on its block diagonal (shard j's
+    run of row j, n/S whole chunks); q: the R*Lr codes packed, int8;
+    scales: one f32 a chunk.  Returns (p', m'), new and contiguous; with
+    ``p_out`` (p's shape and strides) p' is written there and m updated
+    in place."""
+    ce = chunk_elems
+    if ce < 1:
+        raise ValueError(f"chunk_elems must be positive, got {ce}")
+    if p.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"p: dtype {p.dtype} is not float32/bfloat16")
+    pr, own, mr, por = _dequant_runs(p, g_own, m, p_out, ce)
+    R, Lr = pr.shape
+    for name, t in (("p", pr), ("g_own", own), ("m", mr)) + (
+            (("p_out", por),) if por is not None else ()):
+        _runs_of(t, name)
+        if t.dtype != p.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, want {p.dtype}")
+        if t.device != p.device:
+            raise ValueError(f"{name} is on {t.device}, p on {p.device}")
+    for name, t in (("m", mr), ("p_out", por)):
+        if t is not None and (t.shape != pr.shape
+                              or t.stride() != pr.stride()):
+            raise ValueError(f"{name} {tuple(t.shape)} (strides "
+                             f"{t.stride()}) is not laid out as p "
+                             f"{tuple(pr.shape)} ({pr.stride()})")
+    if por is None and not pr.is_contiguous():
+        raise ValueError("p's runs are not contiguous: pass p_out")
+    if Lr % ce:
+        raise ValueError(f"fused_dequant_agg_opt takes whole chunks: runs of "
+                         f"{Lr}, chunk_elems={ce}")
+    n = R * Lr
     _check_vec("q", q, p, torch.int8)
     _check_vec("scales", scales, p, torch.float32)
-    if q.shape != p.shape or tuple(scales.shape) != (n // ce,):
+    if tuple(q.shape) != (n,) or tuple(scales.shape) != (n // ce,):
         raise ValueError(f"q {tuple(q.shape)} / scales "
-                         f"{tuple(scales.shape)} do not match p ({n},) in "
-                         f"chunks of {ce}")
+                         f"{tuple(scales.shape)} do not match {n} elements "
+                         f"in chunks of {ce}")
+    ptrs = [t.data_ptr() for t in (pr, mr) + ((por,) if por is not None
+                                              else ())]
+    if len(set(ptrs)) != len(ptrs):
+        raise ValueError("p, p_out and m must not alias")
+    dptr = _divisor_ptr(divisor, p, True)
     if p.device.type == "cpu":
-        return dequant_agg_opt_ref(p, q, scales, g_own, m, lr=lr,
-                                   momentum=momentum, inv_n=inv_n,
-                                   chunk_elems=ce)
+        p2, m2 = dequant_agg_opt_ref(pr, q, scales, own, mr, lr=lr,
+                                     momentum=momentum, inv_n=inv_n,
+                                     chunk_elems=ce, divisor=divisor)
+        if por is None:
+            return p2.view(p.shape), m2.view(m.shape)
+        por.copy_(p2)
+        mr.copy_(m2)
+        return p_out, m
     if ce % 4:
         raise ValueError(f"the CUDA kernel takes chunks of a multiple of 4 "
                          f"elements, got {ce}")
-    pc, qc, gc, mc = (_chunked(t, ce) for t in (p, q, g_own, m))
-    p2, m2 = torch.empty_like(pc), torch.empty_like(mc)
-    _call("dequant_agg_opt_chunks", p.device, pc.data_ptr(), qc.data_ptr(),
-          scales.data_ptr(), gc.data_ptr(), mc.data_ptr(), p2.data_ptr(),
-          m2.data_ptr(), n // ce, ce, L, n if stacked else 0,
-          _DTYPE_CODE[p.dtype, p.dtype], lr, momentum, inv_n)
-    return p2.view(-1), m2.view(-1)
+    vec = 4 * p.element_size()
+    for t in (pr, own, mr) + ((por,) if por is not None else ()):
+        if t.data_ptr() % vec or (t.stride(0) * t.element_size()) % vec:
+            raise ValueError("a run of p, g_own, m or p_out does not start "
+                             "on a 4-element vector boundary")
+    _check_aligned(q)
+    if por is None:
+        por, m_out = torch.empty_like(pr), torch.empty_like(mr)
+    else:
+        m_out = mr
+    _call("dequant_agg_opt_chunks", p.device, pr.data_ptr(), q.data_ptr(),
+          scales.data_ptr(), own.data_ptr(), mr.data_ptr(), por.data_ptr(),
+          m_out.data_ptr(), n // ce, ce, Lr, pr.stride(0), own.stride(0),
+          _DTYPE_CODE[p.dtype, p.dtype], lr, momentum, inv_n, dptr)
+    if p_out is not None:
+        return p_out, m
+    return por.view(p.shape), m_out.view(m.shape)
 
 
 def fused_health_scan(g: torch.Tensor, *, chunk_elems: int = 8192

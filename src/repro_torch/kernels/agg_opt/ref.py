@@ -20,11 +20,12 @@ stacked ``g`` may be a view whose rows lie any distance apart (the row
 stride the kernels take, ``g.stride(0)``): row w is read as ``g[w]``, so
 the same values give the same bits whatever the stride.
 ``dequant_agg_opt_ref``, the int8 wire's tail, takes the owner's own rows
-contiguous or as the block diagonal of the stacked buffer
-(``block_diagonal``).  They are functional: the slots they are given are
-not written.  ``health_chunks_ref`` is the health kernel's sum of squares
-per chunk, added in the kernel's order step by step; ``health_scan_ref``
-the reference's oracle, one ``torch.sum``.
+contiguous, as the block diagonal of the stacked buffer
+(``block_diagonal``) or as a window's runs, and a divisor too.  They are
+functional: the slots they are given are not written.
+``health_chunks_ref`` is the health kernel's sum of squares per chunk,
+added in the kernel's order step by step; ``health_scan_ref`` the
+reference's oracle, one ``torch.sum``.
 """
 from __future__ import annotations
 
@@ -110,29 +111,52 @@ def adam_opt_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
             k1n.to(k1.dtype), k2n.to(k2.dtype))
 
 
+def own_strips(g: torch.Tensor, windows: int = 1, w: int = 0
+               ) -> torch.Tensor:
+    """The owners' rows of window w of the stacked (S, n) buffer, in
+    place: an (S, Lw) view whose row j is window w's strip of shard j in
+    row j (rows ``g.stride(0) + L`` apart, L = n / S, Lw = L / windows);
+    at one window the block diagonal."""
+    S, n = g.shape
+    L = n // S
+    Lw = L // windows
+    return g.as_strided((S, Lw), (g.stride(0) + L, 1),
+                        g.storage_offset() + w * Lw)
+
+
 def block_diagonal(g: torch.Tensor) -> torch.Tensor:
     """(S, n) stacked rows -> (n,): shard j's run [j*L, (j+1)*L) of row j,
     L = n / S.  On the stacked buffer that is every shard owner's own
     gradient contribution."""
     S, n = g.shape
-    L = n // S
-    if S * L != n:
+    if n % S:
         raise ValueError(f"{n} elements do not split into {S} shards")
-    return torch.cat([g[j, j * L:(j + 1) * L] for j in range(S)])
+    return own_strips(g).reshape(-1)
 
 
 def dequant_agg_opt_ref(p: torch.Tensor, q: torch.Tensor,
                         scales: torch.Tensor, g_own: torch.Tensor,
                         m: torch.Tensor, *, lr: float, momentum: float,
-                        inv_n: float, chunk_elems: int):
+                        inv_n: float, chunk_elems: int,
+                        divisor: torch.Tensor | None = None):
     """``dequant_agg_opt_chunks``' body: ``g = (q * s + g_own) * inv_n``
-    with ``s`` the chunk's scale, then the Nesterov update.  ``g_own`` is
-    (n,) or the stacked (S, n) buffer, read on its block diagonal.
-    Returns (p', m')."""
-    own = block_diagonal(g_own) if g_own.dim() == p.dim() + 1 else g_own
+    with ``s`` the chunk's scale (or ``/ divisor``, a one-element f32
+    tensor: the sanity gate's live count), then the Nesterov update.  p
+    and m are (n,), or (R, Lr) runs read row by row (a window's strip of
+    every shard; their rows may lie any distance apart); ``g_own`` has p's
+    shape, or for p (n,) is the stacked (S, n) buffer, read on its block
+    diagonal; q holds the n elements packed.  Returns (p', m'), contiguous
+    in p's shape."""
+    if p.dim() == 1 and g_own.dim() == 2:
+        own = block_diagonal(g_own)
+    else:
+        own = g_own.reshape(-1)
     deq = (q.float().reshape(-1, chunk_elems)
            * scales.float()[:, None]).reshape(-1)
-    return _nesterov(p, (deq + own.float()) * inv_n, m, lr, momentum)
+    g = deq + own.float()
+    g = g / divisor if divisor is not None else g * inv_n
+    p2, m2 = _nesterov(p.reshape(-1), g, m.reshape(-1), lr, momentum)
+    return p2.view(p.shape), m2.view(m.shape)
 
 
 HEALTH_THREADS, HEALTH_VEC, WARP = 256, 4, 32

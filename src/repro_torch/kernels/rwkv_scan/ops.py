@@ -17,10 +17,11 @@ aligned: a view that is not (a storage offset that is not a multiple of 16
 bytes) raises ``ValueError``; the wrapper does not copy it.  The model's
 inputs are fresh matmul outputs reshaped, so they are aligned.
 
-There is no backward kernel (the reference has none either: it trains
-rwkv6-3b through autograd of its chunked form, ROADMAP.md queue A item
-1), so a call that autograd would record (grad enabled and an input that
-requires grad) raises.
+There is no backward kernel (the reference has none either, and
+``jax.grad`` through its ``pallas_call`` fails: ROADMAP.md queue C), so a
+call that autograd would record (grad enabled and an input that requires
+grad) raises; training takes autograd of ``models/rwkv.py::rwkv_chunked``,
+as the reference trains rwkv6-3b.
 
 The kernel sums in another order than the plain version (fmaf chains, not
 matrix products), so it is held to a tolerance: f32 within 1e-5 *
@@ -86,10 +87,10 @@ def _check(r, k, v, w, u, state) -> None:
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u, state)):
         raise NotImplementedError(
-            "rwkv_scan_kernel has no backward kernel (ROADMAP.md queue A "
-            "item 1: rwkv6-3b training goes through autograd of the chunked "
-            "form); call it under torch.no_grad() or "
-            "torch.inference_mode()")
+            "rwkv_scan_kernel has no backward kernel (nor has the "
+            "reference's, ROADMAP.md queue C): training goes through "
+            "autograd of models/rwkv.py::rwkv_chunked; call the kernel "
+            "under torch.no_grad() or torch.inference_mode()")
 
 
 def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

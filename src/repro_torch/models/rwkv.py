@@ -55,12 +55,35 @@ def rwkv_recurrence(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(ys, dim=1).to(r.dtype), S.to(r.dtype)
 
 
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` over dim 1, whose backward is the branch PyTorch's
+    own takes when no input is zero (the reverse cumulative sum of ``out *
+    grad``, divided by the input; the same bits) without its test for
+    zeros, a host sync each call: 512 a W=2 step of rwkv6-3b, which kept
+    the host from running ahead of the card.  A zero decay makes the
+    chunked form's ``k / a`` infinite in the forward already, so the
+    other branch never gives a finite result there."""
+
+    @staticmethod
+    def forward(ctx, w):
+        a = torch.cumprod(w, dim=1)
+        ctx.save_for_backward(w, a)
+        return a
+
+    @staticmethod
+    def backward(ctx, grad):
+        w, a = ctx.saved_tensors
+        return torch.flip(torch.cumsum(torch.flip(a * grad, [1]), 1), [1]) / w
+
+
 def rwkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  w: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
                  ct: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
     """The chunked linear-attention form of the recurrence, as the
     reference writes it (T % ct == 0; the strict lower triangle by a
-    multiplied mask).  Same shapes and dtypes as ``rwkv_recurrence``."""
+    multiplied mask); the training forward, under autograd (its cumulative
+    decay through ``_Cumprod``).  Same shapes and dtypes as
+    ``rwkv_recurrence``."""
     B, T, H, hd = r.shape
     nc = T // ct
 
@@ -75,7 +98,7 @@ def rwkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ys = []
     for c in range(nc):
         r_, k_, v_, w_ = rc[c], kc[c], vc[c], wc[c]         # (B, ct, H, hd)
-        a = torch.cumprod(w_, dim=1)
+        a = _Cumprod.apply(w_)
         a_prev = torch.cat([torch.ones_like(a[:, :1]), a[:, :-1]], dim=1)
         rq = r_ * a_prev
         kd = k_ / a

@@ -88,9 +88,12 @@ class ShardedOptimizer:
 
     def kernel_dequant_update(self, chunk_elems: int, coefs: tuple,
                               inv_n: float) -> Optional[Callable]:
-        """``upd(p, (q, scales), g_own, slots) -> (p', slots')``: the int8
-        ring partial decoded, the owner's own rows ``g_own`` added, the
-        mean taken as ``* inv_n`` and the rule run, in one kernel; or
+        """``upd(p, (q, scales), g_own, slots, divisor=None, p_out=None)
+        -> (p', slots')``: the int8 ring partial decoded, the owner's own
+        rows ``g_own`` added, the mean taken as ``* inv_n`` (or ``/
+        divisor``, the gate's live count on the card) and the rule run,
+        in one kernel; p, g_own and the slots may be a window's runs, and
+        with ``p_out`` p' goes there and the slots are updated in place.
         None where the rule has no such kernel."""
         return None
 
@@ -131,11 +134,12 @@ class NesterovOptimizer(ShardedOptimizer):
         from ..kernels.agg_opt.ops import fused_dequant_agg_opt
         lr, mu = coefs
 
-        def upd(p, parts, g_own, slots):
+        def upd(p, parts, g_own, slots, divisor=None, p_out=None):
             q, scales = parts
             p2, m2 = fused_dequant_agg_opt(
                 p, q, scales, g_own, slots[0], lr=lr, momentum=mu,
-                inv_n=inv_n, chunk_elems=chunk_elems)
+                inv_n=inv_n, chunk_elems=chunk_elems, divisor=divisor,
+                p_out=p_out)
             return p2, (m2,)
         return upd
 

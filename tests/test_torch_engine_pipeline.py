@@ -22,9 +22,10 @@ flat parameter residency and chunk-ready dispatch.
 3. A checkpoint saved flat restores as a tree and the other way round,
    bitwise; the supervisor's rollback on a flat-resident model equals the
    tree-resident run bitwise; the launcher runs ``--windows`` and
-   ``--overlap`` on the CPU; an encoded wire at windows > 1 or with
-   chunk-ready dispatch raises ``NotImplementedError`` naming ROADMAP.md,
-   and at one window over a flat store equals its tree-resident run.
+   ``--overlap`` on the CPU; over the int8 wire, windows, chunk-ready
+   dispatch and a flat store equal the one-window tree-resident run
+   (``tests/test_torch_wire_pipeline.py`` holds the encoded windows
+   further).
 
 The chunk size is 7680 bytes (1920 f32 elements): the reduced model's
 group has 240 chunks at S=1 and 60 a shard at S=4, so windows 2, 4 (W=1)
@@ -399,28 +400,35 @@ def test_launcher_runs_windows_and_overlap_on_cpu(capsys):
 
 def test_encoded_wire_in_windows_raises_and_flat_runs_at_one_window(
         deterministic):
+    """No mode refuses an encoded wire now: over int8, windows, chunk-ready
+    dispatch and flat residency, alone and combined, equal the one-window
+    tree-resident int8 step bitwise (losses, parameters, the rule's slot
+    and ``wire_ef``), as a flat store at one window does."""
     _, pcfg = _cfgs()
-    for mode in (dict(pipeline_windows=5), dict(overlap_backward=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PHubEngine(pcfg, TrainConfig(**_kw("nesterov", wire_format="int8",
-                                               **mode)),
-                       StackedComm(W4), device="cpu")
     runs = []
-    for flat in (False, True):
+    for mode in ({}, dict(flat_residency=True), dict(pipeline_windows=5),
+                 dict(pipeline_windows=5, overlap_backward=True,
+                      flat_residency=True)):
         eng = PHubEngine(pcfg, TrainConfig(**_kw(
-            "nesterov", wire_format="int8", flat_residency=flat)),
+            "nesterov", wire_format="int8", **mode)),
             StackedComm(W4), device="cpu")
+        (g,) = eng.chunk_plan.groups
+        assert effective_windows(g, mode.get("pipeline_windows", 1)) == \
+            mode.get("pipeline_windows", 1)
         model, opt = eng.init_state(seed=4)
         step = eng.make_train_step()
         data = SyntheticTokens(pcfg, 8, T, seed=4)
         for i in range(2):
             model, opt, m = step(model, opt, data.torch_batch(i, "cpu"))
         runs.append((m["loss"], dict(leaf_paths(model.param_tree())), opt))
-    (la, pa, oa), (lb, pb, ob) = runs
-    assert torch.equal(la, lb)
-    assert all(torch.equal(pa[k], pb[k]) for k in pa)
-    assert all(torch.equal(oa["float32"][n], ob["float32"][n])
-               for n in oa["float32"])
+    (la, pa, oa), *rest = runs
+    assert oa["float32"]["wire_ef"].abs().max() > 0
+    for lb, pb, ob in rest:
+        assert torch.equal(la, lb)
+        assert all(torch.equal(pa[k], pb[k]) for k in pa)
+        assert oa["float32"].keys() == ob["float32"].keys()
+        assert all(torch.equal(oa["float32"][n], ob["float32"][n])
+                   for n in oa["float32"])
 
 
 def test_flat_step_refuses_a_model_that_is_not_resident():

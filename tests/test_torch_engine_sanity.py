@@ -274,6 +274,20 @@ def test_w4_excluded_worker_matches_live_oracle(live_oracle, mode):
         assert not t.reshape(-1)[group.total:].any()
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these tests run many small steps, and with the
+    default (one thread a core) next to other test processes the threads'
+    barriers spin against each other, many times slower; the results do
+    not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 @pytest.fixture
 def deterministic():
     """PyTorch's CPU backward of the embedding lookup accumulates rows in
@@ -337,6 +351,11 @@ def test_clean_step_after_a_poisoned_one_is_healthy():
 
 
 def test_gated_step_shares_one_gradient_buffer_and_rejects_the_int8_wire():
+    """The steps of one engine share its gradient buffer; over the int8
+    wire the gate and a k-of-n membership are no longer refused (their
+    arithmetic is held in tests/test_torch_wire_pipeline.py): a poisoned
+    worker is masked there too.  A membership of another world still
+    raises."""
     _, pcfg = _cfgs()
     peng = PHubEngine(pcfg, _tc("nesterov"), StackedComm(2), device="cpu")
     peng.make_train_step()
@@ -346,11 +365,17 @@ def test_gated_step_shares_one_gradient_buffer_and_rejects_the_int8_wire():
     assert peng.grad_buffers() is buf
     wire = PHubEngine(pcfg, _tc("nesterov", wire_format="int8"),
                       StackedComm(2), device="cpu")
-    wire.make_train_step(membership=Membership.full(2))   # all live: fine
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wire.make_train_step(sanity=SanityConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wire.make_train_step(membership=Membership.full(2).leave(1))
+    model, opt = wire.init_state(seed=3)
+    batch = SyntheticTokens(pcfg, 4, T, seed=3).torch_batch(0, "cpu")
+    gated = wire.make_train_step(sanity=SanityConfig(allow_injection=True))
+    model, opt, m = gated(model, opt, batch, _health(INF, [1, np.nan]))
+    assert m["ok_mask"].tolist() == [1, 0] and float(m["n_live"]) == 1.0
+    assert all(torch.isfinite(t).all()
+               for _, t in leaf_paths(model.param_tree()))
+    step = wire.make_train_step(membership=Membership.full(2).leave(1))
+    model, opt, m = step(model, opt, batch)
+    assert np.isfinite(float(m["loss"]))
+    assert wire.grad_buffers() is not buf
     with pytest.raises(ValueError, match="worker positions"):
         peng.make_train_step(membership=Membership.full(3).leave(1))
 

@@ -12,10 +12,15 @@ imports no JAX, so it runs on a machine that has only PyTorch:
    chunk, with and without the device divisor, in the windowed form too
    (p' into a given buffer, slots in place); agg_opt_chunks takes a
    ragged vector without a copy.
+   dequant_agg_opt_chunks (the int8 tail) on window w's strips of every
+   shard, p, m and the owners' rows read in place (the block diagonal of
+   the stacked buffer), p' into a given buffer and m in place, with the
+   static ``inv_n`` and with the device divisor (3: a division, not
+   ``* 1/3``), equals its plain version bitwise, f32 and bf16, S = 1-4.
 2. A reduced W=4 step (two steps) windowed, flat-resident and chunk-ready
    equals the monolithic tree-resident step bitwise; the chunk-ready run
    twice gives the same bits (no race between the backward's stream and
-   the windows' side stream).
+   the windows' side stream); over the int8 wire too.
 """
 import dataclasses
 
@@ -25,10 +30,12 @@ import torch
 from repro_torch.configs import TrainConfig, get_arch, reduced
 from repro_torch.core import PHubEngine, StackedComm
 from repro_torch.core.chunking import leaf_paths
-from repro_torch.core.pipeline import effective_windows
+from repro_torch.core.pipeline import effective_windows, own_strips
 from repro_torch.data import SyntheticTokens
 from repro_torch.kernels.agg_opt import ops
+from repro_torch.kernels import quant
 from repro_torch.kernels.agg_opt.ref import (adam_opt_ref, agg_opt_ref,
+                                             dequant_agg_opt_ref,
                                              multi_agg_opt_ref, sgd_opt_ref)
 
 
@@ -141,6 +148,43 @@ def test_cuda_rules_refuse_misaligned_strided_rows():
         ops.fused_multi_agg_opt(p, buf[:, :500], m, lr=0.1, momentum=0.9)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("divided", [False, True])
+def test_cuda_dequant_agg_opt_reads_window_strips_in_place(S, dtype,
+                                                           divided):
+    _need_card()
+    ce, windows, w = 8192, 3, 1
+    n = S * windows * 2 * ce
+    L, Lw = n // S, n // S // windows
+    gen = torch.Generator(device="cuda").manual_seed(S * 10 + divided)
+    p, m = (torch.randn(n, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    g = (torch.randn(S, n, device="cuda", generator=gen) * 1e-2).to(dtype)
+    q, s = quant.quantize_int8(torch.randn(S * Lw, device="cuda",
+                                           generator=gen), chunk_elems=ce)
+    strip = lambda v: v.view(S, L)[:, w * Lw:(w + 1) * Lw]
+    own = own_strips(g, windows, w)
+    divisor = torch.tensor([3.0], device="cuda") if divided else None
+    kw = dict(lr=0.05, momentum=0.9, inv_n=1 / 3, chunk_elems=ce,
+              divisor=divisor)
+    want = dequant_agg_opt_ref(strip(p), q, s, own, strip(m), **kw)
+    p_out, m_in = torch.full_like(p, 7.0), m.clone()
+    po, mi = strip(p_out), strip(m_in)
+    ops.reset_launches()
+    got = ops.fused_dequant_agg_opt(strip(p), q, s, own, mi, p_out=po, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dequant_agg_opt_chunks"] == 1
+    assert torch.equal(strip(p_out), want[0])
+    assert torch.equal(strip(m_in), want[1])
+    outside = torch.ones(n, dtype=torch.bool, device="cuda")
+    strip(outside).zero_()
+    assert bool((p_out[outside] == 7.0).all())
+    assert torch.equal(m_in[outside], m[outside])
+    assert got[0] is po and got[1] is mi
+
+
 # ------------------------------------------------------- reduced steps
 
 def _step_run(mode, steps=2):
@@ -149,6 +193,7 @@ def _step_run(mode, steps=2):
     cfg = dataclasses.replace(reduced(get_arch("llama3.2-1b"), d_model=128),
                               dtype="float32")
     tc = TrainConfig(lr=0.05, loss_chunk=16, chunk_size_bytes=7680, **mode)
+    int8 = tc.wire_format == "int8"
     eng = PHubEngine(cfg, tc, StackedComm(4), device="cuda")
     (g,) = eng.chunk_plan.groups
     assert effective_windows(g, tc.pipeline_windows) == tc.pipeline_windows
@@ -162,8 +207,12 @@ def _step_run(mode, steps=2):
         losses.append(m["loss"])
     torch.cuda.synchronize()
     S = 4
-    assert ops.LAUNCHES["multi_agg_opt_chunks"] == steps * (
-        tc.pipeline_windows * S if tc.pipeline_windows > 1 else 1)
+    if int8:
+        assert ops.LAUNCHES["dequant_agg_opt_chunks"] == \
+            steps * tc.pipeline_windows
+    else:
+        assert ops.LAUNCHES["multi_agg_opt_chunks"] == steps * (
+            tc.pipeline_windows * S if tc.pipeline_windows > 1 else 1)
     return (torch.stack(losses).cpu(),
             [t.detach().cpu() for _, t in leaf_paths(model.param_tree())],
             opt["float32"]["m"].cpu())
@@ -187,3 +236,17 @@ def test_cuda_pipeline_steps_equal_the_monolithic_step_bitwise():
             assert all(torch.equal(a, b) for a, b in zip(params, base[1])), \
                 name
             assert torch.equal(m, base[2]), name
+
+
+@pytest.mark.gpu
+def test_cuda_int8_pipeline_steps_equal_the_one_window_step_bitwise():
+    _need_card()
+    base = _step_run(dict(wire_format="int8"))
+    for mode in (dict(pipeline_windows=5),
+                 dict(pipeline_windows=5, overlap_backward=True,
+                      flat_residency=True)):
+        for losses, params, m in [_step_run(dict(mode, wire_format="int8"))
+                                  for _ in range(2)]:
+            assert torch.equal(losses, base[0])
+            assert all(torch.equal(a, b) for a, b in zip(params, base[1]))
+            assert torch.equal(m, base[2])

@@ -150,10 +150,24 @@ def test_rwkv_tree_counts_six_square_matrices_a_layer():
 
 
 def test_training_an_attn_free_config_raises():
+    """The ssm family trains through autograd of its chunked scan (one
+    W=2 step, finite loss, every leaf moved); what still raises is the
+    scan kernel under autograd: it has no backward (nor has the
+    reference's), so training never goes through it."""
     from repro_torch.configs import TrainConfig
     from repro_torch.core import PHubEngine, StackedComm
-    eng = PHubEngine(port_reduced(get_arch("rwkv6-3b")), TrainConfig(),
-                     StackedComm(2), device="cpu")
-    for make in (eng.make_train_step, eng.build_loss_fn):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make()
+    from repro_torch.kernels.rwkv_scan import ops as scan_ops
+    cfg = port_reduced(get_arch("rwkv6-3b"))
+    eng = PHubEngine(cfg, TrainConfig(loss_chunk=16), StackedComm(2),
+                     device="cpu")
+    model, opt = eng.init_state(seed=0)
+    before = [t.detach().clone() for _, t in leaf_paths(model.param_tree())]
+    batch = SyntheticTokens(cfg, 2, 64, seed=1).torch_batch(0, "cpu")
+    model, opt, m = eng.make_train_step()(model, opt, batch)
+    assert np.isfinite(float(m["loss"]))
+    after = [t for _, t in leaf_paths(model.param_tree())]
+    assert all(not torch.equal(a, b) for a, b in zip(before, after))
+    r = torch.randn(1, 64, 1, 64, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        scan_ops.rwkv_scan(r, r, r, torch.sigmoid(r), torch.zeros(1, 64),
+                           torch.zeros(1, 1, 64, 64))

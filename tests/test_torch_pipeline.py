@@ -339,19 +339,27 @@ def test_chunk_ready_waits_for_every_leaf_of_a_window():
 
 
 def test_pipeline_gates_raise_where_the_reference_raises():
-    ident = make_wire_format(TrainConfig())
+    """The strategy gates raise as the reference's do; every wire runs in
+    windows and with chunk-ready dispatch (the encoded wire's windowed
+    schedule, ``pipelined_wire_exchange``), but only on a strategy with a
+    shard dimension."""
     for kw in (dict(strategy="allreduce", overlap_backward=True),
                dict(strategy="centralized_ps", pipeline_windows=4),
                dict(strategy="fsdp_stream", flat_residency=True)):
         with pytest.raises(ValueError):
-            pipeline.check_pipeline(TrainConfig(**kw), ident)
-    int8 = make_wire_format(TrainConfig(wire_format="int8"))
-    for kw in (dict(pipeline_windows=2), dict(overlap_backward=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pipeline.check_pipeline(TrainConfig(wire_format="int8", **kw),
-                                    int8)
-    pipeline.check_pipeline(TrainConfig(wire_format="int8",
-                                        flat_residency=True), int8)
+            pipeline.check_pipeline(TrainConfig(**kw))
+    for kw in (dict(pipeline_windows=2), dict(overlap_backward=True),
+               dict(flat_residency=True)):
+        pipeline.check_pipeline(TrainConfig(wire_format="int8", **kw))
     with pytest.raises(ValueError, match="shard dimension"):
         pipeline.run_chunk_ready_exchange(
             "allreduce", StackedComm(1), None, None, (), None, _group(1), 2)
+    int8 = make_wire_format(TrainConfig(wire_format="int8"))
+    with pytest.raises(ValueError, match="shard dimension"):
+        pipeline.run_chunk_ready_exchange(
+            "allreduce", StackedComm(1), None, None, (), None, _group(1), 2,
+            wire=int8)
+    with pytest.raises(ValueError, match="identity"):
+        pipeline.run_chunk_ready_exchange(
+            "sharded_ps", StackedComm(1), None, None, (), None, _group(1), 2,
+            wire=make_wire_format(TrainConfig()))
