@@ -173,7 +173,30 @@
    every other kernel 0, a prefill alone launching 32 and a decode step
    alone none; finite logits, a second greedy run equal in tokens and
    logits; prefill and decode times, peak GiB.
-11. Prints the kernels line, then the device line last.
+11. PHub across processes (``launch/dist.py``, one worker a process over
+   ``core/comm.py::ProcessGroupComm``), after the llama3.2-1b paths, each
+   bitwise against the stacked step of this call (losses, and the
+   parameters' fingerprints after every step):
+   (a) NCCL at world = the card count (1 on a one-card machine), full
+   llama3.2-1b, Nesterov, 1 step, beside a stacked step of that world:
+   one agg_opt_chunks launch a rank (multi_agg_opt_chunks at world > 1);
+   (b) gloo, 2 processes sharing cuda:0 (collectives staged through
+   pinned host buffers), full llama3.2-1b in 64 KB chunks, after the
+   stacked W=2 runs of the same chunk size (Nesterov 2 steps, Adam 1,
+   int8 2): Nesterov 2 steps, Nesterov in 5 windows flat-resident 2 (5
+   windows take effect at S=2: 37,715 chunks a shard), Adam 1, int8 in 5
+   windows 2, each rank's launches equal to ``GLOO_PATHS``' prediction;
+   (c) gloo, 4 processes on cuda:0, reduced llama3.2-1b and rwkv6-3b, 2
+   steps each of Nesterov, SGD and Adam, identity and int8, 1 and 2
+   windows, against ``StackedComm(4)``'s (losses, every parameter, every
+   rank's slots).  In (b) and (c) the exchange alone runs on identical
+   pushed rows too ((W, 2^24) f32, every rule, wire and 1 or 2 windows),
+   p', the slots and wire_ef bitwise equal to the stacked Comm's.  Step
+   ms, tokens/s, the exchange's wall ms and the collectives' part of it
+   (staging copies included), and each rank's peak GiB are logged beside
+   the stacked step's.  Every collective runs under DIST_TIMEOUT; a rank
+   that fails brings its group down and the script with it.
+12. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 card and refuses to run without one.
@@ -265,6 +288,44 @@ SSM_PIPELINE_PATHS = (
           overlap_backward=True),
      {"multi_agg_opt_chunks": SSM_WINDOWS * 2},
      f"{SSM_ARCH} nesterov W=2 flat", SSM_ARCH),
+)
+# PHub across processes (one worker a process, launch/dist.py), each path
+# bitwise against the stacked step of the same call: (a) NCCL at world =
+# the card count; (b) GLOO_W gloo ranks sharing cuda:0 at full width, in
+# 64 KB chunks (37,715 a shard at S=2 = 5 * 19 * 397: 5 windows take
+# effect); (c) REDUCED_W gloo ranks on cuda:0, reduced configs in 24 KB
+# chunks (2 windows take effect on both).  Every collective runs under
+# DIST_TIMEOUT, and a failed rank brings its group down.
+DIST_TIMEOUT = 600.0
+GLOO_W, DIST_CHUNK = 2, 64 * 1024
+REDUCED_W, REDUCED_CHUNK, REDUCED_SEQ, REDUCED_STEPS = 4, 24 * 1024, 64, 2
+ROWS_N = 1 << 24                 # the exchange alone: (W, 2^24) f32 rows
+_CHUNK = {"chunk_size_bytes": DIST_CHUNK}
+# the stacked GLOO_W paths (label, steps, rule, wire, TrainConfig fields,
+# launches per step); int8 at one window, S=2: one quantize on the ring
+# and one for the pull, one dequantize (the pull), the tail kernel once
+GLOO_BASES = (
+    ("nesterov", 2, "nesterov", "identity", _CHUNK,
+     {"multi_agg_opt_chunks": 1}),
+    ("adam", 1, "adam", "identity", _CHUNK, {"adam_opt_chunks": 1}),
+    ("int8", 2, "nesterov", "int8", _CHUNK,
+     {"quantize_chunks": 2, "dequantize_chunks": 1,
+      "dequant_agg_opt_chunks": 1}),
+)
+# the gloo paths, each rank's launches per step (PERF.md's prediction) and
+# the stacked path they equal; int8 in 5 windows: each window's ring
+# encodes once and its tail runs once, then the pull encodes and decodes
+GLOO_PATHS = (
+    ("nesterov", 2, "nesterov", "identity", _CHUNK,
+     {"multi_agg_opt_chunks": 1}, "nesterov"),
+    ("nesterov in 5 windows, flat", 2, "nesterov", "identity",
+     dict(_CHUNK, pipeline_windows=5, flat_residency=True),
+     {"multi_agg_opt_chunks": 5}, "nesterov"),
+    ("adam", 1, "adam", "identity", _CHUNK, {"adam_opt_chunks": 1}, "adam"),
+    ("int8 in 5 windows", 2, "nesterov", "int8",
+     dict(_CHUNK, pipeline_windows=5),
+     {"quantize_chunks": 6, "dequantize_chunks": 1,
+      "dequant_agg_opt_chunks": 5}, "int8"),
 )
 
 
@@ -1315,7 +1376,8 @@ def same_fingerprint(torch, a: list, b: list) -> bool:
 def main_path(torch, workers: int, steps: int, expect: dict,
               optimizer: str = "nesterov", wire: str = "identity",
               faults=None, pipeline=None, arch: str = ARCH,
-              layers: int = 0, dead: int | None = None) -> dict:
+              layers: int = 0, dead: int | None = None, comm=None,
+              time_exchange: bool = False) -> dict:
     """PHubEngine + fit on the full ``arch`` (full width; ``layers``, if
     given, cuts its depth) under ``optimizer`` over ``wire``; ``expect``
     holds each kernel's launches per step and group (every other count
@@ -1325,8 +1387,13 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     pipeline fields (``pipeline_windows``, ``flat_residency``,
     ``overlap_backward``); the requested window count must take effect.
     ``dead``: a static k-of-n membership with that worker left out.
+    ``comm``: a ProcessGroupComm (one worker this process, ``workers`` its
+    world) instead of ``StackedComm(workers)``; its launches are this
+    rank's.  ``time_exchange``: the exchange stage timed between two
+    synchronizations a step, beside the Comm's own collective time.
     Returns the run's launch counts, its losses, the parameters'
-    fingerprint after every step, step ms and peak GiB."""
+    fingerprint after every step, step ms, peak GiB and the exchange's and
+    collectives' ms a step."""
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.core import PHubEngine, StackedComm
     from repro_torch.core.chunking import leaf_paths
@@ -1346,7 +1413,10 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     tc = TrainConfig(loss_chunk=min(1024, SEQ), optimizer=optimizer,
                      wire_format=wire, **({"lr": lr} if lr else {}),
                      **(pipeline or {}))
-    engine = PHubEngine(cfg, tc, StackedComm(workers), device="cuda")
+    engine = PHubEngine(cfg, tc, comm or StackedComm(workers), device="cuda")
+    where = (f"rank {comm.rank} of {workers} ({comm.backend}) "
+             if comm is not None else "")
+    exchange_s = exchange_timer(torch, engine) if time_exchange else []
     model, opt = engine.init_state()
     windows = [effective_windows(g, tc.pipeline_windows)
                for g in engine.chunk_plan.groups]
@@ -1371,9 +1441,9 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     if dead is not None:
         members = Membership.full(workers).leave(dead)
         membership_fn = lambda step: members        # noqa: E731
-    log(f"main path: {arch} {n_tree:,} parameters in the tree, "
+    log(f"{where}main path: {arch} {n_tree:,} parameters in the tree, "
         f"{cfg.n_layers} layers, d_model {cfg.d_model}; sharded_ps, "
-        f"{workers} stacked worker(s)"
+        f"{workers} {'process' if comm else 'stacked'} worker(s)"
         f"{f', worker {dead} dead (static k-of-n)' if dead is not None else ''}"
         f", {wire} wire, batch {BATCH} x {SEQ}, {steps} step(s), "
         f"{optimizer} at lr {tc.lr}, {rule}"
@@ -1391,7 +1461,14 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     torch.cuda.reset_peak_memory_stats()
     marks = [time.perf_counter()]
 
-    health, step_ms, peaks, prints = [], [], [], []
+    health, step_ms, peaks, prints, coll_ms = [], [], [], [], []
+
+    def collective_s() -> float:
+        """The exchange's collectives so far (not the loss's gather)."""
+        return sum(comm.stats.get(op, {}).get("seconds", 0.0)
+                   for op in ("push", "pull", "ring_hop")) if comm else 0.0
+
+    coll = [collective_s()]
 
     def on_step(state, metrics):
         torch.cuda.synchronize()
@@ -1399,15 +1476,19 @@ def main_path(torch, workers: int, steps: int, expect: dict,
         peak = torch.cuda.max_memory_allocated() / 2**30
         step_ms.append(ms)
         peaks.append(peak)
+        coll.append(collective_s())
+        coll_ms.append((coll[-1] - coll[-2]) * 1e3)
+        timed = (f"  exchange {exchange_s[-1] * 1e3:.1f} ms, collectives "
+                 f"{coll_ms[-1]:.1f} ms" if time_exchange else "")
         gated = ""
         if sup is not None:
             health.append(metrics)
             gated = (f"  ok_mask {metrics['ok_mask'].tolist()} n_live "
                      f"{metrics['n_live']:g} grad_norms "
                      f"{metrics['grad_norms'].tolist()}")
-        log(f"step {state.step - 1}: loss {state.losses[-1]!r}  "
+        log(f"{where}step {state.step - 1}: loss {state.losses[-1]!r}  "
             f"{ms:.1f} ms  {BATCH * SEQ / (ms / 1e3):,.0f} tokens/s  "
-            f"peak {peak:.2f} GiB" + gated)
+            f"peak {peak:.2f} GiB" + timed + gated)
         # the fingerprint is outside the step's time and peak
         prints.append(fingerprint(torch, state.params))
         torch.cuda.synchronize()
@@ -1442,10 +1523,11 @@ def main_path(torch, workers: int, steps: int, expect: dict,
         check(bit_sum(torch, t) != before[p], f"parameter {p} did not change")
     for name, count in launches.items():
         want = expect.get(name, 0) * steps * len(groups)
-        check(count == want, f"{name} launched {count} times on the "
-                             f"{arch} {workers}-worker {optimizer} {wire} "
-                             f"path, want {want}")
-    log(f"{arch} {workers}-worker {optimizer} {wire}-wire path: launches "
+        check(count == want, f"{where}{name} launched {count} times on "
+                             f"the {arch} {workers}-worker {optimizer} "
+                             f"{wire} path, want {want}")
+    log(f"{where}{arch} {workers}-worker {optimizer} {wire}-wire path: "
+        f"launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
         + " as expected; parameters changed, losses finite")
     losses = list(state.losses)
@@ -1453,7 +1535,25 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "losses": losses, "prints": prints,
-            "step_ms": step_ms, "peak_gib": peaks}
+            "step_ms": step_ms, "peak_gib": peaks,
+            "exchange_ms": [x * 1e3 for x in exchange_s],
+            "collective_ms": coll_ms}
+
+
+def exchange_timer(torch, engine) -> list:
+    """Wrap ``engine.exchange_stage`` in two synchronizations; returns the
+    list each call's wall seconds are appended to."""
+    spent, inner = [], engine.exchange_stage
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+    engine.exchange_stage = timed
+    return spent
 
 
 def rollback_phase(torch) -> None:
@@ -1515,6 +1615,260 @@ def rollback_phase(torch) -> None:
     check(state.step == 6 and all(math.isfinite(x) for x in state.losses),
           "the supervised run did not finish")
     shutil.rmtree(d)
+
+
+def digest(t) -> str:
+    """sha1 of a tensor's bytes (copied to the host)."""
+    import hashlib
+
+    import torch
+    return hashlib.sha1(t.detach().contiguous().view(-1).view(torch.uint8)
+                        .cpu().numpy().tobytes()).hexdigest()
+
+
+def exchange_rows(torch, comm, world: int) -> dict:
+    """The exchange alone on identical pushed rows, on the card: (world,
+    ROWS_N) f32 gradient rows, p and the slots drawn from a seed a case,
+    every rule x wire x windows 1/2, as the engine dispatches it
+    (``run_exchange`` / ``run_wire_exchange``) over ``comm`` (a rank takes
+    its row and its shard's slots).  Returns per case the digest of p' and
+    {shard: digests of its slot runs and wire_ef run} for the shards this
+    process keeps."""
+    import itertools
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import chunking
+    from repro_torch.core.pipeline import run_exchange, run_wire_exchange
+    from repro_torch.core.wire import WireFormat
+    from repro_torch.optim.protocol import make_sharded_optimizer
+
+    (group,) = chunking.build_plan(
+        {"w": torch.empty(ROWS_N, device="meta")}, chunk_bytes=32768,
+        n_shards=world).groups
+    n, L, ce = group.padded, group.shard_len, group.chunk_elems
+    k = comm.local_workers()
+    r0 = comm.rank * k
+    sh = slice(r0 * L, (r0 + k) * L)
+    out = {}
+    for i, (rule, wire, windows) in enumerate(itertools.product(
+            ("nesterov", "sgd", "adam"), ("identity", "int8"), (1, 2))):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1000 + i)
+
+        def draw(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+
+        g, p = draw(world, n), draw(n)
+        slots = {"nesterov": lambda: (0.1 * draw(n),), "sgd": tuple,
+                 "adam": lambda: (0.1 * draw(n), 0.01 * draw(n).abs(),
+                                  0.1 + 0.8 * draw(n).abs().clamp(max=1),
+                                  1e-3 + 0.1 * draw(n).abs().clamp(max=1))
+                 }[rule]()
+        res = 1e-3 * draw(n)
+        tc = TrainConfig(optimizer=rule, wire_format=wire, adam_eps=1e-3,
+                         lr={"adam": ADAM_LR, "sgd": SGD_LR}.get(rule, 0.1))
+        sopt = make_sharded_optimizer(tc)
+        upd = sopt.kernel_update(ce, sopt.coefs(tc))
+        mine = tuple(s[sh].clone() for s in slots)
+        if wire == "identity":
+            p2, s2 = run_exchange("sharded_ps", comm, g[r0:r0 + k], p, mine,
+                                  upd, group, windows)
+            s2 = tuple(s2)
+        else:
+            fused = sopt.kernel_dequant_update(ce, sopt.coefs(tc),
+                                               1.0 / world)
+            p2, s2, r2 = run_wire_exchange(
+                "sharded_ps", comm, g[r0:r0 + k], p, mine, upd, group,
+                WireFormat(wire), res[sh].clone(), fused, windows)
+            s2 = tuple(s2) + (r2,)
+        out[(rule, wire, windows)] = {
+            "p": digest(p2),
+            "shards": {r0 + j: [digest(s.reshape(-1)[j * L:(j + 1) * L])
+                                for s in s2] for j in range(k)}}
+    return out
+
+
+def hold_rows(torch, world: int, ranks: list, want: dict) -> None:
+    """Every rank's ``exchange_rows`` equal to the stacked Comm's."""
+    for r, got in enumerate(ranks):
+        for case, w in want.items():
+            check(got[case]["p"] == w["p"],
+                  f"rank {r} of {world}: the exchange {case} on identical "
+                  f"rows gives another p' than the stacked Comm")
+            check(got[case]["shards"] == {r: w["shards"][r]},
+                  f"rank {r} of {world}: the exchange {case} on identical "
+                  f"rows gives other slots than the stacked Comm's shard")
+    log(f"the exchange alone on identical pushed rows ({world} x "
+        f"{ROWS_N:,} f32; Nesterov, SGD, Adam x identity, int8 x 1, 2 "
+        f"windows): every rank's p', slots and wire_ef bitwise equal to "
+        f"StackedComm({world})'s")
+
+
+def dist_rank(comm, device, paths: tuple, rows: bool):
+    """A spawned rank of the process-group phases: each of ``paths``
+    (label, steps, rule, wire, TrainConfig fields, launches per step)
+    through ``main_path`` over ``comm``, then (``rows``) the exchange alone
+    on identical rows.  Returns (main_path's records, exchange_rows)."""
+    import torch
+    runs = [main_path(torch, comm.n_workers, steps, expect, rule, wire,
+                      pipeline=pipe, comm=comm, time_exchange=True)
+            for label, steps, rule, wire, pipe, expect in paths]
+    return runs, (exchange_rows(torch, comm, comm.n_workers) if rows
+                  else None)
+
+
+def reduced_runs(torch, comm, world: int) -> dict:
+    """REDUCED_STEPS steps of every (arch, rule, wire, windows) of the
+    4-process phase on reduced configs over ``comm``: per case the losses,
+    a digest of every parameter and {shard: digests of its slots}."""
+    import itertools
+    from repro_torch.configs import TrainConfig, get_arch, reduced
+    from repro_torch.core import PHubEngine
+    from repro_torch.core.chunking import leaf_paths
+    from repro_torch.core.pipeline import effective_windows
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.training import TrainState, fit
+
+    out = {}
+    for arch, rule, wire, windows in itertools.product(
+            (ARCH, SSM_ARCH), ("nesterov", "sgd", "adam"),
+            ("identity", "int8"), (1, 2)):
+        cfg = reduced(get_arch(arch))
+        tc = TrainConfig(optimizer=rule, wire_format=wire,
+                         pipeline_windows=windows, loss_chunk=REDUCED_SEQ,
+                         chunk_size_bytes=REDUCED_CHUNK,
+                         **({"lr": ADAM_LR} if rule == "adam" else {}))
+        engine = PHubEngine(cfg, tc, comm, device="cuda")
+        eff = [effective_windows(g, windows) for g in
+               engine.chunk_plan.groups]
+        check(eff == [windows], f"reduced {arch}: {windows} windows asked "
+                                f"for, {eff} take effect")
+        model, opt = engine.init_state()
+        data = SyntheticTokens(cfg, BATCH, REDUCED_SEQ, seed=0)
+        state = fit(engine, TrainState(params=model, opt=opt), data,
+                    steps=REDUCED_STEPS, log_every=0,
+                    hooks=[lambda s, m: None])
+        k = comm.local_workers()
+        out[(arch, rule, wire, windows)] = {
+            "losses": list(state.losses),
+            "params": [digest(t) for _, t in
+                       leaf_paths(model.param_tree())],
+            "shards": {comm.rank * k + j: [digest(v[j]) for slots in
+                                           state.opt.values()
+                                           for v in slots.values()]
+                       for j in range(k)}}
+    return out
+
+
+def reduced_rank(comm, device):
+    """A spawned rank of the 4-process phase."""
+    import torch
+    return (reduced_runs(torch, comm, comm.n_workers),
+            exchange_rows(torch, comm, comm.n_workers))
+
+
+def hold_run(torch, label: str, run: dict, base: dict, steps: int) -> None:
+    """A process-group path's losses and parameters after every step
+    bitwise equal to the stacked path's."""
+    check(run["losses"] == base["losses"][:steps],
+          f"{label}: losses {run['losses']} differ from the stacked "
+          f"path's {base['losses'][:steps]}")
+    for i in range(steps):
+        check(same_fingerprint(torch, run["prints"][i], base["prints"][i]),
+              f"{label}: the parameters after step {i} differ from the "
+              f"stacked path's")
+
+
+def timing_note(run: dict) -> str:
+    """Step ms, tokens/s, exchange and collective ms, peak GiB of a run."""
+    def r3(xs):
+        return [round(x, 3) for x in xs]
+    return (f"step ms {r3(run['step_ms'])}, tokens/s "
+            f"{[round(BATCH * SEQ / (x / 1e3)) for x in run['step_ms']]}, "
+            f"exchange ms {r3(run['exchange_ms'])} of which collectives "
+            f"{r3(run['collective_ms'])} (the rest the update kernels, the "
+            f"codec and packing), peak GiB {r3(run['peak_gib'])}")
+
+
+def process_group_phases(torch) -> list:
+    """The sharded_ps step over ``torch.distributed``, one worker a process
+    (``launch/dist.py``), each path bitwise against the stacked step of
+    this call: (a) NCCL at world = the card count, full llama3.2-1b, 1
+    Nesterov step; (b) gloo, GLOO_W processes sharing cuda:0, full
+    llama3.2-1b in 64 KB chunks (5 windows take effect at S=2), after the
+    stacked GLOO_W runs: Nesterov 2 steps, Nesterov in 5 windows
+    flat-resident 2, Adam 1, int8 in 5 windows 2, each rank's launches
+    exact; the exchange alone on identical rows; (c) gloo, 4 processes on
+    cuda:0, reduced llama3.2-1b and rwkv6-3b, 2 steps of every rule, wire
+    and 1 or 2 windows, and the exchange alone.  Returns (label, rank 0's
+    launches) for the kernels line."""
+    from repro_torch.core import StackedComm
+    from repro_torch.launch import dist
+
+    counted = []
+    world = torch.cuda.device_count()
+    expect = ({"agg_opt_chunks": 1} if world == 1
+              else {"multi_agg_opt_chunks": 1})
+    base = main_path(torch, world, 1, expect, time_exchange=True)
+    log(f"(a) NCCL, {world} process(es), one card each: full {ARCH}, "
+        f"Nesterov, 1 step; the stacked W={world} step: "
+        + timing_note(base))
+    ranks = dist.run(dist_rank, world, "nccl", "cuda", DIST_TIMEOUT,
+                     args=((("nccl", 1, "nesterov", "identity", {},
+                             expect),), False), timing=True)
+    for r, (runs, _) in enumerate(ranks):
+        hold_run(torch, f"NCCL rank {r} of {world}", runs[0], base, 1)
+        log(f"(a) NCCL rank {r} of {world}: launches "
+            f"{ {k: v for k, v in runs[0]['launches'].items() if v} }, "
+            f"losses and parameters bitwise equal to StackedComm({world})'s; "
+            + timing_note(runs[0]))
+    counted.append((f"nccl world {world}, rank 0", ranks[0][0][0]["launches"]))
+
+    bases = {}
+    for label, steps, rule, wire, pipe, expect in GLOO_BASES:
+        bases[label] = main_path(torch, GLOO_W, steps, expect, rule, wire,
+                                 pipeline=pipe, time_exchange=True)
+        log(f"(b) stacked W={GLOO_W} {label}: " + timing_note(bases[label]))
+    rows_want = exchange_rows(torch, StackedComm(GLOO_W), GLOO_W)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = dist.run(dist_rank, GLOO_W, "gloo", "cuda", DIST_TIMEOUT,
+                     args=(tuple(p[:6] for p in GLOO_PATHS), True),
+                     timing=True)
+    for i, (label, steps, rule, wire, pipe, expect, base_label) in \
+            enumerate(GLOO_PATHS):
+        for r, (runs, _) in enumerate(ranks):
+            hold_run(torch, f"gloo rank {r} of {GLOO_W} {label}", runs[i],
+                     bases[base_label], steps)
+            log(f"(b) gloo rank {r} of {GLOO_W}, {label}: launches "
+                f"{ {k: v for k, v in runs[i]['launches'].items() if v} } "
+                f"as predicted; losses and parameters bitwise equal to the "
+                f"stacked {base_label} path's over {steps} step(s); "
+                + timing_note(runs[i]))
+        counted.append((f"gloo W={GLOO_W} {label}, rank 0",
+                        ranks[0][0][i]["launches"]))
+    hold_rows(torch, GLOO_W, [rows for _, rows in ranks], rows_want)
+
+    want = reduced_runs(torch, StackedComm(REDUCED_W), REDUCED_W)
+    rows_want = exchange_rows(torch, StackedComm(REDUCED_W), REDUCED_W)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = dist.run(reduced_rank, REDUCED_W, "gloo", "cuda", DIST_TIMEOUT)
+    for r, (got, _) in enumerate(ranks):
+        for case, w in want.items():
+            check(got[case]["losses"] == w["losses"]
+                  and got[case]["params"] == w["params"],
+                  f"(c) rank {r} of {REDUCED_W}, reduced {case}: losses "
+                  f"or parameters differ from StackedComm({REDUCED_W})'s")
+            check(got[case]["shards"] == {r: w["shards"][r]},
+                  f"(c) rank {r} of {REDUCED_W}, reduced {case}: slots "
+                  f"differ from the stacked shard's")
+    log(f"(c) gloo, {REDUCED_W} processes on one card: reduced {ARCH} and "
+        f"{SSM_ARCH}, {REDUCED_STEPS} steps each of "
+        f"{len(want) // 2} cases (Nesterov, SGD, Adam x identity, int8 x "
+        f"1, 2 windows): every rank's losses, parameters and slots bitwise "
+        f"equal to StackedComm({REDUCED_W})'s")
+    hold_rows(torch, REDUCED_W, [rows for _, rows in ranks], rows_want)
+    return counted
 
 
 def launch_modules():
@@ -2305,6 +2659,8 @@ def main() -> None:
     count("nesterov int8 W=4, worker 1 dead", main_path(
         torch, WORKERS, 1, INT8_W4, "nesterov", "int8",
         dead=POISONED)["launches"])
+    for label, launches in process_group_phases(torch):
+        count(label, launches)
 
     # rwkv6-3b training (the ssm family, chunked scan under autograd): one
     # window at W=2 first, the monolithic path the windowed ones must equal

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..core.chunking import leaf_paths
+from ..core.comm import require_stacked
 from ..core.wire import WIRE_EF_SLOT
 from ..models import DecoderLM, param_specs
 
@@ -355,7 +356,7 @@ def _opt_from(engine, opt: dict, step: int) -> dict:
     device, from the snapshot's slots, element for element."""
     flat = _flatten(opt)
     comm, st = engine.comm, engine.tc.strategy
-    S = comm.n_shards(st)
+    S = engine.local_shards()
     out, consumed = {}, set()
     for g in engine.chunk_plan.groups:
         shape = (S, comm.state_len(st, g.padded))
@@ -415,6 +416,8 @@ def restore_train_state(directory: str, engine, step: int | None = None,
     epoch fails fast (the worker set churned between save and restore).
     With ``engine=None`` the verified tensors come back as saved.
     Returns (step, model, opt)."""
+    if engine is not None:
+        require_stacked(engine.comm, "restoring a checkpoint")
     _check_membership(load_manifest(directory, step), membership)
     step, tree = load_checkpoint(directory, step)
     params, opt = tree["params"], tree.get("opt", {})

@@ -1,5 +1,5 @@
 from .chunking import (ChunkPlan, GroupPlan, build_plan, chunk_spans,
                        flatten_groups, shard_matrix, unflatten_groups)
-from .comm import StackedComm
+from .comm import ProcessGroupComm, StackedComm
 from .engine import PHubEngine
 from .exchange import STRATEGIES, exchange_group

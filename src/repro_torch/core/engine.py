@@ -48,6 +48,20 @@ monolithic tree-resident step bitwise.
 The reported loss is the mean over the workers, as the reference's
 ``pmean``.
 
+Over a process group (``core/comm.py::ProcessGroupComm``, one worker a
+process, ``launch/dist.py``) the step is the same with one local worker:
+this rank takes its slice ``[rank*B/W, (rank+1)*B/W)`` of the global batch
+(every rank draws the same batch and the same weights from the seed),
+fills a ``(1, padded)`` gradient row, and keeps the slots of the one shard
+it owns, ``(1, L)`` each; the exchange pushes, updates and pulls
+(``core/exchange.py``, ``core/pipeline.py``), so every rank ends the step
+with the whole new parameter vector.  The loss is the mean of the
+all-gathered per-worker losses in worker order (not an ``all_reduce``,
+whose order is the library's), so it equals the stacked step's bitwise.
+A static k-of-n membership zeroes an excluded rank's own row.  The sanity
+gate, chunk-ready dispatch, the supervisor and checkpoints raise there
+(ROADMAP.md queue A item 4b).
+
 An elastic ``Membership`` (``make_train_step(membership=)``) that is not
 all live zeroes each excluded worker's row before the exchange and divides
 the mean by the live count (the k-of-n push mask).  The sanity-gated step
@@ -84,7 +98,7 @@ from ..kernels.agg_opt.ref import sqrt_rn
 from ..models import DecoderLM, chunked_cross_entropy, param_specs
 from ..optim.protocol import make_sharded_optimizer
 from . import chunking
-from .comm import StackedComm
+from .comm import require_stacked
 from .exchange import check_strategy, check_wire
 from .pipeline import (check_pipeline, run_chunk_ready_exchange,
                        run_exchange, run_wire_exchange)
@@ -92,8 +106,8 @@ from .wire import WIRE_EF_SLOT, exchange_extra_slots, make_wire_format
 
 
 class PHubEngine:
-    def __init__(self, cfg: ModelConfig, tc: TrainConfig, comm: StackedComm,
-                 *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, tc: TrainConfig, comm, *,
+                 device="cuda"):
         self.wire = make_wire_format(tc)
         check_pipeline(tc)
         check_strategy(tc.strategy)
@@ -113,14 +127,21 @@ class PHubEngine:
 
     # ------------------------------------------------------------------ state
 
+    def local_shards(self) -> int:
+        """Shards whose state this process keeps: every one on the stacked
+        Comm, the one a rank owns over a process group."""
+        S = self.comm.n_shards(self.tc.strategy)
+        return S if self.comm.local_workers() == self.comm.n_workers else 1
+
     def init_opt(self) -> dict:
         """Zero optimizer slots: {dtype_name: {slot_name: (S, state_len)}},
-        row s the state of the chunks shard s owns; as many slots as the
+        row s the state of the chunks shard s owns (over a process group
+        one row, this rank's shard); as many slots as the
         rule declares (Nesterov 1, SGD 0, Adam 4) and, under an encoded
         wire, ``wire_ef`` last, each in its own dtype (Adam's k1/k2 and
         ``wire_ef`` are f32 in every group)."""
         st = self.tc.strategy
-        S = self.comm.n_shards(st)
+        S = self.local_shards()
         return {g.key: {s.name: torch.zeros(
                             (S, self.comm.state_len(st, g.padded)),
                             dtype=s.resolve_dtype(g.dtype), device=self.device)
@@ -228,12 +249,12 @@ class PHubEngine:
                     fused_dequant=self.fused_dequant(group, n_live))
 
     def grad_buffers(self) -> dict:
-        """The stacked gradient buffers {dtype_name: (W, padded)}, allocated
-        once and shared by every step function of this engine (a step of
-        another membership reuses them); the chunk-ready windows read
-        their strips in place."""
+        """The stacked gradient buffers {dtype_name: (W, padded)} (one row
+        over a process group), allocated once and shared by every step
+        function of this engine (a step of another membership reuses
+        them); the chunk-ready windows read their strips in place."""
         if self._gbuf is None:
-            W = self.comm.n_workers
+            W = self.comm.local_workers()
             self._gbuf = {g.key: torch.zeros((W, g.padded), dtype=g.dtype,
                                              device=self.device)
                           for g in self.chunk_plan.groups}
@@ -258,13 +279,15 @@ class PHubEngine:
         membership.require_quorum()
         return membership.mask(), float(membership.n_live)
 
-    @staticmethod
-    def _masked_grads(gbuf: dict, mask: np.ndarray) -> None:
-        """The k-of-n push gate: zero every excluded worker's row in place,
-        so it adds exactly nothing to the worker sum."""
+    def _masked_grads(self, gbuf: dict, mask: np.ndarray) -> None:
+        """The k-of-n push gate: zero every excluded worker's row that this
+        process holds in place, so it adds exactly nothing to the worker
+        sum."""
+        first = self.comm.rank * self.comm.local_workers()
         for w in np.nonzero(mask == 0)[0]:
-            for v in gbuf.values():
-                v[w].zero_()
+            if first <= w < first + self.comm.local_workers():
+                for v in gbuf.values():
+                    v[w - first].zero_()
 
     def grad_sumsq(self, gbuf: dict) -> torch.Tensor:
         """(W,) f32 sum of squares of each worker's whole push through the
@@ -405,6 +428,12 @@ class PHubEngine:
         replaced.  The steps share the engine's (W, padded) gradient
         buffers."""
         W = self.comm.n_workers
+        local = self.comm.local_workers()
+        first = self.comm.rank * local       # this process's first worker
+        if sanity is not None:
+            require_stacked(self.comm, "the sanity gate")
+        if self.tc.overlap_backward:
+            require_stacked(self.comm, "chunk-ready dispatch")
         cp = self.chunk_plan
         loss_fn = self.build_loss_fn()
         mask, live = self.elastic_mask(membership)
@@ -433,8 +462,8 @@ class PHubEngine:
             bw = B // W
             paths, leaves = zip(*chunking.leaf_paths(model.param_tree()))
             losses = []
-            for w in range(W - 1 if chunk_ready else W):
-                sl = slice(w * bw, (w + 1) * bw)
+            for w in range(local - 1 if chunk_ready else local):
+                sl = slice((first + w) * bw, (first + w + 1) * bw)
                 loss = loss_fn(model, tokens[sl], labels[sl])
                 grads = torch.autograd.grad(loss, leaves)
                 chunking.flatten_leaves(cp, dict(zip(paths, grads)),
@@ -457,7 +486,8 @@ class PHubEngine:
                 ready = self._chunk_ready_backward(loss, paths, leaves, gbuf,
                                                    flats_p, opt, n_live)
                 losses.append(loss.detach())
-            metrics["loss"] = torch.stack(losses).mean()
+            metrics["loss"] = self.comm.gather_small(
+                torch.stack(losses)).reshape(-1).mean()
             new_p, new_opt = self.exchange_stage(gbuf, flats_p, opt, n_live,
                                                  ready)
             self._write_params(model, new_p)

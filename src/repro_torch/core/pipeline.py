@@ -52,6 +52,21 @@ the worker count, or a membership's live count: a number (a static
 membership: the tail kernel's ``inv_n`` is baked from it, as in the
 reference) or a tensor on the card (the sanity gate's, the tail kernel's
 divisor pointer; the other rules divide the decoded sum by it).
+
+**Over a process group** (``ProcessGroupExchange``, one worker a rank,
+``core/comm.py::ProcessGroupComm``): window w packs this rank's strips
+``[j*L + w*Lw, j*L + (w+1)*Lw)`` of every shard j contiguously and sends
+them in one ``all_to_all``; the owner makes one update launch on the
+``(W, Lw)`` received rows, its slots updated in place, and one pull
+(``all_gather``) follows the last window, as the reference's tail
+all-gather does.  Over an encoded wire the ring above becomes real hops:
+shard j's partial starts at rank j+1, each hop sends the encoded partial
+(the payload as uint32 words, the f32 scales) to rank+1, and the receiver
+decodes it, adds its own run and encodes it again; the owner's tail is
+the same kernel on its own rows.  The pull encodes the shard's delta plus
+``wire_ef``, all-gathers words and scales, and every rank decodes all S
+shards.  The hop order is the stacked ring's, so both Comms give the same
+bits.
 """
 from __future__ import annotations
 
@@ -62,7 +77,7 @@ import torch
 from ..kernels.agg_opt.ref import own_strips
 from . import chunking
 from .chunking import GroupPlan
-from .comm import StackedComm
+from .comm import ProcessGroupComm, StackedComm, require_stacked
 
 PIPELINED_STRATEGIES = ("sharded_ps", "hierarchical")
 
@@ -120,19 +135,19 @@ def mean_divisor(n_live, device):
                       device=device)
 
 
-def pipelined_exchange(comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
+def pipelined_exchange(comm, g: torch.Tensor, p: torch.Tensor,
                        slots: tuple, update_fn: Callable, windows: int,
                        n_live=None) -> tuple:
     """The windowed counterpart of ``exchange_group``: windows 0 .. W-1 in
     order, each ``exchange_window``.  Returns (p', slots), the slots
     updated in place; p' equals the monolithic exchange's bitwise."""
-    ex = WindowedExchange(comm, g, p, slots, update_fn, windows, n_live)
+    ex = _windowed(comm)(comm, g, p, slots, update_fn, windows, n_live)
     for w in range(windows):
         ex.window(w)
     return ex.finish()
 
 
-def run_exchange(strategy: str, comm: StackedComm, g: torch.Tensor,
+def run_exchange(strategy: str, comm, g: torch.Tensor,
                  p: torch.Tensor, slots: tuple, update_fn: Callable,
                  group: GroupPlan, windows: int, n_live=None) -> tuple:
     """Dispatch one dtype group over the identity wire: the windowed
@@ -147,11 +162,12 @@ def run_exchange(strategy: str, comm: StackedComm, g: torch.Tensor,
     return exchange_group(comm, g, p, slots, update_fn, n_live)
 
 
-def check_stacked(comm: StackedComm, g: torch.Tensor, p: torch.Tensor):
-    """Raise unless g is the (n_workers, p.numel()) stacked buffer."""
-    W = comm.n_workers
+def check_stacked(comm, g: torch.Tensor, p: torch.Tensor):
+    """Raise unless g is the (local workers, p.numel()) buffer of this
+    process's rows: every worker's on the stacked Comm, one a rank."""
+    W = comm.local_workers()
     if tuple(g.shape) != (W, p.numel()):
-        raise ValueError(f"g {tuple(g.shape)} is not (n_workers={W}, "
+        raise ValueError(f"g {tuple(g.shape)} is not (local workers={W}, "
                          f"{p.numel()})")
 
 
@@ -181,6 +197,7 @@ def run_chunk_ready_exchange(strategy: str, comm: StackedComm,
     if strategy not in PIPELINED_STRATEGIES:
         raise ValueError(f"strategy {strategy!r} has no shard dimension to "
                          f"window; use exchange_group")
+    require_stacked(comm, "chunk-ready dispatch")
     if wire is not None:
         _check_wire_strategy(strategy, wire)
     w = effective_windows(group, windows)
@@ -437,7 +454,7 @@ class ChunkReadyExchange:
             return self.ex.finish()
 
 
-def pipelined_wire_exchange(comm: StackedComm, g: torch.Tensor,
+def pipelined_wire_exchange(comm, g: torch.Tensor,
                             p: torch.Tensor, slots: tuple,
                             update_fn: Callable, wire, chunk_elems: int,
                             residual: torch.Tensor,
@@ -455,16 +472,17 @@ def pipelined_wire_exchange(comm: StackedComm, g: torch.Tensor,
     membership) or a 0-dim tensor on the card (the gate's).  Returns (p',
     slots', residual'), where p' is p plus the decoded pull delta (not the
     rule's p'): what every worker applies after the all-gather, which is
-    the identity on one card."""
-    ex = WindowedExchange(comm, g, p, slots, update_fn, windows, n_live,
-                          wire=wire, chunk_elems=chunk_elems,
-                          residual=residual, fused_dequant=fused_dequant)
+    the identity on one card.  Over a process group g is this rank's (1,
+    padded) row and ``slots`` and ``residual`` its shard's (L,)."""
+    ex = _windowed(comm)(comm, g, p, slots, update_fn, windows, n_live,
+                         wire=wire, chunk_elems=chunk_elems,
+                         residual=residual, fused_dequant=fused_dequant)
     for w in range(windows):
         ex.window(w)
     return ex.finish()
 
 
-def run_wire_exchange(strategy: str, comm: StackedComm, g: torch.Tensor,
+def run_wire_exchange(strategy: str, comm, g: torch.Tensor,
                       p: torch.Tensor, slots: tuple, update_fn: Callable,
                       group: GroupPlan, wire, residual: torch.Tensor,
                       fused_dequant: Optional[Callable] = None,
@@ -477,3 +495,127 @@ def run_wire_exchange(strategy: str, comm: StackedComm, g: torch.Tensor,
                                    group.chunk_elems, residual,
                                    fused_dequant,
                                    effective_windows(group, windows), n_live)
+
+
+def _windowed(comm):
+    """The windowed exchange's class for ``comm``."""
+    return (ProcessGroupExchange if isinstance(comm, ProcessGroupComm)
+            else WindowedExchange)
+
+
+class ProcessGroupExchange:
+    """``WindowedExchange`` over a process group, one worker a rank: g is
+    this rank's (1, padded) gradient row, p the whole (padded,) vector,
+    ``slots`` (and an encoded wire's ``residual``) the (L,) state of the
+    shard this rank owns, updated in place.  ``window(w)`` runs window w
+    (every rank the same windows in the same order: each is a collective),
+    ``finish()`` the pull and returns what ``WindowedExchange.finish``
+    does, p' the whole new (padded,) vector on every rank.
+
+    Identity: window w's strips of every shard, packed, go out in one push
+    and the rule runs on the (W, Lw) received rows (its kernel sums them in
+    worker order and divides by W or the live count), writing the window's
+    run of the new shard.  Encoded: window w's ring (``_ring``) brings the
+    still-encoded partial of this rank's strip, and the tail runs as on the
+    stacked Comm, on this rank's own strip; at S == 1 the rule on the own
+    row."""
+
+    def __init__(self, comm: ProcessGroupComm, g: torch.Tensor,
+                 p: torch.Tensor, slots: tuple, update_fn: Callable,
+                 windows: int, n_live=None, *, wire=None,
+                 chunk_elems: int = 0, residual=None, fused_dequant=None):
+        check_stacked(comm, g, p)
+        S, r = comm.n_workers, comm.rank
+        self.L = L = p.numel() // S
+        self.Lw = L // windows
+        self.comm, self.row, self.p = comm, g[0], p
+        self.p_sh = p[r * L:(r + 1) * L]
+        self.slots, self.update_fn, self.windows = slots, update_fn, windows
+        self.wire, self.ce = wire, chunk_elems
+        self.residual, self.fused_dequant = residual, fused_dequant
+        self.gate = isinstance(n_live, torch.Tensor)
+        if wire is None:
+            self.divisor = mean_divisor(n_live, g.device)
+        elif S > 1:                    # the decoded sum is divided by N
+            self.divisor = mean_divisor(S if n_live is None else n_live,
+                                        g.device)
+        self.p_out = None              # the new shard, (L,)
+
+    def _run(self, j: int, w: int) -> torch.Tensor:
+        """This rank's run of window w's strip of shard j."""
+        lo = j * self.L + w * self.Lw
+        return self.row[lo:lo + self.Lw]
+
+    def window(self, w: int) -> None:
+        if self.p_out is None:
+            self.p_out = torch.empty_like(self.p_sh)
+        comm, S, r = self.comm, self.comm.n_workers, self.comm.rank
+        cols = slice(w * self.Lw, (w + 1) * self.Lw)
+        p, p_out = self.p_sh[cols], self.p_out[cols]
+        slots = tuple(s[cols] for s in self.slots)
+        if self.wire is None:
+            rows = comm.push(_strip(self.row, S, self.windows, w))
+            if S == 1:
+                self.update_fn(p, rows[0], slots, p_out=p_out)
+            else:
+                self.update_fn(p, rows, slots, divisor=self.divisor,
+                               p_out=p_out)
+            return
+        own = self._run(r, w)
+        if S == 1:
+            self.update_fn(p, own, slots, p_out=p_out)
+            return
+        parts = self._ring(w)
+        if self.fused_dequant is not None:
+            self.fused_dequant(p, parts, own, slots,
+                               divisor=self.divisor if self.gate else None,
+                               p_out=p_out)
+            return
+        gsum = self.wire.decode(parts, self.ce)
+        del parts
+        # divided, by a tensor on the device (see WindowedExchange.window)
+        gsum.add_(own).div_(self.divisor)
+        self.update_fn(p, gsum, slots, p_out=p_out)
+
+    def _ring(self, w: int) -> tuple:
+        """Window w's encoded ring: this rank starts shard r-1's partial
+        with its own run, then at hop k = 2 .. S-1 receives shard r-k's
+        partial from rank r-1, decodes it, adds its run and encodes it
+        again; the last hop brings the partial of its own shard, returned
+        still encoded (the stacked ring's order, ``ring_reduce_scatter``)."""
+        S, r, wire, ce = (self.comm.n_workers, self.comm.rank, self.wire,
+                          self.ce)
+        parts = wire.encode(self._run((r - 1) % S, w).float(), ce)
+        for k in range(2, S):
+            parts = self._hop(parts)
+            acc = wire.decode(parts, ce)
+            del parts                      # free the payload before encoding
+            parts = wire.encode(acc.add_(self._run((r - k) % S, w)), ce)
+            del acc
+        return self._hop(parts)
+
+    def _hop(self, parts: tuple) -> tuple:
+        send = self.wire.pack_words(parts)
+        recv = self.comm.ring_hop(send, tuple(torch.empty_like(t)
+                                              for t in send))
+        return self.wire.unpack_words(recv)
+
+    def finish(self) -> tuple:
+        comm, p = self.comm, self.p
+        if self.wire is None:
+            out = comm.pull(self.p_out, torch.empty_like(p))
+            self.p_out = None
+            return out, self.slots
+        # pull: this shard's delta plus its carried residual encoded, the
+        # words and scales gathered, every shard decoded on every rank
+        ce, r, L = self.ce, comm.rank, self.L
+        e = (self.p_out.float() - self.p_sh.float()).add_(self.residual)
+        self.p_out = None
+        parts = self.wire.pack_words(self.wire.encode(e, ce))
+        gathered = tuple(comm.pull(t, t.new_empty(t.numel() * comm.n_workers))
+                         for t in parts)
+        del parts
+        d = self.wire.decode(self.wire.unpack_words(gathered), ce)
+        del gathered
+        res = e.sub_(d[r * L:(r + 1) * L])
+        return d.add_(p).to(p.dtype), self.slots, res

@@ -14,9 +14,10 @@ every ring hop and encodes the pull's parameter delta; what the rounding
 drops from the delta is carried into the next step by the error-feedback
 slot ``wire_ef``, an f32 slot laid out as momentum and appended last.
 
-``pack_words``/``unpack_words`` (the uint32 framing of payloads for
-collectives) wait for the ``torch.distributed`` backend, and the DCN tier's
-wire for the ``hierarchical`` strategy (ROADMAP.md queue A items 4 and 5).
+``pack_words``/``unpack_words`` frame a payload as uint32 words for the
+collectives of ``core/comm.py::ProcessGroupComm`` (the int8 ring's hops and
+the pull), bitwise as the reference's.  The DCN tier's wire waits for the
+``hierarchical`` strategy (ROADMAP.md queue A item 5).
 """
 from __future__ import annotations
 
@@ -95,6 +96,30 @@ class WireFormat:
         from ..kernels.quant.ops import dequantize_int8
         q, scales = parts
         return dequantize_int8(q, scales, chunk_elems=chunk_elems)
+
+    # ------------------------------------------------- collective word packing
+
+    def pack_words(self, parts: tuple) -> tuple:
+        """The narrow payload as uint32 words (a view: the same bytes, four
+        int8 or two bf16/f16 codes a word, little-endian as the
+        reference's ``bitcast_convert_type``); the scales and the identity
+        payload as they are.  Payloads are whole chunks of a chunk size
+        that is a multiple of the packing factor."""
+        if self.is_identity:
+            return parts
+        q = parts[0]
+        if q.element_size() < 4:
+            q = q.contiguous().view(torch.uint32)
+        return (q,) + tuple(parts[1:])
+
+    def unpack_words(self, parts: tuple) -> tuple:
+        """Inverse of ``pack_words`` (bitwise)."""
+        q = parts[0]
+        if not self.is_identity and q.dtype == torch.uint32:
+            wdt = _WIRE_DTYPES[self.name]
+            if wdt.itemsize < 4:
+                q = q.view(wdt)
+        return (q,) + tuple(parts[1:])
 
     # ------------------------------------------------------- byte accounting
 

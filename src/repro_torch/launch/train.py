@@ -1,6 +1,11 @@
 """Training launcher for the PyTorch port.
 
-Runs PHub's sharded_ps train step with W workers stacked on one device.
+Runs PHub's sharded_ps train step with W workers stacked on one device
+(``--workers W``), or one worker in each of N processes over
+``torch.distributed`` (``--nproc N --backend gloo|nccl``, the counterpart
+of the reference's ``--devices``; ``launch/dist.py``).  gloo ranks may
+share one card (their collectives go through host memory); NCCL needs a
+card a rank.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
@@ -10,6 +15,7 @@ Usage:
       --checkpoint-every 2          # the self-healing loop, seeded faults
   ... --chaos --workers 4           # seeded kill/slow/rejoin membership
   ... --workers 4 --windows 5 --overlap   # windowed exchange, chunk-ready
+  ... --nproc 2 --backend gloo      # one worker a process (gloo)
 
 Values the port does not implement (another strategy or architecture, a
 batch that does not split over the workers) raise.
@@ -17,6 +23,9 @@ batch that does not split over the workers) raise.
 from __future__ import annotations
 
 import argparse
+
+# a collective of --nproc that takes longer is a hung group
+COLLECTIVE_TIMEOUT_S = 1800.0
 
 
 def resolve_mode_flags(supervise, elastic, chaos, chaos_faults):
@@ -65,6 +74,12 @@ def main(argv=None):
                     help="identity | bf16 | f16 | int8 (core/wire.py)")
     ap.add_argument("--workers", type=int, default=1,
                     help="workers stacked on the one device")
+    ap.add_argument("--nproc", type=int, default=1,
+                    help="worker processes over torch.distributed, one "
+                         "worker each (exclusive with --workers)")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="the process group's backend (default gloo); "
+                         "given with --nproc 1, one rank over it")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--checkpoint-dir", default="")
@@ -95,13 +110,30 @@ def main(argv=None):
     args = ap.parse_args(argv)
     args.supervise, args.elastic = resolve_mode_flags(
         args.supervise, args.elastic, args.chaos, args.chaos_faults)
+    if args.nproc > 1 or args.backend is not None:
+        if args.workers != 1:
+            raise SystemExit("--nproc runs one worker a process; drop "
+                             "--workers (the stacked Comm)")
+        from . import dist
+        # one intra-op thread a CPU rank: the ranks are the parallelism
+        results = dist.run(_train, args.nproc, args.backend or "gloo",
+                           args.device, COLLECTIVE_TIMEOUT_S, args=(args,),
+                           threads=1 if args.device == "cpu" else None)
+        return results[0]
+    from ..core import StackedComm
+    return _train(StackedComm(args.workers), args.device, args)
 
+
+def _train(comm, device, args):
+    """Build the engine over ``comm`` on ``device`` and train; returns the
+    losses (rank 0 prints).  Under ``--nproc`` each rank runs it."""
     from ..configs import TrainConfig, get_arch, reduced
     from ..core import PHubEngine, StackedComm
     from ..core.pipeline import effective_windows
     from ..data import SyntheticTokens
     from ..training import TrainState, fit
 
+    say = print if comm.rank == 0 else (lambda *a, **k: None)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -111,54 +143,57 @@ def main(argv=None):
                      pipeline_windows=args.windows,
                      overlap_backward=args.overlap,
                      loss_chunk=min(1024, args.seq))
-    engine = PHubEngine(cfg, tc, StackedComm(args.workers), device=args.device)
+    engine = PHubEngine(cfg, tc, comm, device=device)
     params, opt = engine.init_state()
     data = SyntheticTokens(cfg, args.batch, args.seq, seed=tc.seed)
     windows = [effective_windows(g, tc.pipeline_windows)
                for g in engine.chunk_plan.groups]
-    print(f"[train] arch={cfg.arch_id} params={cfg.n_params() / 1e6:.1f}M "
-          f"workers={args.workers} strategy={tc.strategy} "
-          f"wire={tc.wire_format} windows={tc.pipeline_windows} "
-          f"(effective {windows}) overlap={tc.overlap_backward} "
-          f"device={engine.device}")
+    procs = ("" if isinstance(comm, StackedComm) else
+             f" ({comm.n_workers} processes, {comm.backend})")
+    say(f"[train] arch={cfg.arch_id} params={cfg.n_params() / 1e6:.1f}M "
+        f"workers={comm.n_workers}{procs} strategy={tc.strategy} "
+        f"wire={tc.wire_format} windows={tc.pipeline_windows} "
+        f"(effective {windows}) overlap={tc.overlap_backward} "
+        f"device={engine.device}")
     state = TrainState(params=params, opt=opt)
     del opt
     if args.supervise:
         return _train_supervised(engine, state, data, args)
-    membership_fn = _membership_fn(args) if args.elastic else None
+    membership_fn = (_membership_fn(args, comm.n_workers, say)
+                     if args.elastic else None)
     state = fit(engine, state, data, steps=args.steps,
                 log_every=args.log_every, membership_fn=membership_fn,
                 checkpoint_dir=args.checkpoint_dir,
                 checkpoint_every=args.checkpoint_every)
     losses = state.losses
-    print(f"[train] done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+    say(f"[train] done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
     return losses
 
 
-def _membership_fn(args):
+def _membership_fn(args, world, say=print):
     """step -> Membership: the full rack, with a seeded ChaosSchedule's
     events folded in under --chaos."""
     from ..elastic import ChaosSchedule, Membership
 
-    current = [Membership.full(args.workers)]
-    sched = (ChaosSchedule.seeded(seed=args.chaos_seed, world=args.workers,
+    current = [Membership.full(world)]
+    sched = (ChaosSchedule.seeded(seed=args.chaos_seed, world=world,
                                   steps=args.steps,
                                   event_every=args.chaos_every)
              if args.chaos else None)
-    print(f"[train] elastic rack: world={args.workers}"
+    say(f"[train] elastic rack: world={world}"
           + (f" chaos seed={args.chaos_seed}, {len(sched.events)} events"
              if sched else ""))
 
     def membership_at(step):
         if sched is not None:
             for ev in sched.events_at(step):
-                print(f"[train] chaos step {step}: {ev.kind} worker "
+                say(f"[train] chaos step {step}: {ev.kind} worker "
                       f"{ev.worker}"
                       + (f" x{ev.factor:g}" if ev.kind == "slow" else ""))
             m2 = sched.apply(current[0], step)
             if m2 is not current[0]:
                 current[0] = m2
-                print(f"[train] membership epoch {m2.epoch}: "
+                say(f"[train] membership epoch {m2.epoch}: "
                       f"{m2.n_live}/{m2.world} live")
         return current[0]
     return membership_at

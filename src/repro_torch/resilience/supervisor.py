@@ -39,6 +39,7 @@ import numpy as np
 
 from ..checkpoint import (latest_step, restore_latest_valid,
                           save_checkpoint, snapshot_tree)
+from ..core.comm import require_stacked
 from ..elastic import Membership
 from ..elastic.chaos import GRAD_FAULTS, STALL, corrupt_checkpoint
 from .sanity import HealthTracker, SanityConfig
@@ -71,6 +72,7 @@ class TrainSupervisor:
     def __init__(self, engine, config: Optional[SupervisorConfig] = None,
                  membership: Optional[Membership] = None, faults=None,
                  log_fn=print):
+        require_stacked(engine.comm, "the supervisor (fit(supervisor=))")
         self.engine = engine
         self.cfg = config or SupervisorConfig()
         world = engine.comm.n_workers

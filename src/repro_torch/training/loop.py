@@ -1,7 +1,8 @@
 """Training loop over a PHubEngine (``repro/training/loop.py``): plain
 steps, an elastic membership per step, periodic checkpoints, or the
-self-healing ``TrainSupervisor``.  The reference's telemetry hooks (tracer
-spans, the metrics registry) are ROADMAP.md queue A item 9."""
+self-healing ``TrainSupervisor``.  Over a process group every rank runs
+the loop and rank 0 logs.  The reference's telemetry hooks (tracer spans,
+the metrics registry) are ROADMAP.md queue A item 9."""
 from __future__ import annotations
 
 import time
@@ -9,6 +10,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from ..checkpoint import save_checkpoint, snapshot_tree
+from ..core.comm import require_stacked
 
 
 @dataclass
@@ -42,7 +44,8 @@ def fit(engine, state: TrainState, data, *, steps: int,
     The loss is read back to the host (a device sync) only at log
     boundaries, on the final step, and when hooks are installed; the
     supervised loop syncs its health metrics every step (that sync is the
-    detector)."""
+    detector).  Over a process group each rank runs this loop on its own
+    worker; only rank 0 calls ``log_fn``."""
     if supervisor is not None:
         if membership_fn is not None or checkpoint_dir or checkpoint_every:
             raise ValueError(
@@ -52,6 +55,10 @@ def fit(engine, state: TrainState, data, *, steps: int,
         return _fit_supervised(engine, state, data, steps=steps,
                                log_every=log_every, log_fn=log_fn,
                                hooks=hooks, supervisor=supervisor)
+    if engine.comm.rank != 0:
+        log_fn = _quiet
+    if checkpoint_dir and checkpoint_every:
+        require_stacked(engine.comm, "saving checkpoints")
     step_cache = {None: engine.make_train_step()}
     step_fn = step_cache[None]
     membership = None
@@ -89,6 +96,10 @@ def fit(engine, state: TrainState, data, *, steps: int,
                             snapshot_tree(state.params, state.opt),
                             membership=membership)
     return state
+
+
+def _quiet(msg: str) -> None:
+    """The log of a rank other than 0."""
 
 
 def _fit_supervised(engine, state: TrainState, data, *, steps: int,
