@@ -196,7 +196,38 @@
    (staging copies included), and each rank's peak GiB are logged beside
    the stacked step's.  Every collective runs under DIST_TIMEOUT; a rank
    that fails brings its group down and the script with it.
-12. Prints the kernels line, then the device line last.
+12. PHub's rack deployment and its baselines (``TrainConfig.strategy``
+   hierarchical, allreduce, centralized_ps; ``wire_format_dcn``), Nesterov
+   unless named:
+   (d) stacked, full llama3.2-1b, 4 workers (``STRATEGY_PATHS``):
+   allreduce and centralized_ps, 2 steps each, bitwise equal to the
+   sharded_ps W=4 path (losses and parameters after every step);
+   hierarchical as 2 pods x 2, 2 steps, held against the sharded_ps step
+   (the sum is grouped differently: after one step its sampled parameters
+   within 1e-4 of the step's largest change, step 1's loss within 1e-4
+   relative); its 3-window flat and chunk-ready modes bitwise equal to it;
+   the int8 DCN tier, 2 steps, and in 3 windows bitwise equal to it; the
+   int8 ring inside the pods (1 step); a static 3-of-4 membership (1); the
+   supervised gated step with worker 1 poisoned (2); Adam (1).  Each
+   path's launches exact (multi_agg_opt_chunks once a step, 6 in 3
+   windows; the DCN tier one quantize_chunks and one dequantize_chunks a
+   window).
+   (e) gloo, 2 processes on cuda:0 laid out 2 pods x 1, full llama3.2-1b
+   in 64 KB chunks: allreduce and centralized_ps (2 steps each) bitwise
+   equal to the stacked W=2 sharded_ps path, hierarchical (2) and its int8
+   DCN tier with 5 windows asked for (3 take effect: 75,429 chunks a
+   shard; 2 steps) bitwise equal to the stacked 2 x 1 paths; each rank's
+   launches exact (centralized_ps: rank 0, the PS, alone updates); the
+   collectives' calls, bytes and ms by operation (the cross-pod leg's
+   bytes among them), step ms and peak GiB a rank.
+   (f) gloo, 4 processes on cuda:0 as 2 pods x 2, reduced llama3.2-1b and
+   rwkv6-3b: hierarchical over the identity wire, the int8 DCN tier and
+   the int8 ring in the pods, and centralized_ps, 2 steps each, bitwise
+   equal to ``StackedComm(4, 2)``'s (losses, parameters, every slot row a
+   rank keeps); allreduce, whose ``all_reduce`` adds 4 ranks in gloo's
+   order, one step: step 0's loss equal, the parameters within 1e-4 of
+   the step's largest change.
+13. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 card and refuses to run without one.
@@ -327,6 +358,89 @@ GLOO_PATHS = (
      {"quantize_chunks": 6, "dequantize_chunks": 1,
       "dequant_agg_opt_chunks": 5}, "int8"),
 )
+
+# PHub's rack deployment and its baselines (phases (d)-(f)).  (d) stacked,
+# full llama3.2-1b, 4 workers, Nesterov: hierarchical as PODS pods x 2 (D
+# = 2 shards: 75,429 chunks a shard = 3^2 * 17^2 * 29, so 3 windows take
+# effect).  (label, steps, rule, wire, TrainConfig fields, launches per
+# step, the path of ``runs`` it equals bitwise (or None), a static dead
+# worker, a FaultSchedule's poisoned worker)
+PODS, HIER_WINDOWS = 2, 3
+B2, B6A, B6B = ("multi_agg_opt_chunks", "quantize_chunks",
+                "dequantize_chunks")
+HIER = dict(strategy="hierarchical")
+DCN = dict(HIER, wire_format_dcn="int8")
+HIER_BOUND = 1e-4       # hierarchical vs sharded_ps after one step: of the
+#                         step's largest change (docstring, 12.)
+STRATEGY_PATHS = (
+    ("allreduce W=4", 2, "nesterov", "identity", dict(strategy="allreduce"),
+     {B2: 1}, "nesterov W=4", None, None),
+    ("centralized_ps W=4", 2, "nesterov", "identity",
+     dict(strategy="centralized_ps"), {B2: 1}, "nesterov W=4", None, None),
+    ("hierarchical 2x2", 2, "nesterov", "identity", HIER, {B2: 1}, None,
+     None, None),
+    (f"hierarchical 2x2 in {HIER_WINDOWS} windows, flat", 2, "nesterov",
+     "identity", dict(HIER, pipeline_windows=HIER_WINDOWS,
+                      flat_residency=True),
+     {B2: HIER_WINDOWS * 2}, "nesterov hierarchical 2x2", None, None),
+    (f"hierarchical 2x2 in {HIER_WINDOWS} windows, chunk-ready", 2,
+     "nesterov", "identity", dict(HIER, pipeline_windows=HIER_WINDOWS,
+                                  overlap_backward=True),
+     {B2: HIER_WINDOWS * 2}, "nesterov hierarchical 2x2", None, None),
+    ("hierarchical 2x2, int8 DCN", 2, "nesterov", "identity", DCN,
+     {B6A: 1, B6B: 1, B2: 1}, None, None, None),
+    (f"hierarchical 2x2, int8 DCN in {HIER_WINDOWS} windows", 2,
+     "nesterov", "identity", dict(DCN, pipeline_windows=HIER_WINDOWS),
+     {B6A: HIER_WINDOWS, B6B: HIER_WINDOWS, B2: HIER_WINDOWS * 2},
+     "nesterov hierarchical 2x2, int8 DCN", None, None),
+    ("hierarchical 2x2, int8 in the pods", 1, "nesterov", "int8", HIER,
+     {B6A: 2, B6B: 2, B2: 1}, None, None, None),
+    ("hierarchical 2x2, worker 1 dead", 1, "nesterov", "identity", HIER,
+     {B2: 1}, None, POISONED, None),
+    ("hierarchical 2x2 supervised", 2, "nesterov", "identity", HIER,
+     {"health_chunks": 1, B2: 1}, None, None, POISONED),
+    ("hierarchical 2x2", 1, "adam", "identity", HIER,
+     {"adam_opt_chunks": 1}, None, None, None),
+)
+# (e) gloo, GLOO_W ranks sharing cuda:0 laid out as 2 pods x 1, full
+# llama3.2-1b in 64 KB chunks: hierarchical has D = 1 shard of 75,429
+# chunks, so 5 windows asked for take effect as 3.  The stacked paths
+# first: (label, steps, rule, wire, fields, launches per step); then the
+# ranks' paths: (..., launches per step a rank (centralized_ps: the PS,
+# rank 0, alone), the window count that takes effect, the stacked path
+# they equal bitwise)
+DCN_ASKED, DCN_EFFECTIVE = 5, 3
+GLOO_STRATEGY_BASES = (
+    ("hierarchical 2x1", 2, "nesterov", "identity", dict(_CHUNK, **HIER),
+     {B2: 1}),
+    ("hierarchical 2x1, int8 DCN", 2, "nesterov", "identity",
+     dict(_CHUNK, **DCN), {B6A: 1, B6B: 1, B2: 1}),
+)
+GLOO_STRATEGY_PATHS = (
+    ("allreduce", 2, "nesterov", "identity",
+     dict(_CHUNK, strategy="allreduce"), {B2: 1}, None, "nesterov"),
+    ("centralized_ps", 2, "nesterov", "identity",
+     dict(_CHUNK, strategy="centralized_ps"),
+     {"rank0": {B2: 1}, "others": {}}, None, "nesterov"),
+    ("hierarchical 2x1", 2, "nesterov", "identity", dict(_CHUNK, **HIER),
+     {B2: 1}, None, "hierarchical 2x1"),
+    (f"hierarchical 2x1, int8 DCN, {DCN_ASKED} windows asked", 2,
+     "nesterov", "identity",
+     dict(_CHUNK, pipeline_windows=DCN_ASKED, **DCN),
+     {B6A: DCN_EFFECTIVE, B6B: DCN_EFFECTIVE, B2: DCN_EFFECTIVE},
+     DCN_EFFECTIVE, "hierarchical 2x1, int8 DCN"),
+)
+# (f) gloo, REDUCED_W ranks on cuda:0 as 2 pods x 2, reduced configs:
+# (label, TrainConfig fields); allreduce at 4 ranks sums in gloo's order,
+# so it runs one step, held within ALLREDUCE_BOUND of the step's largest
+# change (docstring, 12.)
+REDUCED_STRATEGIES = (
+    ("hierarchical", HIER), ("hierarchical, int8 DCN", DCN),
+    ("hierarchical, int8 in the pods", dict(HIER, wire_format="int8")),
+    ("centralized_ps", dict(strategy="centralized_ps")),
+    ("allreduce", dict(strategy="allreduce")),
+)
+ALLREDUCE_BOUND = 1e-4
 
 
 def log(msg: str) -> None:
@@ -1377,23 +1491,27 @@ def main_path(torch, workers: int, steps: int, expect: dict,
               optimizer: str = "nesterov", wire: str = "identity",
               faults=None, pipeline=None, arch: str = ARCH,
               layers: int = 0, dead: int | None = None, comm=None,
-              time_exchange: bool = False) -> dict:
+              time_exchange: bool = False, pods: int = 1,
+              want_windows: int | None = None) -> dict:
     """PHubEngine + fit on the full ``arch`` (full width; ``layers``, if
     given, cuts its depth) under ``optimizer`` over ``wire``; ``expect``
     holds each kernel's launches per step and group (every other count
     must stay 0).  ``faults``: a FaultSchedule; the run then goes through
     fit(supervisor=TrainSupervisor) with injection on and demote_after 2,
-    and the supervisor's record is checked.  ``pipeline``: TrainConfig's
-    pipeline fields (``pipeline_windows``, ``flat_residency``,
-    ``overlap_backward``); the requested window count must take effect.
-    ``dead``: a static k-of-n membership with that worker left out.
+    and the supervisor's record is checked.  ``pipeline``: more
+    TrainConfig fields (the pipeline's ``pipeline_windows``,
+    ``flat_residency``, ``overlap_backward``; ``strategy``,
+    ``wire_format_dcn``); the requested window count (or
+    ``want_windows``) must take effect.  ``pods``: the stacked Comm's
+    pods.  ``dead``: a static k-of-n membership with that worker left out.
     ``comm``: a ProcessGroupComm (one worker this process, ``workers`` its
-    world) instead of ``StackedComm(workers)``; its launches are this
-    rank's.  ``time_exchange``: the exchange stage timed between two
+    world) instead of ``StackedComm(workers, pods)``; its launches are
+    this rank's.  ``time_exchange``: the exchange stage timed between two
     synchronizations a step, beside the Comm's own collective time.
     Returns the run's launch counts, its losses, the parameters'
-    fingerprint after every step, step ms, peak GiB and the exchange's and
-    collectives' ms a step."""
+    fingerprint before and after every step, step ms, peak GiB, the
+    exchange's and collectives' ms a step and the Comm's calls, bytes and
+    seconds per operation over the run."""
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.core import PHubEngine, StackedComm
     from repro_torch.core.chunking import leaf_paths
@@ -1413,15 +1531,18 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     tc = TrainConfig(loss_chunk=min(1024, SEQ), optimizer=optimizer,
                      wire_format=wire, **({"lr": lr} if lr else {}),
                      **(pipeline or {}))
-    engine = PHubEngine(cfg, tc, comm or StackedComm(workers), device="cuda")
+    engine = PHubEngine(cfg, tc, comm or StackedComm(workers, pods),
+                        device="cuda")
     where = (f"rank {comm.rank} of {workers} ({comm.backend}) "
              if comm is not None else "")
     exchange_s = exchange_timer(torch, engine) if time_exchange else []
     model, opt = engine.init_state()
     windows = [effective_windows(g, tc.pipeline_windows)
                for g in engine.chunk_plan.groups]
-    check(windows == [tc.pipeline_windows] * len(windows),
-          f"{tc.pipeline_windows} windows asked for, {windows} take effect")
+    want_w = want_windows or tc.pipeline_windows
+    check(windows == [want_w] * len(windows),
+          f"{tc.pipeline_windows} windows asked for, {windows} take effect, "
+          f"want {want_w}")
     check((model.flat_store is not None) == tc.flat_residency,
           "the model's residency is not the engine's")
     state = TrainState(params=model, opt=opt)
@@ -1441,9 +1562,12 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     if dead is not None:
         members = Membership.full(workers).leave(dead)
         membership_fn = lambda step: members        # noqa: E731
+    P = comm.pods if comm is not None else pods
     log(f"{where}main path: {arch} {n_tree:,} parameters in the tree, "
-        f"{cfg.n_layers} layers, d_model {cfg.d_model}; sharded_ps, "
-        f"{workers} {'process' if comm else 'stacked'} worker(s)"
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}; {tc.strategy}"
+        f"{f' ({P} pods x {workers // P})' if P > 1 else ''}"
+        f"{f', DCN wire {tc.wire_format_dcn}' if tc.wire_format_dcn else ''}"
+        f", {workers} {'process' if comm else 'stacked'} worker(s)"
         f"{f', worker {dead} dead (static k-of-n)' if dead is not None else ''}"
         f", {wire} wire, batch {BATCH} x {SEQ}, {steps} step(s), "
         f"{optimizer} at lr {tc.lr}, {rule}"
@@ -1456,6 +1580,7 @@ def main_path(torch, workers: int, steps: int, expect: dict,
                     f"({g.n_chunks} chunks of {g.chunk_elems})"
                     for g in groups))
     before = {p: bit_sum(torch, t) for p, t in leaf_paths(model.param_tree())}
+    init_print = fingerprint(torch, model)
     data = SyntheticTokens(cfg, BATCH, SEQ, seed=tc.seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1465,8 +1590,11 @@ def main_path(torch, workers: int, steps: int, expect: dict,
 
     def collective_s() -> float:
         """The exchange's collectives so far (not the loss's gather)."""
-        return sum(comm.stats.get(op, {}).get("seconds", 0.0)
-                   for op in ("push", "pull", "ring_hop")) if comm else 0.0
+        return sum(st["seconds"] for op, st in comm.stats.items()
+                   if op != "gather_small") if comm else 0.0
+
+    stats0 = ({op: dict(st) for op, st in comm.stats.items()} if comm
+              else {})
 
     coll = [collective_s()]
 
@@ -1509,13 +1637,18 @@ def main_path(torch, workers: int, steps: int, expect: dict,
             f"{demotes}, live ranks {sup.membership.live_ranks}, "
             f"{len(sup._steps)} step functions, events {sup.event_kinds()}")
         check(masks == [[1, 1, 1, 1], [1, 0, 1, 1], [1, 0, 1, 1],
-                        [1, 0, 1, 1]] and live == [4, 3, 3, 3],
+                        [1, 0, 1, 1]][:steps]
+              and live == [4, 3, 3, 3][:steps],
               f"verdicts {masks}, n_live {live}")
-        check(demotes == [(2, POISONED, "slow")],
-              f"demotions {demotes}, want worker {POISONED} at step 2")
-        check(sup.membership.live_ranks == (0, 2, 3) and len(sup._steps) == 2
-              and sup.rollbacks == 0,
-              "step 3 did not run on the static 3-of-4 program")
+        if steps >= 4:
+            check(demotes == [(2, POISONED, "slow")],
+                  f"demotions {demotes}, want worker {POISONED} at step 2")
+            check(sup.membership.live_ranks == (0, 2, 3)
+                  and len(sup._steps) == 2 and sup.rollbacks == 0,
+                  "step 3 did not run on the static 3-of-4 program")
+        else:
+            check(demotes == [] and sup.rollbacks == 0,
+                  f"demotions {demotes} before step 2")
     check(all(math.isfinite(x) for x in state.losses),
           f"non-finite loss {state.losses}")
     check(len(state.losses) == steps, f"{len(state.losses)} losses")
@@ -1534,10 +1667,12 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     del model, state, engine, sup
     gc.collect()
     torch.cuda.empty_cache()
+    stats = {op: {k: v - stats0.get(op, {}).get(k, 0) for k, v in st.items()}
+             for op, st in (comm.stats.items() if comm else ())}
     return {"launches": launches, "losses": losses, "prints": prints,
-            "step_ms": step_ms, "peak_gib": peaks,
+            "init_print": init_print, "step_ms": step_ms, "peak_gib": peaks,
             "exchange_ms": [x * 1e3 for x in exchange_s],
-            "collective_ms": coll_ms}
+            "collective_ms": coll_ms, "stats": stats}
 
 
 def exchange_timer(torch, engine) -> list:
@@ -1703,15 +1838,27 @@ def hold_rows(torch, world: int, ranks: list, want: dict) -> None:
         f"StackedComm({world})'s")
 
 
+def rank_expect(expect: dict, rank: int) -> dict:
+    """A path's launches per step for ``rank``: the dict itself, or its
+    "rank0" / "others" entry (centralized_ps: the PS, rank 0, alone
+    launches the update)."""
+    if "rank0" in expect:
+        return expect["rank0" if rank == 0 else "others"]
+    return expect
+
+
 def dist_rank(comm, device, paths: tuple, rows: bool):
     """A spawned rank of the process-group phases: each of ``paths``
-    (label, steps, rule, wire, TrainConfig fields, launches per step)
-    through ``main_path`` over ``comm``, then (``rows``) the exchange alone
-    on identical rows.  Returns (main_path's records, exchange_rows)."""
+    (label, steps, rule, wire, TrainConfig fields, launches per step, the
+    window count that takes effect or None) through ``main_path`` over
+    ``comm``, then (``rows``) the exchange alone on identical rows.
+    Returns (main_path's records, exchange_rows)."""
     import torch
-    runs = [main_path(torch, comm.n_workers, steps, expect, rule, wire,
-                      pipeline=pipe, comm=comm, time_exchange=True)
-            for label, steps, rule, wire, pipe, expect in paths]
+    runs = [main_path(torch, comm.n_workers, steps,
+                      rank_expect(expect, comm.rank), rule, wire,
+                      pipeline=pipe, comm=comm, time_exchange=True,
+                      want_windows=want)
+            for label, steps, rule, wire, pipe, expect, want in paths]
     return runs, (exchange_rows(torch, comm, comm.n_workers) if rows
                   else None)
 
@@ -1814,7 +1961,7 @@ def process_group_phases(torch) -> list:
         + timing_note(base))
     ranks = dist.run(dist_rank, world, "nccl", "cuda", DIST_TIMEOUT,
                      args=((("nccl", 1, "nesterov", "identity", {},
-                             expect),), False), timing=True)
+                             expect, None),), False), timing=True)
     for r, (runs, _) in enumerate(ranks):
         hold_run(torch, f"NCCL rank {r} of {world}", runs[0], base, 1)
         log(f"(a) NCCL rank {r} of {world}: launches "
@@ -1832,8 +1979,8 @@ def process_group_phases(torch) -> list:
     gc.collect()
     torch.cuda.empty_cache()
     ranks = dist.run(dist_rank, GLOO_W, "gloo", "cuda", DIST_TIMEOUT,
-                     args=(tuple(p[:6] for p in GLOO_PATHS), True),
-                     timing=True)
+                     args=(tuple(p[:6] + (None,) for p in GLOO_PATHS),
+                           True), timing=True)
     for i, (label, steps, rule, wire, pipe, expect, base_label) in \
             enumerate(GLOO_PATHS):
         for r, (runs, _) in enumerate(ranks):
@@ -1868,7 +2015,195 @@ def process_group_phases(torch) -> list:
         f"1, 2 windows): every rank's losses, parameters and slots bitwise "
         f"equal to StackedComm({REDUCED_W})'s")
     hold_rows(torch, REDUCED_W, [rows for _, rows in ranks], rows_want)
-    return counted
+    return counted, bases
+
+
+def sampled_step(torch, run: dict, i: int) -> float:
+    """The largest change of a run's sampled parameters in step i."""
+    before = run["init_print"] if i == 0 else run["prints"][i - 1]
+    return max(float((a[3] - b[3]).abs().max())
+               for a, b in zip(run["prints"][i], before))
+
+
+def sampled_gap(torch, a: list, b: list) -> float:
+    """The largest difference of two fingerprints' sampled parameters."""
+    return max(float((x[3] - y[3]).abs().max()) for x, y in zip(a, b))
+
+
+def strategy_phase(torch, runs: dict, count) -> None:
+    """(d) PHub's rack deployment and its baselines, stacked: full
+    llama3.2-1b, 4 workers, ``STRATEGY_PATHS``.  allreduce and
+    centralized_ps equal the sharded_ps W=4 path bitwise; hierarchical 2 x
+    2 stays within HIER_BOUND of its step after one step; its windowed,
+    flat and chunk-ready modes equal it bitwise, and so does the DCN
+    tier's windowed path its monolithic one."""
+    from repro_torch.elastic import FaultEvent, FaultSchedule, NAN_PUSH
+    base = runs["nesterov W=4"]
+    for (label, steps, rule, wire, fields, expect, same, dead,
+         poisoned) in STRATEGY_PATHS:
+        faults = (FaultSchedule((FaultEvent(1, NAN_PUSH, poisoned,
+                                            duration=2),), world=WORKERS)
+                  if poisoned is not None else None)
+        run = main_path(torch, WORKERS, steps, expect, rule, wire, faults,
+                        pipeline=dict(fields), dead=dead, pods=PODS,
+                        time_exchange=True)
+        key = f"{rule} {label}"
+        runs[key] = run
+        count(key, run["launches"])
+        note = timing_note(run)
+        if same is not None:
+            mono = runs[same]
+            hold_run(torch, key, run, mono, steps)
+            log(f"(d) {key}: losses and parameters bitwise equal to "
+                f"{same}'s over {steps} step(s); " + note + "; "
+                + timing_note(mono))
+        elif key == "nesterov hierarchical 2x2":
+            check(run["losses"][0] == base["losses"][0],
+                  "hierarchical 2x2: step 0's loss differs")
+            gap = sampled_gap(torch, run["prints"][0], base["prints"][0])
+            step = sampled_step(torch, base, 0)
+            check(0 < gap <= HIER_BOUND * step,
+                  f"hierarchical 2x2 after one step: {gap} from the "
+                  f"sharded_ps step, bound {HIER_BOUND} x {step}")
+            rel = abs(run["losses"][1] - base["losses"][1]) / base[
+                "losses"][1]
+            check(rel <= HIER_BOUND, f"hierarchical 2x2 step 1's loss "
+                                     f"differs by {rel} (relative)")
+            log(f"(d) {key}: after one step its sampled parameters lie "
+                f"{gap!r} from the sharded_ps W=4 step's, "
+                f"{gap / step!r} of the step's largest change {step!r} "
+                f"(bound {HIER_BOUND}); step 1's loss {rel!r} apart "
+                f"(relative); " + note)
+        else:
+            log(f"(d) {key}: " + note)
+
+
+def strategy_process_phases(torch, bases: dict, count) -> None:
+    """(e) gloo, GLOO_W ranks on cuda:0 as 2 pods x 1, full llama3.2-1b
+    in 64 KB chunks: allreduce and centralized_ps against the stacked W=2
+    sharded_ps path, hierarchical and its int8 DCN tier against the
+    stacked 2 x 1 paths, bitwise, each rank's launches exact, the
+    collectives' calls, bytes and seconds by operation.  (f) gloo,
+    REDUCED_W ranks as 2 pods x 2, reduced llama3.2-1b and rwkv6-3b."""
+    from repro_torch.core import StackedComm
+    from repro_torch.launch import dist
+
+    for label, steps, rule, wire, pipe, expect in GLOO_STRATEGY_BASES:
+        bases[label] = main_path(torch, GLOO_W, steps, expect, rule, wire,
+                                 pipeline=pipe, pods=GLOO_W,
+                                 time_exchange=True)
+        log(f"(e) stacked {label}: " + timing_note(bases[label]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = tuple(p[:7] for p in GLOO_STRATEGY_PATHS)
+    ranks = dist.run(dist_rank, GLOO_W, "gloo", "cuda", DIST_TIMEOUT,
+                     args=(paths, False), timing=True, pods=GLOO_W)
+    for i, (label, steps, rule, wire, pipe, expect, want,
+            base_label) in enumerate(GLOO_STRATEGY_PATHS):
+        for r, (runs, _) in enumerate(ranks):
+            run = runs[i]
+            hold_run(torch, f"gloo rank {r} of {GLOO_W} {label}", run,
+                     bases[base_label], steps)
+            ops = ", ".join(
+                f"{op} {st['calls']} calls {st['bytes']:,} B "
+                f"{st['seconds'] * 1e3:.1f} ms"
+                for op, st in sorted(run["stats"].items()) if st["calls"])
+            log(f"(e) gloo rank {r} of {GLOO_W}, {label}: launches "
+                f"{ {k: v for k, v in run['launches'].items() if v} } "
+                f"as predicted; losses and parameters bitwise equal to "
+                f"the stacked {base_label} path's over {steps} step(s); "
+                + timing_note(run) + f"; collectives over the run: {ops}")
+        count(f"gloo W={GLOO_W} {label}, rank 0",
+              ranks[0][0][i]["launches"])
+
+    want = reduced_strategy_runs(torch, StackedComm(REDUCED_W, PODS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = dist.run(reduced_strategy_rank, REDUCED_W, "gloo", "cuda",
+                     DIST_TIMEOUT, pods=PODS)
+    D = REDUCED_W // PODS
+    for r, got in enumerate(ranks):
+        q, d = divmod(r, D)
+        for case, w in want.items():
+            g = got[case]
+            check(g["losses"] == w["losses"],
+                  f"(f) rank {r}, reduced {case}: losses {g['losses']} "
+                  f"differ from the stacked {w['losses']}")
+            if case[1] == "allreduce":
+                gap = max(float((a - b).abs().max())
+                          for a, b in zip(g["params"], w["params"]))
+                step = max(float((a - b).abs().max())
+                           for a, b in zip(w["params"], w["init"]))
+                check(gap <= ALLREDUCE_BOUND * step,
+                      f"(f) rank {r}, reduced {case}: {gap} from the "
+                      f"stacked step, bound {ALLREDUCE_BOUND} x {step}")
+                log(f"(f) rank {r}, reduced {case}, one step: parameters "
+                    f"{gap!r} from StackedComm's, {gap / step!r} of the "
+                    f"step's largest change (bound {ALLREDUCE_BOUND})")
+                continue
+            check(g["params"] == w["params"],
+                  f"(f) rank {r}, reduced {case}: parameters differ")
+            for name, rows in w["slots"].items():
+                if case[1] == "centralized_ps":
+                    mine = rows if r == 0 else []
+                elif name.endswith("wire_ef") and "DCN" in case[1]:
+                    mine = [rows[q * D + d]]      # pod q's residual
+                else:
+                    mine = [rows[d]]
+                check(g["slots"][name] == mine,
+                      f"(f) rank {r}, reduced {case}: slot {name} differs "
+                      f"from its stacked row")
+    log(f"(f) gloo, {REDUCED_W} processes as {PODS} pods x {D} on one "
+        f"card: reduced {ARCH} and {SSM_ARCH}, {REDUCED_STEPS} steps each "
+        f"of {'; '.join(l for l, _ in REDUCED_STRATEGIES[:-1])}: every "
+        f"rank's losses, parameters and slots bitwise equal to "
+        f"StackedComm({REDUCED_W}, {PODS})'s; allreduce one step within "
+        f"its bound")
+
+
+def reduced_strategy_runs(torch, comm) -> dict:
+    """The REDUCED_STRATEGIES on reduced configs over ``comm``: per (arch,
+    label) the losses, a digest of every parameter (allreduce: the
+    parameters before and after its one step, on the host) and {slot:
+    digests of the rows this process keeps}."""
+    from repro_torch.configs import TrainConfig, get_arch, reduced
+    from repro_torch.core import PHubEngine
+    from repro_torch.core.chunking import leaf_paths
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.training import TrainState, fit
+
+    out = {}
+    for arch in (ARCH, SSM_ARCH):
+        cfg = reduced(get_arch(arch))
+        for label, fields in REDUCED_STRATEGIES:
+            tc = TrainConfig(loss_chunk=REDUCED_SEQ,
+                             chunk_size_bytes=REDUCED_CHUNK, **fields)
+            engine = PHubEngine(cfg, tc, comm, device="cuda")
+            model, opt = engine.init_state()
+            steps = 1 if label == "allreduce" else REDUCED_STEPS
+            init = [t.detach().to("cpu", copy=True)
+                    for _, t in leaf_paths(model.param_tree())]
+            data = SyntheticTokens(cfg, BATCH, REDUCED_SEQ, seed=0)
+            state = fit(engine, TrainState(params=model, opt=opt), data,
+                        steps=steps, log_every=0, hooks=[lambda s, m: None])
+            params = [t.detach() for _, t in leaf_paths(model.param_tree())]
+            out[(arch, label)] = {
+                "losses": list(state.losses),
+                "params": ([t.to("cpu", copy=True) for t in params]
+                           if label == "allreduce"
+                           else [digest(t) for t in params]),
+                "init": init if label == "allreduce" else None,
+                "slots": {f"{key}/{name}": [digest(row) for row in v]
+                          for key, slots in state.opt.items()
+                          for name, v in slots.items()}}
+            del engine, model, opt, state
+    return out
+
+
+def reduced_strategy_rank(comm, device):
+    """A spawned rank of phase (f)."""
+    import torch
+    return reduced_strategy_runs(torch, comm)
 
 
 def launch_modules():
@@ -2659,8 +2994,11 @@ def main() -> None:
     count("nesterov int8 W=4, worker 1 dead", main_path(
         torch, WORKERS, 1, INT8_W4, "nesterov", "int8",
         dead=POISONED)["launches"])
-    for label, launches in process_group_phases(torch):
+    strategy_phase(torch, runs, count)
+    counted, bases = process_group_phases(torch)
+    for label, launches in counted:
         count(label, launches)
+    strategy_process_phases(torch, bases, count)
 
     # rwkv6-3b training (the ssm family, chunked scan under autograd): one
     # window at W=2 first, the monolithic path the windowed ones must equal

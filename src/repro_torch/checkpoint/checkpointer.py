@@ -25,8 +25,12 @@ optimizer slots are rebuilt on the engine's device in the engine's
 ``(S, state_len)`` layout, whatever the reference's layout of the same
 elements was.  As in the reference, an encoded-wire snapshot restores
 into an identity-wire engine by dropping ``wire_ef`` and a pre-wire one
-into an encoded-wire engine with a zero ``wire_ef``.  Restoring at
-another world size (the rebalance plan) is ROADMAP.md queue A item 7.
+into an encoded-wire engine with a zero ``wire_ef``.  Under an encoded
+DCN tier (the hierarchical strategy's ``wire_format_dcn``) ``wire_ef`` is
+each pod's residual, and a snapshot keeps all P rows (pod-major,
+``PHubEngine.slot_shape``), so a restore continues bitwise; the reference
+saves pod 0's view only.  Restoring at another world size (the rebalance
+plan) is ROADMAP.md queue A item 7.
 """
 from __future__ import annotations
 
@@ -355,13 +359,11 @@ def _opt_from(engine, opt: dict, step: int) -> dict:
     """The engine's optimizer state {dtype: {slot: (S, state_len)}} on its
     device, from the snapshot's slots, element for element."""
     flat = _flatten(opt)
-    comm, st = engine.comm, engine.tc.strategy
-    S = engine.local_shards()
     out, consumed = {}, set()
     for g in engine.chunk_plan.groups:
-        shape = (S, comm.state_len(st, g.padded))
         slots = {}
         for spec in engine.exchange_slots:
+            shape = engine.slot_shape(g, spec)
             path = f"{g.key}/{spec.name}"
             dtype = spec.resolve_dtype(g.dtype)
             if path not in flat:

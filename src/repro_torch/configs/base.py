@@ -3,16 +3,17 @@
 ``ModelConfig`` is the reference's (``repro/configs/base.py``) field for
 field, so one architecture means the same widths in both packages.
 ``TrainConfig`` keeps only the fields this port implements: the
-sharded_ps exchange, the three rules of the sharded-optimizer protocol
-(Nesterov, SGD, Adam) without weight decay, whose fused aggregate+update
-always runs through the rule's CUDA kernel (the reference's
-``use_pallas``/``fused_agg_opt`` switches have no counterpart), the wire
-format of the exchange, and the gradient processing pipeline's windows,
-chunk-ready dispatch and flat parameter residency (an encoded wire takes
-one window only).  The reference's other knobs (the DCN tier's wire,
-microbatching, the other strategies, weight decay, ``grad_clip``) are
-queued in ROADMAP.md and are not fields here, so a config cannot ask for
-them and be silently ignored.
+sharded_ps, hierarchical, allreduce and centralized_ps exchanges, the
+three rules of the sharded-optimizer protocol (Nesterov, SGD, Adam)
+without weight decay, whose fused aggregate+update always runs through the
+rule's CUDA kernel (the reference's ``use_pallas``/``fused_agg_opt``
+switches have no counterpart), the wire format of the exchange and of the
+hierarchical strategy's cross-pod (DCN) tier, and the gradient processing
+pipeline's windows, chunk-ready dispatch and flat parameter residency.
+The reference's other knobs (microbatching, ``dp_over_model``, the
+fsdp_stream strategy, weight decay, ``grad_clip``) are queued in
+ROADMAP.md and are not fields here (``strategy="fsdp_stream"`` raises), so
+a config cannot ask for them and be silently ignored.
 """
 from __future__ import annotations
 
@@ -107,11 +108,30 @@ class TrainConfig:
     adam_eps: float = 1e-8
 
     # --- PHub exchange (the paper's contribution) ---
-    strategy: str = "sharded_ps"      # the other strategies: ROADMAP A5
+    # allreduce | sharded_ps | centralized_ps | hierarchical
+    strategy: str = "sharded_ps"
     chunk_size_bytes: int = 32 * 1024 # paper default: 32 KB (§3.2.3)
     # the dtype a chunk travels in (core/wire.py): identity | bf16 | f16 |
     # int8; a non-identity wire adds the f32 ``wire_ef`` slot
     wire_format: str = "identity"
+    wire_format_dcn: Optional[str] = None
+                                      # per-tier wire format (DESIGN.md §16):
+                                      # the dtype the *cross-pod (DCN)* leg
+                                      # of the hierarchical strategy travels
+                                      # in, independent of the in-rack (ICI)
+                                      # wire_format above — e.g. identity
+                                      # in-rack + int8 across racks.  None or
+                                      # "identity" keeps the legacy psum
+                                      # datapath byte-for-byte; a non-
+                                      # identity value requires
+                                      # strategy="hierarchical" and rides the
+                                      # encoded cross-pod all-gather with a
+                                      # per-pod error-feedback residual in
+                                      # the 'wire_ef' slot (owned by the DCN
+                                      # tier only when the ICI wire is
+                                      # identity; an encoded ICI wire keeps
+                                      # the slot for its pull delta and the
+                                      # DCN leg runs scales-only)
 
     # --- gradient processing pipeline (§3.2, DESIGN.md §8) ---
     pipeline_windows: int = 1         # split each dtype group's chunk domain

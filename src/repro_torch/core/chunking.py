@@ -336,6 +336,6 @@ def build_store_layout(plan: ChunkPlan, model_dims: dict,
         raise NotImplementedError(
             "a flat store with model-sharded rows (mo > 1) needs the "
             "model axis, which the port does not have yet (ROADMAP.md "
-            "queue A item 5)")
+            "queue A item 5b)")
     return FlatParamStore(plan=plan, mo=1, offsets={
         g.key: leaf_offsets(g) for g in plan.groups})

@@ -12,15 +12,29 @@ The reference runs one worker per device and names them by mesh axes
   ``all_to_all_single`` (each rank receives every worker's run of the shard
   it owns, and the owner's fused kernel sums the rows in worker order,
   as the stacked step does), the pull one ``all_gather_into_tensor``, the
-  int8 ring's hops ``batch_isend_irecv`` to rank+1, and the losses one
-  ``all_gather`` (``launch/dist.py`` starts the processes).
+  int8 ring's hops ``batch_isend_irecv`` to the next rank, and the losses
+  one ``all_gather`` (``launch/dist.py`` starts the processes).
 
-Both answer the layout (``n_shards``, ``state_len``) and how many workers
-this process holds (``local_workers``: W stacked, 1 a rank).  gloo hands
-its collectives host tensors: a tensor on the card is staged through pinned
-host buffers allocated once per Comm; NCCL takes the tensors on the card.
-The sanity gate, the supervisor, chunk-ready dispatch and checkpoints run
-on the stacked Comm only (``require_stacked``, ROADMAP.md queue A item 4b).
+Both lay the W workers out as P pods of D (``pods=P``, the reference's
+``(pod, data)`` mesh): worker w is (pod w // D, data w % D), pod-major as
+the reference's ``flat_rank`` over ``("pod", "data")``.  The shard layout
+(``n_shards``, ``state_len``) follows the strategy: W shards for
+sharded_ps (flat across pods), D for hierarchical (the in-pod shards; the
+P owners of shard j hold the same update), one for allreduce and
+centralized_ps.  ``ProcessGroupComm`` builds two kinds of subgroup when
+P > 1: each pod's D ranks (``over="pod"``: the hierarchical push, pull and
+int8 ring) and the P ranks that share a data index (``over="cross"``:
+``cross_gather``, the cross-pod leg on the owner shard); every rank
+creates every subgroup in the same order.  The baselines add
+``all_reduce`` (allreduce's library collective) and ``gather_to`` /
+``broadcast_from`` (centralized_ps's incast to rank 0 and its broadcast).
+
+Both answer how many workers this process holds (``local_workers``: W
+stacked, 1 a rank).  gloo hands its collectives host tensors: a tensor on
+the card is staged through pinned host buffers allocated once per Comm;
+NCCL takes the tensors on the card.  The sanity gate, the supervisor,
+chunk-ready dispatch and checkpoints run on the stacked Comm only
+(``require_stacked``, ROADMAP.md queue A item 4b).
 """
 from __future__ import annotations
 
@@ -36,24 +50,40 @@ BACKENDS = ("gloo", "nccl")
 _WORD = torch.int32
 
 
-def _shard_layout(n_workers: int, strategy: str) -> int:
+def _shard_layout(n_workers: int, pods: int, strategy: str) -> int:
     if strategy == "sharded_ps":
         return n_workers
+    if strategy == "hierarchical":
+        return n_workers // pods
     if strategy in ("allreduce", "centralized_ps"):
         return 1
     raise NotImplementedError(
         f"strategy {strategy!r} has no worker layout yet (ROADMAP.md queue "
-        f"A item 5)")
+        f"A item 5b)")
+
+
+def _check_pods(n_workers: int, pods: int) -> None:
+    if n_workers < 1:
+        raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+    if pods < 1 or n_workers % pods:
+        raise ValueError(f"{n_workers} workers do not split into {pods} "
+                         f"pods")
 
 
 @dataclass(frozen=True)
 class StackedComm:
-    """W workers on one device, stacked along dim 0."""
+    """W workers on one device, stacked along dim 0: P pods of D, row w
+    the worker (pod w // D, data w % D)."""
     n_workers: int
+    pods: int = 1
 
     def __post_init__(self):
-        if self.n_workers < 1:
-            raise ValueError(f"n_workers must be >= 1, got {self.n_workers}")
+        _check_pods(self.n_workers, self.pods)
+
+    @property
+    def pod_size(self) -> int:
+        """D: the workers of one pod."""
+        return self.n_workers // self.pods
 
     @property
     def rank(self) -> int:
@@ -66,8 +96,8 @@ class StackedComm:
 
     def n_shards(self, strategy: str) -> int:
         """Rows of the chunk shard-matrix for this strategy (the
-        reference's ``ExchangeContext.n_shards`` on a flat data axis)."""
-        return _shard_layout(self.n_workers, strategy)
+        reference's ``ExchangeContext.n_shards``)."""
+        return _shard_layout(self.n_workers, self.pods, strategy)
 
     def state_len(self, strategy: str, padded: int) -> int:
         """Optimizer-state length per shard."""
@@ -88,22 +118,26 @@ class ProcessGroupComm:
     ``device``: where this rank's tensors live (NCCL: a CUDA device, and
     without CUDA it raises).  gloo always hands its collectives host
     tensors: a CPU tensor as it is, a CUDA tensor through a pinned host
-    buffer of this Comm (one per role and size, allocated at first use and
-    reused by every later step).
+    buffer of this Comm (one a role, allocated at first use, grown to the
+    largest request and reused by every later step).  ``pods``: P pods of
+    D = world / P ranks, rank r the worker (pod r // D, data r % D); at
+    P > 1 the pod and cross-pod subgroups are built here (``subgroups``
+    lists them in creation order, the same on every rank).
 
-    ``stats``: per operation its calls, payload bytes sent, and (with
-    ``timing``) wall seconds, the device synchronized before and after
-    each collective so that the time is the collective's own (staging
-    copies included)."""
+    ``stats``: per operation its calls, payload bytes this rank sent, and
+    (with ``timing``) wall seconds, the device synchronized before and
+    after each collective so that the time is the collective's own
+    (staging copies included)."""
 
     def __init__(self, rank: int, world: int, backend: str, init_method: str,
                  *, timeout: float = 600.0, device="cpu",
-                 timing: bool = False):
+                 timing: bool = False, pods: int = 1):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
                              f"{BACKENDS}")
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} is not in a world of {world}")
+        _check_pods(world, pods)
         self.device = torch.device(device)
         if backend == "nccl" and (not torch.cuda.is_available()
                                   or self.device.type != "cuda"):
@@ -113,13 +147,33 @@ class ProcessGroupComm:
         import torch.distributed as dist
         self._dist = dist
         self.rank, self.world, self.backend = rank, world, backend
-        self.n_workers = world
+        self.n_workers, self.pods = world, pods
+        self.pod_size = D = world // pods
+        self.pod, self.data_index = divmod(rank, D)
         self.timing = timing
         kw = {"device_id": self.device} if backend == "nccl" else {}
         dist.init_process_group(
             backend, init_method=init_method, rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout), **kw)
         self.group = dist.group.WORLD
+        # name -> (process group, its global ranks in member order)
+        self._groups = {"world": (self.group, tuple(range(world)))}
+        self.subgroups: list = []
+        if pods > 1:
+            # every rank creates every subgroup, in this order, including
+            # the ones it is not in (new_group is collective over the world)
+            for kind, members in (
+                    [("pod", tuple(q * D + d for d in range(D)))
+                     for q in range(pods)]
+                    + [("cross", tuple(q * D + d for q in range(pods)))
+                       for d in range(D)]):
+                pg = dist.new_group(ranks=list(members))
+                self.subgroups.append((kind, members))
+                if rank in members:
+                    self._groups[kind] = (pg, members)
+        else:
+            self._groups["pod"] = self._groups["world"]
+            self._groups["cross"] = (None, (rank,))
         self._host: dict = {}
         self.stats: dict = {}
 
@@ -130,13 +184,18 @@ class ProcessGroupComm:
         return 1
 
     def n_shards(self, strategy: str) -> int:
-        """Rows of the chunk shard-matrix: one shard a rank (sharded_ps),
-        as ``StackedComm.n_shards``."""
-        return _shard_layout(self.n_workers, strategy)
+        """Rows of the chunk shard-matrix, as ``StackedComm.n_shards``; a
+        rank owns one of them (none under centralized_ps but rank 0)."""
+        return _shard_layout(self.n_workers, self.pods, strategy)
 
     def state_len(self, strategy: str, padded: int) -> int:
         """Optimizer-state length per shard."""
         return padded // self.n_shards(strategy)
+
+    def members(self, over: str = "world") -> tuple:
+        """The global ranks of this rank's group ``over`` ("world", "pod"
+        or "cross"), in member order."""
+        return self._groups[over][1]
 
     def close(self) -> None:
         """Destroy the process group (``launch/dist.py`` calls it when the
@@ -151,15 +210,19 @@ class ProcessGroupComm:
         return self.backend == "gloo" and self.device.type == "cuda"
 
     def _buffer(self, role: str, numel: int, dtype) -> torch.Tensor:
-        """The pinned host buffer of ``role`` for ``numel`` elements: the
-        push and the pull share theirs (each lands its result on the
-        device before the next collective starts)."""
-        key = (role, numel, dtype)
-        buf = self._host.get(key)
-        if buf is None:
-            buf = torch.empty(numel, dtype=dtype, pin_memory=True)
-            self._host[key] = buf
-        return buf
+        """``numel`` elements of the pinned host buffer of ``role``: one
+        buffer a role ("send", "recv", a ring hop's parts), shared by every
+        collective (each lands its result on the device before the next
+        starts), grown to the largest request and kept.  Pinned memory is
+        allocated in powers of two and counts against the host's, which a
+        card shared by several ranks makes scarce."""
+        nbytes = numel * dtype.itemsize
+        buf = self._host.get(role)
+        if buf is None or buf.numel() < nbytes:
+            self._host.pop(role, None)
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            self._host[role] = buf
+        return buf[:nbytes].view(dtype)
 
     def _send(self, role: str, t: torch.Tensor) -> torch.Tensor:
         """``t`` as the collective's contiguous input: a pinned copy under
@@ -202,69 +265,114 @@ class ProcessGroupComm:
 
     # ------------------------------------------------------------ operations
 
-    def push(self, rows: torch.Tensor) -> torch.Tensor:
-        """The sharded_ps push: ``rows`` (W, n) is this rank's gradient run
-        of every shard (row j: shard j's run, any row stride); row j goes
-        to rank j in one ``all_to_all_single``.  Returns the (W, n) runs of
-        the shard this rank owns, row w worker w's."""
-        W = self.n_workers
-        if rows.dim() != 2 or rows.shape[0] != W:
-            raise ValueError(f"push takes ({W}, n) rows, got "
+    def push(self, rows: torch.Tensor, over: str = "world") -> torch.Tensor:
+        """The push: ``rows`` (m, n) is this rank's gradient run of every
+        shard of its group ``over`` (m members; row j: shard j's run, any
+        row stride); row j goes to member j in one ``all_to_all_single``.
+        Returns the (m, n) runs of the shard this rank owns, row i member
+        i's (a group of one posts nothing and returns ``rows``)."""
+        pg, members = self._groups[over]
+        m = len(members)
+        if rows.dim() != 2 or rows.shape[0] != m:
+            raise ValueError(f"push over {over!r} takes ({m}, n) rows, got "
                              f"{tuple(rows.shape)}")
         t0 = self._start()
+        if m == 1:                     # a group of one: no collective
+            self._record("push", 0, t0)
+            return rows
         send = self._send("send", rows)
         recv = self._recv("recv", rows.numel(), rows.dtype)
-        self._dist.all_to_all_single(recv, send, group=self.group)
+        self._dist.all_to_all_single(recv, send, group=pg)
         out = self._land(recv).view(rows.shape)
-        self._record("push", rows.numel() * rows.element_size() * (W - 1)
-                     // W, t0)
+        self._record("push", rows.numel() * rows.element_size() * (m - 1)
+                     // m, t0)
         return out
 
-    def pull(self, shard: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    def pull(self, shard: torch.Tensor, out: torch.Tensor | None,
+             over: str = "world") -> torch.Tensor:
         """The pull: one ``all_gather_into_tensor`` of this rank's (L,)
-        ``shard`` into ``out`` (W*L,), rank j's shard at [j*L, (j+1)*L).
-        A uint32 tensor travels as int32 (the same bits)."""
-        if out.numel() != shard.numel() * self.n_workers:
+        ``shard`` into ``out`` (m*L,) over its group ``over``, member j's
+        shard at [j*L, (j+1)*L).  A uint32 tensor travels as int32 (the
+        same bits).  A group of one posts nothing: ``shard`` is copied
+        into ``out``, or returned itself when ``out`` is None."""
+        pg, members = self._groups[over]
+        m = len(members)
+        if out is None and m == 1:
+            self._record("pull", 0, self._start())
+            return shard
+        if out.numel() != shard.numel() * m:
             raise ValueError(f"pull of {shard.numel()} elements a rank "
-                             f"into {out.numel()}")
+                             f"into {out.numel()} over {m}")
         t0 = self._start()
+        if m == 1:                     # a group of one: no collective
+            out.view(-1).copy_(shard.view(-1))
+            self._record("pull", 0, t0)
+            return out
         src, dst = shard, out
         if shard.dtype == torch.uint32:
             src, dst = shard.view(_WORD), out.view(_WORD)
         send = self._send("send", src)
         recv = (self._recv("recv", dst.numel(), dst.dtype)
                 if self._staged() else dst.view(-1))
-        self._dist.all_gather_into_tensor(recv, send, group=self.group)
+        self._dist.all_gather_into_tensor(recv, send, group=pg)
         if self._staged():
             self._land(recv, dst)
-        self._record("pull", shard.numel() * shard.element_size()
-                     * (self.n_workers - 1), t0)
+        self._record("pull", shard.numel() * shard.element_size() * (m - 1),
+                     t0)
         return out
 
-    def ring_hop(self, send_parts: tuple, recv_parts: tuple) -> tuple:
-        """One hop of the ring: every part of ``send_parts`` to rank+1 and
-        ``recv_parts`` (the same shapes and dtypes, written in place) from
-        rank-1, all in one ``batch_isend_irecv`` (every rank posts its
-        sends and receives in the same order).  uint32 parts travel as
+    def cross_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The cross-pod leg: one ``all_gather_into_tensor`` of this rank's
+        (n,) ``t`` (the owner shard's partial, or its encoded words or
+        scales) over the P ranks that share its data index.  Returns (P, n)
+        rows in pod order (uint32 travels as int32, the same bits)."""
+        pg, members = self._groups["cross"]
+        P = len(members)
+        out = t.new_empty((P, t.numel()))
+        if P == 1:
+            out[0].copy_(t.reshape(-1))
+            return out
+        t0 = self._start()
+        src, dst = t.reshape(-1), out.view(-1)
+        if t.dtype == torch.uint32:
+            src, dst = src.view(_WORD), dst.view(_WORD)
+        send = self._send("send", src)
+        recv = (self._recv("recv", dst.numel(), dst.dtype)
+                if self._staged() else dst)
+        self._dist.all_gather_into_tensor(recv, send, group=pg)
+        if self._staged():
+            self._land(recv, dst)
+        self._record("cross_gather", t.numel() * t.element_size() * (P - 1),
+                     t0)
+        return out
+
+    def ring_hop(self, send_parts: tuple, recv_parts: tuple,
+                 over: str = "world") -> tuple:
+        """One hop of the ring over the group ``over``: every part of
+        ``send_parts`` to the next member and ``recv_parts`` (the same
+        shapes and dtypes, written in place) from the previous one, all in
+        one ``batch_isend_irecv`` (every rank posts its sends and receives
+        in the same order; peers are global ranks).  uint32 parts travel as
         int32.  Returns ``recv_parts``."""
         t0 = self._start()
         dist = self._dist
-        nxt, prv = (self.rank + 1) % self.world, (self.rank - 1) % self.world
+        pg, members = self._groups[over]
+        i = members.index(self.rank)
+        nxt = members[(i + 1) % len(members)]
+        prv = members[(i - 1) % len(members)]
         sends, recvs = [], []
-        for i, (s, r) in enumerate(zip(send_parts, recv_parts)):
+        for k, (s, r) in enumerate(zip(send_parts, recv_parts)):
             if s.shape != r.shape or s.dtype != r.dtype:
-                raise ValueError(f"ring part {i}: sends {s.dtype} "
+                raise ValueError(f"ring part {k}: sends {s.dtype} "
                                  f"{tuple(s.shape)}, receives {r.dtype} "
                                  f"{tuple(r.shape)}")
             if s.dtype == torch.uint32:
                 s, r = s.view(_WORD), r.view(_WORD)
-            sends.append(self._send(f"hop_send{i}", s))
-            recvs.append(self._recv(f"hop_recv{i}", r.numel(), r.dtype)
+            sends.append(self._send(f"hop_send{k}", s))
+            recvs.append(self._recv(f"hop_recv{k}", r.numel(), r.dtype)
                          if self._staged() else r.view(-1))
-        ops = ([dist.P2POp(dist.isend, s, nxt, group=self.group)
-                for s in sends]
-               + [dist.P2POp(dist.irecv, r, prv, group=self.group)
-                  for r in recvs])
+        ops = ([dist.P2POp(dist.isend, s, nxt, group=pg) for s in sends]
+               + [dist.P2POp(dist.irecv, r, prv, group=pg) for r in recvs])
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         if self._staged():
@@ -274,6 +382,60 @@ class ProcessGroupComm:
         self._record("ring_hop", sum(s.numel() * s.element_size()
                                      for s in send_parts), t0)
         return recv_parts
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """allreduce's collective: ``t`` summed over every rank in place
+        (one ``all_reduce``, in the library's order; at two ranks
+        a + b = b + a, so the sum is the stacked kernel's).  The bytes
+        counted are a ring all-reduce's, 2 (W-1)/W of ``t`` a rank."""
+        W = self.world
+        t0 = self._start()
+        flat = t.view(-1)
+        if self._staged():
+            buf = self._send("send", flat)
+            self._dist.all_reduce(buf, group=self.group)
+            self._land(buf, flat)
+        else:
+            self._dist.all_reduce(flat, group=self.group)
+        self._record("all_reduce", 2 * t.numel() * t.element_size()
+                     * (W - 1) // W, t0)
+        return t
+
+    def gather_to(self, t: torch.Tensor, dst: int = 0):
+        """centralized_ps's incast: every rank's (n,) ``t`` to rank
+        ``dst`` in one ``gather``.  Returns the (W, n) rows in rank order
+        on ``dst`` and None elsewhere."""
+        W = self.world
+        t0 = self._start()
+        src = self._send("send", t.reshape(-1))
+        if self.rank == dst:
+            rows = self._recv("recv", W * t.numel(), t.dtype)
+            self._dist.gather(src, list(rows.view(W, -1)), dst=dst,
+                              group=self.group)
+            out = self._land(rows).view(W, -1)
+        else:
+            self._dist.gather(src, None, dst=dst, group=self.group)
+            out = None
+        self._record("gather_to", 0 if self.rank == dst
+                     else t.numel() * t.element_size(), t0)
+        return out
+
+    def broadcast_from(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """centralized_ps's reply: rank ``src``'s ``t`` to every rank, in
+        place (one ``broadcast``).  The bytes counted are the root's
+        W-1 copies."""
+        t0 = self._start()
+        flat = t.view(-1)
+        if self._staged():
+            buf = self._send("send", flat)
+            self._dist.broadcast(buf, src=src, group=self.group)
+            if self.rank != src:
+                self._land(buf, flat)
+        else:
+            self._dist.broadcast(flat, src=src, group=self.group)
+        self._record("broadcast_from", t.numel() * t.element_size()
+                     * (self.world - 1) if self.rank == src else 0, t0)
+        return t
 
     def gather_small(self, t: torch.Tensor) -> torch.Tensor:
         """(W, *t.shape): every rank's ``t`` (a few scalars: losses, live

@@ -6,22 +6,30 @@ The step for W workers stacked on one card (``core/comm.py``):
    (``torch.autograd.grad`` on the shared parameters) and its gradient is
    flattened into row w of a ``(W, padded)`` buffer per dtype group — one
    worker's autograd gradients are freed before the next worker runs;
-2. the exchange (``core/exchange.py``) runs the rule's fused aggregate +
-   update over that buffer, through its CUDA kernel: Nesterov through
-   ``agg_opt_chunks`` (W == 1) or ``multi_agg_opt_chunks`` (W > 1), SGD
-   through ``sgd_opt_chunks`` and Adam through ``adam_opt_chunks`` (any W);
-   for W > 1 the kernel folds the reduce-scatter's sum and the /W into the
-   update;
+2. the exchange (``core/exchange.py``, ``TrainConfig.strategy``:
+   sharded_ps, hierarchical, allreduce or centralized_ps) runs the rule's
+   fused aggregate + update over that buffer, through its CUDA kernel:
+   Nesterov through ``agg_opt_chunks`` (W == 1) or ``multi_agg_opt_chunks``
+   (W > 1), SGD through ``sgd_opt_chunks`` and Adam through
+   ``adam_opt_chunks`` (any W); for W > 1 the kernel folds the
+   reduce-scatter's sum and the /W into the update (hierarchical: the
+   in-pod partials are added into each pod's first row first, and the
+   kernel sums the P partial rows and divides by N);
 3. the new parameters are unflattened back into the module in place (the
    all-gather is a no-op on one card).
 
 Under an encoded wire (``TrainConfig.wire_format``, ``core/wire.py``) step
 2 is ``core/pipeline.py::run_wire_exchange`` instead: the ring partials
-hop the stacked workers encoded, the int8 tail runs through
-``dequant_agg_opt_chunks`` (Nesterov) or is decoded for the rule's kernel,
-the pull's parameter delta is encoded, and the parameters written back are
-p plus the decoded delta; the optimizer state then has one more slot,
-``wire_ef``, last.
+hop the stacked workers encoded (inside each pod under hierarchical), the
+int8 tail runs through ``dequant_agg_opt_chunks`` (Nesterov, no cross-pod
+leg) or is decoded for the rule's kernel, the pull's parameter delta is
+encoded, and the parameters written back are p plus the decoded delta;
+the optimizer state then has one more slot, ``wire_ef``, last.  Under an
+encoded DCN tier (``TrainConfig.wire_format_dcn``, hierarchical only) with
+the identity ICI wire, step 2 is ``core/pipeline.py::run_dcn_exchange``:
+each pod's partial plus its residual crosses the pods encoded, and
+``wire_ef`` holds each pod's residual (``slot_shape``: P rows a shard on
+the stacked Comm).
 
 PHub's gradient processing pipeline (``TrainConfig``'s
 ``pipeline_windows``, ``flat_residency``, ``overlap_backward``;
@@ -53,18 +61,23 @@ process, ``launch/dist.py``) the step is the same with one local worker:
 this rank takes its slice ``[rank*B/W, (rank+1)*B/W)`` of the global batch
 (every rank draws the same batch and the same weights from the seed),
 fills a ``(1, padded)`` gradient row, and keeps the slots of the one shard
-it owns, ``(1, L)`` each; the exchange pushes, updates and pulls
+it owns, ``(1, L)`` each (allreduce: the whole vector on every rank;
+centralized_ps: on rank 0 only); the exchange pushes, updates and pulls
 (``core/exchange.py``, ``core/pipeline.py``), so every rank ends the step
-with the whole new parameter vector.  The loss is the mean of the
-all-gathered per-worker losses in worker order (not an ``all_reduce``,
-whose order is the library's), so it equals the stacked step's bitwise.
+with the whole new parameter vector.  Ranks are pod-major: rank r is the
+worker (pod r // D, data r % D), and it takes batch slice r.  The loss
+is the mean of the all-gathered per-worker losses in worker order (not
+an ``all_reduce``, whose order is the library's), so it equals the
+stacked step's bitwise.
 A static k-of-n membership zeroes an excluded rank's own row.  The sanity
 gate, chunk-ready dispatch, the supervisor and checkpoints raise there
 (ROADMAP.md queue A item 4b).
 
-An elastic ``Membership`` (``make_train_step(membership=)``) that is not
-all live zeroes each excluded worker's row before the exchange and divides
-the mean by the live count (the k-of-n push mask).  The sanity-gated step
+An elastic ``Membership`` (``make_train_step(membership=)``, over W = P·D
+workers) that is not all live zeroes each excluded worker's row before
+the exchange and divides the mean by the live count (the k-of-n push
+mask): a zeroed row adds exactly zero to the in-pod and cross-pod sums of
+every strategy.  The sanity-gated step
 (``make_train_step(sanity=)``, the reference's ``sane_step``) takes a
 fourth input ``health`` and, after every worker's backward: multiplies
 each row by its chaos ``inject`` factor; reduces every row to its f32 sum
@@ -101,22 +114,25 @@ from . import chunking
 from .comm import require_stacked
 from .exchange import check_strategy, check_wire
 from .pipeline import (check_pipeline, run_chunk_ready_exchange,
-                       run_exchange, run_wire_exchange)
-from .wire import WIRE_EF_SLOT, exchange_extra_slots, make_wire_format
+                       run_dcn_exchange, run_exchange, run_wire_exchange)
+from .wire import (WIRE_EF_SLOT, exchange_extra_slots, make_dcn_wire_format,
+                   make_wire_format)
 
 
 class PHubEngine:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, comm, *,
                  device="cuda"):
         self.wire = make_wire_format(tc)
+        self.wire_dcn = make_dcn_wire_format(tc)
         check_pipeline(tc)
         check_strategy(tc.strategy)
         self.cfg, self.tc, self.comm = cfg, tc, comm
         self.device = torch.device(device)
         self.sopt = make_sharded_optimizer(tc)
-        check_wire(tc.strategy, self.wire)
+        check_wire(tc.strategy, self.wire, self.wire_dcn)
         self.exchange_slots = (self.sopt.slots
-                               + exchange_extra_slots(self.wire))
+                               + exchange_extra_slots(self.wire,
+                                                      self.wire_dcn))
         self.chunk_plan = chunking.build_plan(
             param_specs(cfg), chunk_bytes=tc.chunk_size_bytes,
             n_shards=comm.n_shards(tc.strategy))
@@ -129,21 +145,38 @@ class PHubEngine:
 
     def local_shards(self) -> int:
         """Shards whose state this process keeps: every one on the stacked
-        Comm, the one a rank owns over a process group."""
-        S = self.comm.n_shards(self.tc.strategy)
-        return S if self.comm.local_workers() == self.comm.n_workers else 1
+        Comm, the one a rank owns over a process group (under
+        centralized_ps rank 0, the PS, keeps the one shard and the other
+        ranks none)."""
+        st = self.tc.strategy
+        if self.comm.local_workers() == self.comm.n_workers:
+            return self.comm.n_shards(st)
+        if st == "centralized_ps":
+            return 1 if self.comm.rank == 0 else 0
+        return 1
+
+    def slot_shape(self, group, spec) -> tuple[int, int]:
+        """(rows, state_len) of slot ``spec`` of ``group`` in this
+        process: ``local_shards`` rows, or for the DCN tier's ``wire_ef``
+        (each pod's residual: an encoded DCN tier under the identity ICI
+        wire) on the stacked Comm one row a (pod, shard), pod-major."""
+        rows = self.local_shards()
+        if (spec.name == WIRE_EF_SLOT and self.wire_dcn is not None
+                and not self.wire.error_feedback
+                and self.comm.local_workers() == self.comm.n_workers):
+            rows *= self.comm.pods
+        return rows, self.comm.state_len(self.tc.strategy, group.padded)
 
     def init_opt(self) -> dict:
         """Zero optimizer slots: {dtype_name: {slot_name: (S, state_len)}},
         row s the state of the chunks shard s owns (over a process group
         one row, this rank's shard); as many slots as the
         rule declares (Nesterov 1, SGD 0, Adam 4) and, under an encoded
-        wire, ``wire_ef`` last, each in its own dtype (Adam's k1/k2 and
-        ``wire_ef`` are f32 in every group)."""
-        st = self.tc.strategy
-        S = self.local_shards()
+        wire or DCN tier, ``wire_ef`` last (``slot_shape``: the DCN tier's
+        is per pod), each in its own dtype (Adam's k1/k2 and ``wire_ef``
+        are f32 in every group)."""
         return {g.key: {s.name: torch.zeros(
-                            (S, self.comm.state_len(st, g.padded)),
+                            self.slot_shape(g, s),
                             dtype=s.resolve_dtype(g.dtype), device=self.device)
                         for s in self.exchange_slots}
                 for g in self.chunk_plan.groups}
@@ -243,10 +276,14 @@ class PHubEngine:
             group.chunk_elems, self.sopt.coefs(self.tc), 1.0 / n)
 
     def _wire_args(self, group, opt, n_live) -> dict:
-        """The encoded-wire arguments of one group's exchange."""
-        return dict(wire=self.wire,
-                    residual=opt[group.key][WIRE_EF_SLOT].view(-1),
-                    fused_dequant=self.fused_dequant(group, n_live))
+        """The encoded-wire (or DCN tier's) arguments of one group's
+        exchange."""
+        args = dict(wire_dcn=self.wire_dcn,
+                    residual=opt[group.key][WIRE_EF_SLOT].view(-1))
+        if self.wire.error_feedback:
+            args.update(wire=self.wire,
+                        fused_dequant=self.fused_dequant(group, n_live))
+        return args
 
     def grad_buffers(self) -> dict:
         """The stacked gradient buffers {dtype_name: (W, padded)} (one row
@@ -340,7 +377,7 @@ class PHubEngine:
         every rule in windows) returns the tensors of ``opt`` themselves."""
         cp = self.chunk_plan
         names = self.sopt.slot_names
-        encoded = self.wire.error_feedback
+        encoded = self.wire.error_feedback or self.wire_dcn is not None
         new_p, new_opt = {}, {}
         with torch.no_grad():
             for g in cp.groups:
@@ -348,8 +385,14 @@ class PHubEngine:
                 p = flats_p.pop(g.key)
                 if ready and g.key in ready:
                     p2, s2, *r2 = ready[g.key].finish()
-                elif encoded:
+                elif self.wire.error_feedback:
                     p2, s2, *r2 = run_wire_exchange(
+                        self.tc.strategy, self.comm, gbuf[g.key], p, slots,
+                        self.update_fn(g), g,
+                        windows=self.tc.pipeline_windows, n_live=n_live,
+                        **self._wire_args(g, opt, n_live))
+                elif encoded:
+                    p2, s2, *r2 = run_dcn_exchange(
                         self.tc.strategy, self.comm, gbuf[g.key], p, slots,
                         self.update_fn(g), g,
                         windows=self.tc.pipeline_windows, n_live=n_live,
@@ -389,7 +432,7 @@ class PHubEngine:
                 slots, self.update_fn(g), g, self.tc.pipeline_windows,
                 n_live, self.side_stream(),
                 **(self._wire_args(g, opt, n_live)
-                   if self.wire.error_feedback else {}))
+                   if WIRE_EF_SLOT in opt[g.key] else {}))
             if ex is not None:
                 ready[g.key] = ex
             for i, (path, off) in enumerate(zip(

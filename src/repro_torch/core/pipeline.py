@@ -67,7 +67,39 @@ the same kernel on its own rows.  The pull encodes the shard's delta plus
 ``wire_ef``, all-gathers words and scales, and every rank decodes all S
 shards.  The hop order is the stacked ring's, so both Comms give the same
 bits.
+
+**The hierarchical strategy** (``core/exchange.py``; P pods of D, S = D
+shards): every mode above runs on the pod's rows.  Identity wire: window
+w's in-pod adds (each pod's rows summed in data order into its row d = 0,
+``pod_rows_``) come before its launches, which read the P partial rows
+through the row stride with divisor N.  Over a process group a window
+pushes its strips inside the pod, sums the D received rows in data order
+and gathers its owner strip across the pods (``cross_gather``).  The
+encoded ICI wire rings inside each pod (shard j's partial starts at the
+pod's worker j+1; on one card the pods' rings run packed, one codec launch
+a hop), the owner decodes and adds its own run, and the cross-pod leg
+follows: identity (the P decoded partials summed in pod order by the
+rule's kernel, divisor N) or the DCN tier scales-only; the fused tail is
+not used once there is a cross-pod leg, as in the reference.  The pull
+is the encoded delta plus ``wire_ef`` inside the pod.
+
+**The DCN tier** (``pipelined_dcn_exchange``, the reference's; identity
+ICI wire, an encoded ``wire_format_dcn``): per window, each pod's
+partial of its owner strips plus that pod's residual ``x`` is encoded
+(one ``quantize_chunks`` launch over the window's strips of every (pod,
+shard), packed), the words and scales cross the pods, every pod's row is
+decoded (one ``dequantize_chunks`` launch) and the P decoded rows go to
+the rule's kernel as stacked rows with divisor N: the kernel adds them in
+pod order and divides, which is the reference's fixed-pod-order sum and
+``/ N`` (one route, the same arithmetic; no separate sum pass).  The new
+residual is ``x - decode(encode(x))``, per pod: on one card ``wire_ef``
+holds (P*S, L) rows pod-major; a rank keeps its own (L,).  A single pod
+skips the leg and passes the residual through untouched, as the
+reference does.  The ring flavour runs even at one window, so windowed
+and monolithic DCN exchanges share one code path and equal each other
+bitwise.
 """
+
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -100,6 +132,15 @@ def check_pipeline(tc) -> None:
         raise ValueError(
             "flat_residency requires a chunk-domain strategy: fsdp_stream "
             "shards leaves over 'data' and has no flat parameter store")
+
+
+def tiers(comm, strategy: str) -> tuple[int, int]:
+    """(P, S): the pods and the shards of one pod a chunk strategy
+    exchanges over: hierarchical (comm.pods, D), sharded_ps (1, W), flat
+    across the pods."""
+    if strategy == "hierarchical":
+        return comm.pods, comm.pod_size
+    return 1, comm.n_shards(strategy)
 
 
 def effective_windows(group, requested: int) -> int:
@@ -135,13 +176,34 @@ def mean_divisor(n_live, device):
                       device=device)
 
 
+def pod_rows_(g: torch.Tensor, pods: int, windows: int = 1, w: int = 0
+              ) -> torch.Tensor:
+    """The hierarchical in-pod partials of window w: g is the (P*D, n)
+    stacked buffer, pod q's rows q*D .. q*D+D-1; each pod's D rows of
+    window w's strips (D shards) are added in data order into its row
+    d = 0, in place, in g's dtype (D-1 adds over every pod at once).
+    Returns the (P, n) view of the rows d = 0 (``D*n`` elements apart),
+    whose window-w strips now hold the pods' partials."""
+    R, n = g.shape
+    D = R // pods
+    gp = g.view(pods, D, n)
+    if D > 1:
+        L = n // D
+        Lw = L // windows
+        strips = gp.view(pods, D, D, L)[..., w * Lw:(w + 1) * Lw]
+        for d in range(1, D):
+            strips[:, 0].add_(strips[:, d])
+    return gp[:, 0]
+
+
 def pipelined_exchange(comm, g: torch.Tensor, p: torch.Tensor,
                        slots: tuple, update_fn: Callable, windows: int,
-                       n_live=None) -> tuple:
+                       n_live=None, strategy: str = "sharded_ps") -> tuple:
     """The windowed counterpart of ``exchange_group``: windows 0 .. W-1 in
-    order, each ``exchange_window``.  Returns (p', slots), the slots
-    updated in place; p' equals the monolithic exchange's bitwise."""
-    ex = _windowed(comm)(comm, g, p, slots, update_fn, windows, n_live)
+    order, each ``WindowedExchange.window``.  Returns (p', slots), the
+    slots updated in place; p' equals the monolithic exchange's bitwise."""
+    ex = _windowed(comm)(comm, g, p, slots, update_fn, windows, n_live,
+                         strategy=strategy)
     for w in range(windows):
         ex.window(w)
     return ex.finish()
@@ -158,8 +220,8 @@ def run_exchange(strategy: str, comm, g: torch.Tensor,
         w = effective_windows(group, windows)
         if w > 1:
             return pipelined_exchange(comm, g, p, slots, update_fn, w,
-                                      n_live)
-    return exchange_group(comm, g, p, slots, update_fn, n_live)
+                                      n_live, strategy)
+    return exchange_group(comm, g, p, slots, update_fn, n_live, strategy)
 
 
 def check_stacked(comm, g: torch.Tensor, p: torch.Tensor):
@@ -182,29 +244,45 @@ def _check_wire_strategy(strategy: str, wire) -> None:
             f"dimension {PIPELINED_STRATEGIES}; {strategy!r} has none")
 
 
+def _check_dcn_strategy(strategy: str, wire_dcn) -> None:
+    if wire_dcn is None:
+        raise ValueError("run_dcn_exchange needs an encoded DCN wire; an "
+                         "identity DCN tier travels run_exchange")
+    if strategy != "hierarchical":
+        raise ValueError(
+            f"per-tier DCN wire {wire_dcn.name!r} needs the two-tier "
+            f"'hierarchical' strategy; {strategy!r} has no DCN leg")
+
+
 def run_chunk_ready_exchange(strategy: str, comm: StackedComm,
                              g: torch.Tensor, p: torch.Tensor, slots: tuple,
                              update_fn: Callable, group: GroupPlan,
                              windows: int, n_live=None, stream=None, *,
-                             wire=None, residual=None, fused_dequant=None):
+                             wire=None, wire_dcn=None, residual=None,
+                             fused_dequant=None):
     """The chunk-ready dispatch of one dtype group: a ``ChunkReadyExchange``
     at the effective window count, or None when that is 1 (one window
     waits for the whole backward: the caller runs the monolithic exchange
     after it, as the reference does).  With an encoded ``wire`` (and its
     ``residual``, the ``wire_ef`` slot, and ``fused_dequant``) each window
     runs the encoded ring and ``finish`` the pull, as
-    ``run_chunk_ready_wire_exchange`` does."""
+    ``run_chunk_ready_wire_exchange`` does; with an encoded ``wire_dcn``
+    alone (and its ``residual``) each window runs the DCN tier, as
+    ``run_chunk_ready_dcn_exchange`` does."""
     if strategy not in PIPELINED_STRATEGIES:
         raise ValueError(f"strategy {strategy!r} has no shard dimension to "
                          f"window; use exchange_group")
     require_stacked(comm, "chunk-ready dispatch")
     if wire is not None:
         _check_wire_strategy(strategy, wire)
+    elif wire_dcn is not None:
+        _check_dcn_strategy(strategy, wire_dcn)
     w = effective_windows(group, windows)
     if w == 1:
         return None
     return ChunkReadyExchange(comm, g, p, slots, update_fn, group, w, n_live,
-                              stream, wire=wire, residual=residual,
+                              stream, strategy=strategy, wire=wire,
+                              wire_dcn=wire_dcn, residual=residual,
                               fused_dequant=fused_dequant)
 
 
@@ -216,102 +294,139 @@ def _strip(v: torch.Tensor, S: int, windows: int, w: int) -> torch.Tensor:
     return v.view(S, L)[:, w * Lw:(w + 1) * Lw]
 
 
-def _runs(g: torch.Tensor, k: int, windows: int, w: int):
-    """(the packed columns, the row and its columns that hold G[j+k, j])
-    of window w for every shard j."""
-    S, n = g.shape
+def _runs(g: torch.Tensor, k: int, windows: int, w: int, pods: int = 1):
+    """(the packed columns, the row and its columns that hold G[q, j+k, j])
+    of window w for every pod q and shard j: g is (pods*S, n), pod q's
+    rows q*S .. q*S+S-1, packed pod-major then shard."""
+    R, n = g.shape
+    S = R // pods
     L = n // S
     Lw = L // windows
-    return [(slice(j * Lw, (j + 1) * Lw), (j + k) % S,
-             slice(j * L + w * Lw, j * L + (w + 1) * Lw)) for j in range(S)]
+    return [(slice((q * S + j) * Lw, (q * S + j + 1) * Lw),
+             q * S + (j + k) % S,
+             slice(j * L + w * Lw, j * L + (w + 1) * Lw))
+            for q in range(pods) for j in range(S)]
 
 
 def add_ring_rows_(acc: torch.Tensor, g: torch.Tensor, k: int,
-                   windows: int = 1, w: int = 0) -> torch.Tensor:
-    """acc[shard j] += G[j+k, j] for every shard j of window w (acc holds
-    the window's strips packed), in f32, in place."""
-    for packed, row, cols in _runs(g, k, windows, w):
+                   windows: int = 1, w: int = 0, pods: int = 1
+                   ) -> torch.Tensor:
+    """acc[pod q, shard j] += G[q, j+k, j] for every pod and shard of
+    window w (acc holds the window's strips packed), in f32, in place."""
+    for packed, row, cols in _runs(g, k, windows, w, pods):
         acc[packed].add_(g[row, cols])
     return acc
 
 
-def ring_rows(g: torch.Tensor, k: int, windows: int = 1, w: int = 0
-              ) -> torch.Tensor:
-    """The f32 vector of window w's strips packed, shard j's being
-    G[j+k, j]; at one window the (padded,) vector whose shard j is
-    G[j+k, j]."""
-    S, n = g.shape
-    out = torch.empty(n // windows, dtype=torch.float32, device=g.device)
-    for packed, row, cols in _runs(g, k, windows, w):
+def ring_rows(g: torch.Tensor, k: int, windows: int = 1, w: int = 0,
+              pods: int = 1) -> torch.Tensor:
+    """The f32 vector of window w's strips packed, pod q's shard j being
+    G[q, j+k, j]; at one window and one pod the (padded,) vector whose
+    shard j is G[j+k, j]."""
+    R, n = g.shape
+    out = torch.empty(n * pods // windows, dtype=torch.float32,
+                      device=g.device)
+    for packed, row, cols in _runs(g, k, windows, w, pods):
         out[packed].copy_(g[row, cols])
     return out
 
 
 def ring_reduce_scatter(g: torch.Tensor, wire, chunk_elems: int,
-                        windows: int = 1, w: int = 0) -> Optional[tuple]:
+                        windows: int = 1, w: int = 0, pods: int = 1
+                        ) -> Optional[tuple]:
     """The encoded ring reduce-scatter of window w of every shard at once:
-    g is the (S, padded) stacked gradient buffer; returns the
-    still-encoded partial that arrives at each owner (the window's strips
-    packed in one wire tuple), without the owner's own rows; None when
-    S == 1 (nothing crosses a wire).  The reference's ``rs_window``."""
-    S = g.shape[0]
+    g is the (S, padded) stacked gradient buffer, or (pods*S, padded) with
+    each pod's S rows ringing on their own (all pods packed in one codec
+    launch a hop); returns the still-encoded partial that arrives at each
+    owner (the window's strips packed in one wire tuple), without the
+    owner's own rows; None when S == 1 (nothing crosses a wire).  The
+    reference's ``rs_window``."""
+    S = g.shape[0] // pods
     if S == 1:
         return None
-    parts = wire.encode(ring_rows(g, 1, windows, w), chunk_elems)
+    parts = wire.encode(ring_rows(g, 1, windows, w, pods), chunk_elems)
     for k in range(2, S):
         acc = wire.decode(parts, chunk_elems)
         del parts                          # free the payload before encoding
-        parts = wire.encode(add_ring_rows_(acc, g, k, windows, w),
+        parts = wire.encode(add_ring_rows_(acc, g, k, windows, w, pods),
                             chunk_elems)
         del acc
     return parts
+
+
+def _divisors(comm, n_live, device, hier: bool, wire) -> tuple:
+    """(the rule's divisor, the encoded tail's gate divisor) of a windowed
+    exchange: None where the kernel divides by its row count or bakes
+    1/N (the identity sharded_ps step, one worker), else N (W or the live
+    count) as a tensor on the device."""
+    W = comm.n_workers
+    gate = mean_divisor(n_live, device) \
+        if isinstance(n_live, torch.Tensor) else None
+    if W == 1:
+        return None, gate
+    if wire is None and not hier:
+        return mean_divisor(n_live, device), gate
+    return mean_divisor(W if n_live is None else n_live, device), gate
 
 
 class WindowedExchange:
     """One dtype group's windowed exchange for one step, over the identity
     wire or an encoded one: ``window(w)`` runs window w (any order), and
     ``finish()`` returns (p', slots) (identity) or (p', slots, wire_ef')
-    (encoded, after the pull).  p' is allocated at the first window, the
-    slots are updated in place.
+    (an encoded wire, after the pull; an encoded DCN tier, its residual
+    updated in place).  p' is allocated at the first window, the slots are
+    updated in place.
 
-    Identity: ``exchange_window``, the divisor the live count (None:
-    divide by W).  Encoded: window w's ring over its strips
-    (``ring_reduce_scatter``), then the owners' tail: ``fused_dequant``
-    (one launch over the window's strips, p, m and the owners' rows read
-    in place; a gate's ``n_live`` tensor goes to its divisor pointer, a
-    static membership's is baked in its ``inv_n``) or the decoded sum plus
-    the owners' rows divided by N and the rule, per (window, shard) (one
-    call over the domain at one window); at S == 1 the rule on the own row
-    (the mean over one worker is exact).  ``finish`` runs the pull: the
-    delta of the whole domain plus ``residual`` encoded and decoded, the
-    parameters written back p plus the decoded delta."""
+    Identity: ``exchange_window`` on the worker rows (sharded_ps) or on
+    the pods' partial rows after window w's in-pod adds (hierarchical), the
+    divisor the live count (None: divide by W) or N; an encoded DCN tier
+    at P > 1 encodes each pod's partial plus its residual and the rule
+    runs on the decoded rows.  Encoded: window w's ring over its strips
+    (``ring_reduce_scatter``, inside each pod), then at one pod the owners'
+    tail: ``fused_dequant`` (one launch over the window's strips, p, m and
+    the owners' rows read in place; a gate's ``n_live`` tensor goes to its
+    divisor pointer, a static membership's is baked in its ``inv_n``) or
+    the decoded sum plus the owners' rows divided by N and the rule, per
+    (window, shard) (one call over the domain at one window); at S == 1
+    the rule on the own row (the mean over one worker is exact); at P > 1
+    the decoded partials (through the DCN tier, scales-only, if one is
+    engaged) go to the rule's kernel as P rows with divisor N.
+    ``finish`` runs the encoded wire's pull: the delta of the whole domain
+    plus ``residual`` encoded and decoded, the parameters written back p
+    plus the decoded delta."""
 
     def __init__(self, comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
                  slots: tuple, update_fn: Callable, windows: int,
-                 n_live=None, *, wire=None, chunk_elems: int = 0,
-                 residual=None, fused_dequant=None):
+                 n_live=None, *, strategy: str = "sharded_ps", wire=None,
+                 wire_dcn=None, chunk_elems: int = 0, residual=None,
+                 fused_dequant=None):
         check_stacked(comm, g, p)
         self.comm, self.g, self.p, self.slots = comm, g, p, slots
         self.update_fn, self.windows = update_fn, windows
-        self.wire, self.ce = wire, chunk_elems
+        self.P, self.S = tiers(comm, strategy)
+        self.hier = strategy == "hierarchical"
+        self.wire, self.wire_dcn, self.ce = wire, wire_dcn, chunk_elems
         self.residual, self.fused_dequant = residual, fused_dequant
-        self.gate = isinstance(n_live, torch.Tensor)
-        if wire is None:
-            self.divisor = mean_divisor(n_live, g.device)
-        elif comm.n_workers > 1:       # the decoded sum is divided by N
-            self.divisor = mean_divisor(
-                comm.n_workers if n_live is None else n_live, g.device)
+        self.divisor, self.gate = _divisors(comm, n_live, g.device,
+                                            self.hier, wire)
         self.p_out = None
 
     def window(self, w: int) -> None:
         if self.p_out is None:
             self.p_out = torch.empty_like(self.p)
         g, p, p_out, slots = self.g, self.p, self.p_out, self.slots
+        P, S, W = self.P, self.S, self.windows
         if self.wire is None:
-            exchange_window(self.comm, g, p, slots, self.update_fn,
-                            self.windows, w, p_out, self.divisor)
+            rows = pod_rows_(g, P, W, w) if self.hier else g
+            if self.wire_dcn is not None and P > 1:
+                self._dcn_leg(rows, w)
+                return
+            exchange_window(rows, p, slots, self.update_fn, S, W, w, p_out,
+                            self.divisor)
             return
-        S, W = self.comm.n_workers, self.windows
+        if P > 1:
+            self._pods_wire(w)
+            return
         if S == 1:
             Lw = p.numel() // W
             cols = slice(w * Lw, (w + 1) * Lw)
@@ -323,8 +438,7 @@ class WindowedExchange:
             self.fused_dequant(
                 _strip(p, S, W, w), parts, own_strips(g, W, w),
                 tuple(_strip(s, S, W, w) for s in slots),
-                divisor=self.divisor if self.gate else None,
-                p_out=_strip(p_out, S, W, w))
+                divisor=self.gate, p_out=_strip(p_out, S, W, w))
             return
         gsum = self.wire.decode(parts, self.ce)
         del parts
@@ -342,8 +456,67 @@ class WindowedExchange:
             self.update_fn(p[cols], gsum[j * Lw:(j + 1) * Lw],
                            tuple(s[cols] for s in slots), p_out=p_out[cols])
 
+    def _dcn_leg(self, rows: torch.Tensor, w: int) -> None:
+        """Window w's DCN tier (identity ICI wire, P > 1): x = each pod's
+        partial plus its residual, packed (pod, shard); one encode and one
+        decode launch; the residual becomes x - decode(encode(x)); the P
+        decoded rows to the rule's kernel with divisor N."""
+        P, S, W = self.P, self.S, self.windows
+        n = self.p.numel()
+        L = n // S
+        cols = slice(w * (L // W), (w + 1) * (L // W))
+        part = rows.unflatten(1, (S, L))[..., cols]            # (P, S, Lw)
+        res = self.residual.view(P, S, L)[..., cols]
+        x = torch.add(part, res)                                # f32
+        parts = self.wire_dcn.encode(x.view(-1), self.ce)
+        res.copy_(x)                  # x - decode(x) lands there below:
+        del x                         # x and its decode are never both alive
+        d = self.wire_dcn.decode(parts, self.ce)
+        del parts
+        res.sub_(d.view_as(res))
+        self._rule_rows(d.view(P, -1), w)
+
+    def _pods_wire(self, w: int) -> None:
+        """Window w over an encoded ICI wire with P > 1 pods: the pods'
+        rings (packed), each owner's decoded partial plus its own run, the
+        cross-pod leg (identity, or the DCN tier scales-only) and the rule
+        on the P rows with divisor N."""
+        g, P, W, ce = self.g, self.P, self.windows, self.ce
+        parts = ring_reduce_scatter(g, self.wire, ce, W, w, P)
+        if parts is None:                 # one worker a pod: its own rows
+            gsum = ring_rows(g, 0, W, w, P)
+        else:
+            gsum = self.wire.decode(parts, ce)
+            del parts
+            add_ring_rows_(gsum, g, 0, W, w, P)
+        if self.wire_dcn is not None:
+            parts = self.wire_dcn.encode(gsum, ce)
+            del gsum
+            gsum = self.wire_dcn.decode(parts, ce)
+            del parts
+        self._rule_rows(gsum.view(P, -1), w)
+
+    def _rule_rows(self, rows: torch.Tensor, w: int) -> None:
+        """The rule on window w's packed (P, S*Lw) rows (pod q's shard j
+        at columns [j*Lw, (j+1)*Lw)), divisor N: one launch at one window
+        (the rows are then the domain's layout), else one a shard."""
+        p, p_out, slots, S, W = (self.p, self.p_out, self.slots, self.S,
+                                 self.windows)
+        if W == 1:
+            self.update_fn(p, rows, slots, divisor=self.divisor, p_out=p_out)
+            return
+        L = p.numel() // S
+        Lw = L // W
+        for j in range(S):
+            cols = slice(j * L + w * Lw, j * L + (w + 1) * Lw)
+            self.update_fn(p[cols], rows[:, j * Lw:(j + 1) * Lw],
+                           tuple(s[cols] for s in slots),
+                           divisor=self.divisor, p_out=p_out[cols])
+
     def finish(self) -> tuple:
         if self.wire is None:
+            if self.wire_dcn is not None:
+                return self.p_out, self.slots, self.residual
             return self.p_out, self.slots
         # pull: encode the delta plus the carried residual; the decoded
         # payload is both what the residual keeps and what the workers add
@@ -358,32 +531,34 @@ class WindowedExchange:
         return d.add_(p).to(p.dtype), self.slots, r
 
 
-def exchange_window(comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
-                    slots: tuple, update_fn: Callable, windows: int, w: int,
+def exchange_window(rows: torch.Tensor, p: torch.Tensor, slots: tuple,
+                    update_fn: Callable, S: int, windows: int, w: int,
                     p_out: torch.Tensor, divisor=None) -> None:
     """Window w of the stacked windowed exchange over the identity wire:
-    for every shard j, the fused aggregate+update of its strip, one launch
-    reading the strip of every worker's row of ``g`` (W, padded) in place;
-    p' into ``p_out`` at the strip's offsets, the slots updated in place.
-    At W == 1 the reduce-scatter is the identity and the mean over one
-    worker exact (the reference's path into agg_opt_chunks), as in
-    ``exchange_group``."""
-    S = comm.n_workers
+    for every shard j of the S, the fused aggregate+update of its strip,
+    one launch reading the strip of every row of ``rows`` (R, padded) in
+    place (the workers' rows, or the pods' partial rows); p' into
+    ``p_out`` at the strip's offsets, the slots updated in place.  One row
+    and no divisor is one worker: the reduce-scatter is the identity and
+    the mean over one worker exact (the reference's path into
+    agg_opt_chunks), as in ``exchange_group``."""
     L = p.numel() // S
     Lw = L // windows
     for j in range(S):
         sl = slice(j * L + w * Lw, j * L + (w + 1) * Lw)
         sw = tuple(s[sl] for s in slots)
-        if S == 1:
-            update_fn(p[sl], g[0, sl], sw, p_out=p_out[sl])
+        if rows.shape[0] == 1 and divisor is None:
+            update_fn(p[sl], rows[0, sl], sw, p_out=p_out[sl])
         else:
-            update_fn(p[sl], g[:, sl], sw, divisor=divisor, p_out=p_out[sl])
+            update_fn(p[sl], rows[:, sl], sw, divisor=divisor,
+                      p_out=p_out[sl])
 
 
 class ChunkReadyExchange:
     """One dtype group's chunk-ready exchange for one step (the
     reference's ``chunk_ready_exchange``, and over an encoded ``wire``
-    its ``run_chunk_ready_wire_exchange``): the windowed exchange, each
+    its ``run_chunk_ready_wire_exchange``, over an encoded ``wire_dcn``
+    its ``run_chunk_ready_dcn_exchange``): the windowed exchange, each
     window launched once every leaf that meets its strips has its
     gradient in ``g``.  Build it after every row but the last worker's is
     in ``g`` (and ``p``, ``slots`` are final); call ``leaf_ready(i)``
@@ -400,15 +575,18 @@ class ChunkReadyExchange:
     is not alive through the backward when the windows are ready only at
     its end), and all are kept until ``finish``: nothing the side stream
     reads or writes is freed under it, and p' is a new buffer the
-    backward never reads.  On the CPU a window runs when it becomes
-    ready."""
+    backward never reads.  The hierarchical in-pod adds of a window run
+    on the side stream with its launches.  On the CPU a window runs when
+    it becomes ready."""
 
     def __init__(self, comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
                  slots: tuple, update_fn: Callable, group: GroupPlan,
-                 windows: int, n_live=None, stream=None, *, wire=None,
+                 windows: int, n_live=None, stream=None, *,
+                 strategy: str = "sharded_ps", wire=None, wire_dcn=None,
                  residual=None, fused_dequant=None):
         self.ex = WindowedExchange(comm, g, p, slots, update_fn, windows,
-                                   n_live, wire=wire,
+                                   n_live, strategy=strategy, wire=wire,
+                                   wire_dcn=wire_dcn,
                                    chunk_elems=group.chunk_elems,
                                    residual=residual,
                                    fused_dequant=fused_dequant)
@@ -459,24 +637,29 @@ def pipelined_wire_exchange(comm, g: torch.Tensor,
                             update_fn: Callable, wire, chunk_elems: int,
                             residual: torch.Tensor,
                             fused_dequant: Optional[Callable] = None,
-                            windows: int = 1, n_live=None):
-    """One dtype group's sharded_ps exchange over an encoded wire, windows
-    0 .. W-1 in order, then the pull.  g: (S, padded) stacked gradients;
-    p: (padded,); ``slots``: the rule's (padded,) state vectors, updated
-    in place; ``residual``: the (padded,) f32 ``wire_ef`` slot.
+                            windows: int = 1, n_live=None,
+                            strategy: str = "sharded_ps", wire_dcn=None):
+    """One dtype group's exchange over an encoded wire, windows 0 .. W-1
+    in order, then the pull.  g: (W, padded) stacked gradients; p:
+    (padded,); ``slots``: the rule's (padded,) state vectors, updated in
+    place; ``residual``: the (padded,) f32 ``wire_ef`` slot.
     ``fused_dequant(p, parts, g_own, slots, divisor=, p_out=)`` fuses the
     owner's decode, its own rows and the mean into the rule
-    (``ShardedOptimizer.kernel_dequant_update``); without it the partial
-    is decoded, the own rows added, the sum divided by N and handed to
-    ``update_fn``.  ``n_live``: None (N = S), a number (a static
-    membership) or a 0-dim tensor on the card (the gate's).  Returns (p',
-    slots', residual'), where p' is p plus the decoded pull delta (not the
-    rule's p'): what every worker applies after the all-gather, which is
-    the identity on one card.  Over a process group g is this rank's (1,
-    padded) row and ``slots`` and ``residual`` its shard's (L,)."""
+    (``ShardedOptimizer.kernel_dequant_update``; unused once a cross-pod
+    leg follows the ring); without it the partial is decoded, the own
+    rows added, the sum divided by N and handed to ``update_fn``.
+    ``n_live``: None (N = W), a number (a static membership) or a 0-dim
+    tensor on the card (the gate's).  ``strategy``: sharded_ps or
+    hierarchical (the ring inside each pod, then the cross-pod leg, over
+    ``wire_dcn`` scales-only if given).  Returns (p', slots', residual'),
+    where p' is p plus the decoded pull delta (not the rule's p'): what
+    every worker applies after the all-gather, which is the identity on
+    one card.  Over a process group g is this rank's (1, padded) row and
+    ``slots`` and ``residual`` its shard's (L,)."""
     ex = _windowed(comm)(comm, g, p, slots, update_fn, windows, n_live,
-                         wire=wire, chunk_elems=chunk_elems,
-                         residual=residual, fused_dequant=fused_dequant)
+                         strategy=strategy, wire=wire, wire_dcn=wire_dcn,
+                         chunk_elems=chunk_elems, residual=residual,
+                         fused_dequant=fused_dequant)
     for w in range(windows):
         ex.window(w)
     return ex.finish()
@@ -486,15 +669,50 @@ def run_wire_exchange(strategy: str, comm, g: torch.Tensor,
                       p: torch.Tensor, slots: tuple, update_fn: Callable,
                       group: GroupPlan, wire, residual: torch.Tensor,
                       fused_dequant: Optional[Callable] = None,
-                      windows: int = 1, n_live=None):
+                      windows: int = 1, n_live=None, wire_dcn=None):
     """Dispatch one dtype group over a non-identity wire at the effective
     window count (one window is the schedule's W = 1, as in the
     reference); the identity wire takes ``run_exchange``."""
     _check_wire_strategy(strategy, wire)
+    if wire_dcn is not None:
+        _check_dcn_strategy(strategy, wire_dcn)
     return pipelined_wire_exchange(comm, g, p, slots, update_fn, wire,
                                    group.chunk_elems, residual,
                                    fused_dequant,
-                                   effective_windows(group, windows), n_live)
+                                   effective_windows(group, windows), n_live,
+                                   strategy, wire_dcn)
+
+
+def pipelined_dcn_exchange(comm, g: torch.Tensor, p: torch.Tensor,
+                           slots: tuple, update_fn: Callable, wire_dcn,
+                           chunk_elems: int, residual: torch.Tensor,
+                           windows: int = 1, n_live=None):
+    """The hierarchical exchange with identity in-pod rings and an encoded
+    cross-pod (DCN) leg, windows 0 .. W-1 in order (the reference's
+    ``pipelined_dcn_exchange``; module docstring).  g: (W, padded) stacked
+    gradients (one row a rank over a process group); ``residual``: the
+    DCN tier's ``wire_ef``, (P*padded,) pod-major on the stacked Comm,
+    this rank's (L,) over a process group, updated in place.  Returns
+    (p', slots', residual')."""
+    ex = _windowed(comm)(comm, g, p, slots, update_fn, windows, n_live,
+                         strategy="hierarchical", wire_dcn=wire_dcn,
+                         chunk_elems=chunk_elems, residual=residual)
+    for w in range(windows):
+        ex.window(w)
+    return ex.finish()
+
+
+def run_dcn_exchange(strategy: str, comm, g: torch.Tensor, p: torch.Tensor,
+                     slots: tuple, update_fn: Callable, group: GroupPlan,
+                     wire_dcn, residual: torch.Tensor, windows: int = 1,
+                     n_live=None):
+    """Dispatch one dtype group over identity ICI and an encoded DCN tier
+    at the effective window count; the windowed flavour runs even at one
+    window, so windowed and monolithic share one code path."""
+    _check_dcn_strategy(strategy, wire_dcn)
+    return pipelined_dcn_exchange(comm, g, p, slots, update_fn, wire_dcn,
+                                  group.chunk_elems, residual,
+                                  effective_windows(group, windows), n_live)
 
 
 def _windowed(comm):
@@ -506,39 +724,49 @@ def _windowed(comm):
 class ProcessGroupExchange:
     """``WindowedExchange`` over a process group, one worker a rank: g is
     this rank's (1, padded) gradient row, p the whole (padded,) vector,
-    ``slots`` (and an encoded wire's ``residual``) the (L,) state of the
-    shard this rank owns, updated in place.  ``window(w)`` runs window w
-    (every rank the same windows in the same order: each is a collective),
-    ``finish()`` the pull and returns what ``WindowedExchange.finish``
-    does, p' the whole new (padded,) vector on every rank.
+    ``slots`` (and an encoded wire's or DCN tier's ``residual``) the (L,)
+    state of the shard this rank owns, updated in place.  ``window(w)``
+    runs window w (every rank the same windows in the same order: each is
+    a collective), ``finish()`` the pull and returns what
+    ``WindowedExchange.finish`` does, p' the whole new (padded,) vector on
+    every rank.  sharded_ps exchanges over the world (S = W, this rank
+    owns shard ``rank``); hierarchical over the pod's subgroup (S = D,
+    shard ``data_index``), the cross-pod leg over the ranks of the same
+    data index.
 
-    Identity: window w's strips of every shard, packed, go out in one push
-    and the rule runs on the (W, Lw) received rows (its kernel sums them in
-    worker order and divides by W or the live count), writing the window's
-    run of the new shard.  Encoded: window w's ring (``_ring``) brings the
-    still-encoded partial of this rank's strip, and the tail runs as on the
-    stacked Comm, on this rank's own strip; at S == 1 the rule on the own
-    row."""
+    Identity: window w's strips of every shard of the group, packed, go
+    out in one push; sharded_ps runs the rule on the (W, Lw) received rows
+    (its kernel sums them in worker order and divides by W or the live
+    count); hierarchical sums the D received rows in data order into the
+    first, gathers that partial across the pods (or, with an encoded DCN
+    tier, encodes it plus its residual, gathers the words and scales and
+    decodes the P rows) and runs the rule on the P rows with divisor N.
+    Encoded: window w's ring (``_ring``, inside the group) brings the
+    still-encoded partial of this rank's strip; at one pod the tail runs
+    as on the stacked Comm, on this rank's own strip; at P > 1 the decoded
+    partial plus the own run crosses the pods (identity, or the DCN tier
+    scales-only) and the rule runs on the P rows; at S == 1 and one pod
+    the rule on the own row."""
 
     def __init__(self, comm: ProcessGroupComm, g: torch.Tensor,
                  p: torch.Tensor, slots: tuple, update_fn: Callable,
-                 windows: int, n_live=None, *, wire=None,
-                 chunk_elems: int = 0, residual=None, fused_dequant=None):
+                 windows: int, n_live=None, *, strategy: str = "sharded_ps",
+                 wire=None, wire_dcn=None, chunk_elems: int = 0,
+                 residual=None, fused_dequant=None):
         check_stacked(comm, g, p)
-        S, r = comm.n_workers, comm.rank
-        self.L = L = p.numel() // S
+        self.hier = strategy == "hierarchical"
+        self.P, self.S = tiers(comm, strategy)
+        self.over = "pod" if self.hier else "world"
+        self.r = comm.data_index if self.hier else comm.rank
+        self.L = L = p.numel() // self.S
         self.Lw = L // windows
         self.comm, self.row, self.p = comm, g[0], p
-        self.p_sh = p[r * L:(r + 1) * L]
+        self.p_sh = p[self.r * L:(self.r + 1) * L]
         self.slots, self.update_fn, self.windows = slots, update_fn, windows
-        self.wire, self.ce = wire, chunk_elems
+        self.wire, self.wire_dcn, self.ce = wire, wire_dcn, chunk_elems
         self.residual, self.fused_dequant = residual, fused_dequant
-        self.gate = isinstance(n_live, torch.Tensor)
-        if wire is None:
-            self.divisor = mean_divisor(n_live, g.device)
-        elif S > 1:                    # the decoded sum is divided by N
-            self.divisor = mean_divisor(S if n_live is None else n_live,
-                                        g.device)
+        self.divisor, self.gate = _divisors(comm, n_live, g.device,
+                                            self.hier, wire)
         self.p_out = None              # the new shard, (L,)
 
     def _run(self, j: int, w: int) -> torch.Tensor:
@@ -549,26 +777,37 @@ class ProcessGroupExchange:
     def window(self, w: int) -> None:
         if self.p_out is None:
             self.p_out = torch.empty_like(self.p_sh)
-        comm, S, r = self.comm, self.comm.n_workers, self.comm.rank
+        comm, S, P = self.comm, self.S, self.P
         cols = slice(w * self.Lw, (w + 1) * self.Lw)
         p, p_out = self.p_sh[cols], self.p_out[cols]
         slots = tuple(s[cols] for s in self.slots)
         if self.wire is None:
-            rows = comm.push(_strip(self.row, S, self.windows, w))
-            if S == 1:
-                self.update_fn(p, rows[0], slots, p_out=p_out)
-            else:
-                self.update_fn(p, rows, slots, divisor=self.divisor,
-                               p_out=p_out)
+            rows = comm.push(_strip(self.row, S, self.windows, w), self.over)
+            if self.hier:
+                for d in range(1, S):     # the in-pod sum, in data order
+                    rows[0].add_(rows[d])
+                if P > 1:
+                    rows = self._cross(rows[0], w, residual=True)
+                else:
+                    rows = rows[:1]
+            self._rule(p, rows, slots, p_out)
             return
-        own = self._run(r, w)
+        own = self._run(self.r, w)
+        if P > 1:
+            if S > 1:
+                gsum = self.wire.decode(self._ring(w), self.ce)
+                gsum.add_(own)
+            else:
+                gsum = own.float()
+            self._rule(p, self._cross(gsum, w, residual=False), slots,
+                       p_out)
+            return
         if S == 1:
             self.update_fn(p, own, slots, p_out=p_out)
             return
         parts = self._ring(w)
         if self.fused_dequant is not None:
-            self.fused_dequant(p, parts, own, slots,
-                               divisor=self.divisor if self.gate else None,
+            self.fused_dequant(p, parts, own, slots, divisor=self.gate,
                                p_out=p_out)
             return
         gsum = self.wire.decode(parts, self.ce)
@@ -577,14 +816,49 @@ class ProcessGroupExchange:
         gsum.add_(own).div_(self.divisor)
         self.update_fn(p, gsum, slots, p_out=p_out)
 
+    def _rule(self, p, rows, slots, p_out) -> None:
+        """The rule on the rows this rank aggregates: pre-aggregated for
+        one worker in all, else stacked with the divisor."""
+        if self.comm.n_workers == 1:
+            self.update_fn(p, rows[0], slots, p_out=p_out)
+        else:
+            self.update_fn(p, rows, slots, divisor=self.divisor,
+                           p_out=p_out)
+
+    def _cross(self, x: torch.Tensor, w: int, residual: bool
+               ) -> torch.Tensor:
+        """The cross-pod leg of window w's owner strip: the (P, Lw) rows
+        of every pod's ``x`` in pod order, gathered as they are, or
+        through the DCN tier (encoded, gathered, every row decoded; with
+        ``residual`` this pod's residual is added before the encode and
+        becomes x - decode(encode(x)))."""
+        dcn, ce = self.wire_dcn, self.ce
+        if dcn is None:
+            return self.comm.cross_gather(x)
+        if residual:
+            res = self.residual[w * self.Lw:(w + 1) * self.Lw]
+            x = torch.add(x, res)                             # f32
+        parts = dcn.pack_words(dcn.encode(x, ce))
+        if residual:
+            res.copy_(x)              # x - decode(x) lands there below
+        del x
+        rows = tuple(self.comm.cross_gather(t).view(-1) for t in parts)
+        del parts
+        d = dcn.decode(dcn.unpack_words(rows), ce)
+        del rows
+        if residual:
+            q = self.comm.pod
+            res.sub_(d[q * self.Lw:(q + 1) * self.Lw])
+        return d.view(self.P, self.Lw)
+
     def _ring(self, w: int) -> tuple:
-        """Window w's encoded ring: this rank starts shard r-1's partial
-        with its own run, then at hop k = 2 .. S-1 receives shard r-k's
-        partial from rank r-1, decodes it, adds its run and encodes it
-        again; the last hop brings the partial of its own shard, returned
-        still encoded (the stacked ring's order, ``ring_reduce_scatter``)."""
-        S, r, wire, ce = (self.comm.n_workers, self.comm.rank, self.wire,
-                          self.ce)
+        """Window w's encoded ring over this rank's group: this rank starts
+        shard r-1's partial with its own run, then at hop k = 2 .. S-1
+        receives shard r-k's partial from the previous member, decodes it,
+        adds its run and encodes it again; the last hop brings the partial
+        of its own shard, returned still encoded (the stacked ring's order,
+        ``ring_reduce_scatter``)."""
+        S, r, wire, ce = self.S, self.r, self.wire, self.ce
         parts = wire.encode(self._run((r - 1) % S, w).float(), ce)
         for k in range(2, S):
             parts = self._hop(parts)
@@ -597,22 +871,26 @@ class ProcessGroupExchange:
     def _hop(self, parts: tuple) -> tuple:
         send = self.wire.pack_words(parts)
         recv = self.comm.ring_hop(send, tuple(torch.empty_like(t)
-                                              for t in send))
+                                              for t in send), self.over)
         return self.wire.unpack_words(recv)
 
     def finish(self) -> tuple:
         comm, p = self.comm, self.p
         if self.wire is None:
-            out = comm.pull(self.p_out, torch.empty_like(p))
+            solo = len(comm.members(self.over)) == 1     # p_out is p'
+            out = comm.pull(self.p_out, None if solo else torch.empty_like(p),
+                            self.over)
             self.p_out = None
+            if self.wire_dcn is not None:
+                return out, self.slots, self.residual
             return out, self.slots
         # pull: this shard's delta plus its carried residual encoded, the
         # words and scales gathered, every shard decoded on every rank
-        ce, r, L = self.ce, comm.rank, self.L
+        ce, r, L, S = self.ce, self.r, self.L, self.S
         e = (self.p_out.float() - self.p_sh.float()).add_(self.residual)
         self.p_out = None
         parts = self.wire.pack_words(self.wire.encode(e, ce))
-        gathered = tuple(comm.pull(t, t.new_empty(t.numel() * comm.n_workers))
+        gathered = tuple(comm.pull(t, t.new_empty(t.numel() * S), self.over)
                          for t in parts)
         del parts
         d = self.wire.decode(self.wire.unpack_words(gathered), ce)

@@ -14,10 +14,16 @@ every ring hop and encodes the pull's parameter delta; what the rounding
 drops from the delta is carried into the next step by the error-feedback
 slot ``wire_ef``, an f32 slot laid out as momentum and appended last.
 
+The ``hierarchical`` strategy has a second tier (``make_dcn_wire_format``,
+``TrainConfig.wire_format_dcn``): the cross-pod leg may travel encoded
+while the in-pod rings stay identity.  There is at most one ``wire_ef``
+slot: an encoded ICI wire owns it for its pull delta (the DCN leg then runs
+scales-only, without a residual), else an encoded DCN tier owns it for
+each pod's push-side residual (``exchange_extra_slots``).
+
 ``pack_words``/``unpack_words`` frame a payload as uint32 words for the
-collectives of ``core/comm.py::ProcessGroupComm`` (the int8 ring's hops and
-the pull), bitwise as the reference's.  The DCN tier's wire waits for the
-``hierarchical`` strategy (ROADMAP.md queue A item 5).
+collectives of ``core/comm.py::ProcessGroupComm`` (the int8 ring's hops,
+the cross-pod gather and the pull), bitwise as the reference's.
 """
 from __future__ import annotations
 
@@ -147,13 +153,23 @@ def make_wire_format(tc) -> WireFormat:
     return WireFormat(name=tc.wire_format)
 
 
+def make_dcn_wire_format(tc) -> WireFormat | None:
+    """TrainConfig -> the cross-pod (DCN) tier's WireFormat, or None: both
+    ``wire_format_dcn=None`` and ``"identity"`` mean no DCN tier (the
+    cross-pod sum travels in the state dtype)."""
+    name = tc.wire_format_dcn
+    if name in (None, "identity"):
+        return None
+    return WireFormat(name=name)
+
+
 def exchange_extra_slots(wire: WireFormat, wire_dcn=None
                          ) -> tuple[SlotSpec, ...]:
     """The exchange-level slots a (ICI wire, DCN wire) pair adds: at most
-    one ``wire_ef``, appended last, owned here by an encoded ICI wire.  A
-    DCN-tier wire needs the ``hierarchical`` strategy and raises."""
-    if wire_dcn is not None:
-        raise NotImplementedError(
-            "a DCN-tier wire needs the 'hierarchical' strategy (ROADMAP.md "
-            "queue A item 5)")
-    return wire.extra_slots()
+    one ``wire_ef``, appended last.  An encoded ICI wire owns it for the
+    pull delta's residual (the DCN leg then runs scales-only); an
+    identity ICI wire with an encoded DCN tier hands it to the DCN tier,
+    which keeps each pod's push-side residual there."""
+    if wire.error_feedback or wire_dcn is not None:
+        return (SlotSpec(WIRE_EF_SLOT, "float32"),)
+    return ()

@@ -2,7 +2,9 @@
 reference's ``launch/mesh.py``).
 
 ``run(fn, world, backend, device, timeout)`` starts ``world`` processes
-with the ``spawn`` start method (CUDA cannot be forked), one worker each.
+with the ``spawn`` start method (CUDA cannot be forked), one worker each,
+laid out as ``pods`` pods of ``world / pods`` ranks (rank r the worker
+(pod r // D, data r % D), the reference's ``(pod, data)`` mesh).
 Rank r gets a ``core/comm.py::ProcessGroupComm`` over ``backend`` on
 ``cuda:(r % device_count)`` (or the CPU), initialised from a free
 ``tcp://localhost`` port or the given ``init_method``, and calls ``fn(comm,
@@ -49,7 +51,7 @@ def _rank_device(rank: int, device: str) -> torch.device:
 
 
 def _child(rank, world, backend, device, init_method, timeout, threads,
-           timing, fn, args, results):
+           timing, pods, fn, args, results):
     try:
         if threads:
             torch.set_num_threads(threads)
@@ -57,7 +59,8 @@ def _child(rank, world, backend, device, init_method, timeout, threads,
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         comm = ProcessGroupComm(rank, world, backend, init_method,
-                                timeout=timeout, device=dev, timing=timing)
+                                timeout=timeout, device=dev, timing=timing,
+                                pods=pods)
         try:
             out = fn(comm, dev, *args)
         finally:
@@ -82,7 +85,7 @@ def _stop(procs) -> None:
 def run(fn: Callable, world: int, backend: str = "gloo",
         device: str = "cuda", timeout: float = 600.0, *, args: tuple = (),
         init_method: str | None = None, threads: int | None = None,
-        timing: bool = False) -> list:
+        timing: bool = False, pods: int = 1) -> list:
     """Run ``fn(comm, device, *args)`` on ``world`` spawned ranks and return
     their results in rank order.  ``fn`` must be importable by name (a
     module-level function).  ``init_method``: None picks a free
@@ -90,16 +93,21 @@ def run(fn: Callable, world: int, backend: str = "gloo",
     directory>``.  ``timeout`` (seconds) bounds every collective of the
     group.  ``threads``: intra-op threads a rank (None
     leaves PyTorch's default).  ``timing``: the Comm times its
-    collectives (``ProcessGroupComm.stats``)."""
+    collectives (``ProcessGroupComm.stats``).  ``pods``: P pods of
+    world / P ranks (the hierarchical strategy's tiers)."""
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
+    if pods < 1 or world % pods:
+        raise ValueError(f"a world of {world} does not split into {pods} "
+                         f"pods")
     if init_method is None:
         init_method = f"tcp://localhost:{free_port()}"
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_child, daemon=True,
                          args=(r, world, backend, device, init_method,
-                               timeout, threads, timing, fn, args, results))
+                               timeout, threads, timing, pods, fn, args,
+                               results))
              for r in range(world)]
     for p in procs:
         p.start()

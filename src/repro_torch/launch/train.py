@@ -1,11 +1,15 @@
 """Training launcher for the PyTorch port.
 
-Runs PHub's sharded_ps train step with W workers stacked on one device
+Runs PHub's train step (``--strategy`` sharded_ps, hierarchical,
+allreduce or centralized_ps) with W workers stacked on one device
 (``--workers W``), or one worker in each of N processes over
 ``torch.distributed`` (``--nproc N --backend gloo|nccl``, the counterpart
-of the reference's ``--devices``; ``launch/dist.py``).  gloo ranks may
-share one card (their collectives go through host memory); NCCL needs a
-card a rank.
+of the reference's ``--devices``; ``launch/dist.py``).  ``--pods P`` lays
+the W (or N) workers out as P pods of W/P, the counterpart of the
+reference's ``--mesh PxDx1``: the hierarchical strategy's racks, whose
+cross-pod leg ``--wire-format-dcn`` may encode.  gloo ranks may share one
+card (their collectives go through host memory); NCCL needs a card a
+rank.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
@@ -16,8 +20,10 @@ Usage:
   ... --chaos --workers 4           # seeded kill/slow/rejoin membership
   ... --workers 4 --windows 5 --overlap   # windowed exchange, chunk-ready
   ... --nproc 2 --backend gloo      # one worker a process (gloo)
+  ... --workers 4 --pods 2 --strategy hierarchical --wire-format-dcn int8
+                                    # PHub's rack deployment, int8 DCN tier
 
-Values the port does not implement (another strategy or architecture, a
+Values the port does not implement (fsdp_stream, another architecture, a
 batch that does not split over the workers) raise.
 """
 from __future__ import annotations
@@ -63,7 +69,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=5e-3)
-    ap.add_argument("--strategy", default="sharded_ps")
+    ap.add_argument("--strategy", default="sharded_ps",
+                    help="sharded_ps | hierarchical | allreduce | "
+                         "centralized_ps")
     ap.add_argument("--chunk-kb", type=int, default=32)
     ap.add_argument("--windows", type=int, default=1,
                     help="pipeline windows per dtype group")
@@ -72,8 +80,14 @@ def main(argv=None):
                          "mid-backward (DESIGN.md §14)")
     ap.add_argument("--wire-format", default="identity",
                     help="identity | bf16 | f16 | int8 (core/wire.py)")
+    ap.add_argument("--wire-format-dcn", default=None,
+                    help="the hierarchical strategy's cross-pod wire: "
+                         "identity | bf16 | f16 | int8")
     ap.add_argument("--workers", type=int, default=1,
                     help="workers stacked on the one device")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="P pods of W/P workers (the reference's --mesh "
+                         "PxDx1): hierarchical's racks")
     ap.add_argument("--nproc", type=int, default=1,
                     help="worker processes over torch.distributed, one "
                          "worker each (exclusive with --workers)")
@@ -118,10 +132,11 @@ def main(argv=None):
         # one intra-op thread a CPU rank: the ranks are the parallelism
         results = dist.run(_train, args.nproc, args.backend or "gloo",
                            args.device, COLLECTIVE_TIMEOUT_S, args=(args,),
-                           threads=1 if args.device == "cpu" else None)
+                           threads=1 if args.device == "cpu" else None,
+                           pods=args.pods)
         return results[0]
     from ..core import StackedComm
-    return _train(StackedComm(args.workers), args.device, args)
+    return _train(StackedComm(args.workers, args.pods), args.device, args)
 
 
 def _train(comm, device, args):
@@ -140,6 +155,7 @@ def _train(comm, device, args):
     tc = TrainConfig(strategy=args.strategy, lr=args.lr,
                      chunk_size_bytes=args.chunk_kb * 1024,
                      wire_format=args.wire_format,
+                     wire_format_dcn=args.wire_format_dcn,
                      pipeline_windows=args.windows,
                      overlap_backward=args.overlap,
                      loss_chunk=min(1024, args.seq))
@@ -151,8 +167,10 @@ def _train(comm, device, args):
     procs = ("" if isinstance(comm, StackedComm) else
              f" ({comm.n_workers} processes, {comm.backend})")
     say(f"[train] arch={cfg.arch_id} params={cfg.n_params() / 1e6:.1f}M "
-        f"workers={comm.n_workers}{procs} strategy={tc.strategy} "
-        f"wire={tc.wire_format} windows={tc.pipeline_windows} "
+        f"workers={comm.n_workers}{procs} pods={comm.pods} "
+        f"strategy={tc.strategy} wire={tc.wire_format} "
+        f"dcn={tc.wire_format_dcn or 'identity'} "
+        f"windows={tc.pipeline_windows} "
         f"(effective {windows}) overlap={tc.overlap_backward} "
         f"device={engine.device}")
     state = TrainState(params=params, opt=opt)

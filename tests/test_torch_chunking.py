@@ -97,5 +97,5 @@ def test_stacked_comm_matches_exchange_context(W, strategy):
 
 
 def test_stacked_comm_rejects_unported_strategies():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StackedComm(4).n_shards("hierarchical")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5b"):
+        StackedComm(4).n_shards("fsdp_stream")

@@ -206,8 +206,8 @@ def test_launcher_runs_on_cpu_and_rejects_what_is_not_ported():
     losses = main(["--reduced", "--device", "cpu", "--steps", "2",
                    "--batch", "4", "--seq", "16", "--workers", "2"])
     assert len(losses) == 2 and all(np.isfinite(losses))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--reduced", "--device", "cpu", "--strategy", "allreduce"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5b"):
+        main(["--reduced", "--device", "cpu", "--strategy", "fsdp_stream"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["--arch", "grok-1-314b", "--device", "cpu"])
     with pytest.raises(ValueError, match="workers"):

@@ -16,13 +16,17 @@
    decoded delta to p.  p, the rule's slots and ``wire_ef`` are compared,
    f32 and bf16 groups.  In-process eager JAX: no forced host devices.
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core.wire import WireFormat as JaxWire
+from repro.configs.base import TrainConfig as JaxTrainConfig
 from repro.core.wire import exchange_extra_slots as jax_extra_slots
+from repro.core.wire import make_dcn_wire_format as jax_dcn_wire
 from repro.kernels.agg_opt.ref import (adam_opt_ref as jax_adam_ref,
                                        agg_opt_ref as jax_agg_opt_ref,
                                        dequant_agg_opt_ref as jax_dequant_ref,
@@ -33,7 +37,8 @@ from repro_torch.core.exchange import check_wire
 from repro_torch.core.pipeline import (PIPELINED_STRATEGIES, ring_rows,
                                        run_wire_exchange)
 from repro_torch.core.wire import (WIRE_EF_SLOT, WIRE_FORMATS, WireFormat,
-                                   exchange_extra_slots, make_wire_format)
+                                   exchange_extra_slots, make_dcn_wire_format,
+                                   make_wire_format)
 from repro_torch.kernels import quant
 from repro_torch.kernels.agg_opt import LAUNCHES, reset_launches
 from repro_torch.optim.protocol import (AdamOptimizer, NesterovOptimizer,
@@ -92,8 +97,23 @@ def test_wire_registry_and_what_is_not_ported():
     assert make_wire_format(TrainConfig(wire_format="int8")).has_scales
     with pytest.raises(ValueError, match="unknown wire format"):
         WireFormat("int4")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        exchange_extra_slots(WireFormat("int8"), WireFormat("int8"))
+    # the two-tier slot rules are the reference's: one wire_ef at most,
+    # owned by an encoded ICI wire, else by an encoded DCN tier
+    for ici, dcn in itertools.product(WIRE_FORMATS, (None,) + WIRE_FORMATS):
+        tc = TrainConfig(wire_format=ici, wire_format_dcn=dcn)
+        jtc = JaxTrainConfig(wire_format=ici, wire_format_dcn=dcn)
+        w_dcn = make_dcn_wire_format(tc)
+        j_dcn = jax_dcn_wire(jtc)
+        assert (w_dcn is None) == (j_dcn is None)
+        assert (w_dcn is None) == (dcn in (None, "identity"))
+        assert (tuple((s.name, s.dtype) for s in exchange_extra_slots(
+                    make_wire_format(tc), w_dcn))
+                == tuple((s.name, s.dtype) for s in jax_extra_slots(
+                    JaxWire(ici), j_dcn)))
+    # a DCN wire needs the hierarchical strategy, as the reference's engine
+    check_wire("hierarchical", WireFormat("identity"), WireFormat("int8"))
+    with pytest.raises(ValueError, match="hierarchical"):
+        check_wire("sharded_ps", WireFormat("identity"), WireFormat("int8"))
     # a non-identity wire needs a chunk strategy with a shard dimension
     check_wire("sharded_ps", WireFormat("int8"))
     check_wire("allreduce", WireFormat("identity"))
