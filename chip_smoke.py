@@ -227,7 +227,33 @@
    rank keeps); allreduce, whose ``all_reduce`` adds 4 ranks in gloo's
    order, one step: step 0's loss equal, the parameters within 1e-4 of
    the step's largest change.
-13. Prints the kernels line, then the device line last.
+13. PHub's framework-agnostic client (``core/client.py::PHubClient``), the
+   engine's exchange without the engine: an external loop treats the full
+   llama3.2-1b ``DecoderLM`` as an ordinary ``nn.Module`` (its own forward
+   and ``chunked_cross_entropy`` per worker slice, ``torch.autograd.grad``,
+   the push built by the caller) and calls only the client
+   (``client_phase``, ``CLIENT_PATHS``), Nesterov unless named:
+   (g) stacked, 4 workers, batch 8 x 512: ``push_pull`` in tree mode (the
+   caller's (4, *leaf) push tree; the parameters written in place) 2
+   steps, ``push_pull_flat`` (each worker's gradients flattened into the
+   caller's own (4, padded) rows; the parameters views of the flat
+   store) 2, the int8 wire in 5 windows 2, hierarchical 2 pods x 2 1, and
+   a static 3-of-4 membership (``set_membership``, hierarchical 2 x 2) 1,
+   each bitwise equal to the engine's run of this call from the same seed
+   and batches (losses and the fingerprint after every step), launches
+   exact; W=1 ``push_pull`` under Nesterov, SGD and Adam (eps 1e-3), 1
+   step each, against the tree-level ``make_optimizer`` update on the
+   same gradients: Nesterov and SGD every leaf bitwise (and equal to the
+   engine's W=1 step), Adam within 1e-6; the external MLP loop of
+   ``examples/torch_external_loop.py`` (4 stacked workers, Adam, 200
+   steps): its last mse at most 1/4 of its first, every mse finite.
+   (h) gloo, 2 processes sharing cuda:0, full llama3.2-1b in 64 KB chunks:
+   each rank pushes its own slice's gradients through
+   ``PHubClient(tc, ProcessGroupComm)``, 2 steps (a fresh rank's first
+   step is cold), bitwise equal to the stacked client at W=2 after each
+   (and to the engine's stacked W=2 steps).  Step ms,
+   tokens/s and peak GiB of every path beside the engine's.
+14. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 card and refuses to run without one.
@@ -441,6 +467,37 @@ REDUCED_STRATEGIES = (
     ("allreduce", dict(strategy="allreduce")),
 )
 ALLREDUCE_BOUND = 1e-4
+
+# 13. the client (``client_phase``): full llama3.2-1b as a user's
+# nn.Module through PHubClient.  (g) stacked, 4 workers: (label, steps,
+# TrainConfig fields, pods, flat mode, a static dead worker, launches per
+# step, the engine's run of this call it equals bitwise); W=1 against
+# make_optimizer: (rule, launches, the engine's W=1 run it equals, or None:
+# Adam runs at eps CLIENT_ADAM_EPS, the engine's W=1 Adam at 1e-8); (h)
+# gloo, GLOO_W ranks on the card, 64 KB chunks, against the stacked client
+# at GLOO_W; the external MLP loop (examples/torch_external_loop.py: 5,256
+# f32 parameters in 4 KB chunks, 2 windows asked for)
+INT8_W4_WINDOWS = {"quantize_chunks": 3 * WINDOWS_W4 + 1,
+                   "dequantize_chunks": 2 * WINDOWS_W4 + 1,
+                   "dequant_agg_opt_chunks": WINDOWS_W4}
+CLIENT_PATHS = (
+    ("tree W=4", 2, {}, 1, False, None, {B2: 1}, "nesterov W=4"),
+    ("flat W=4", 2, {}, 1, True, None, {B2: 1}, "nesterov W=4"),
+    (f"int8 in {WINDOWS_W4} windows W=4", 2,
+     dict(wire_format="int8", pipeline_windows=WINDOWS_W4), 1, False, None,
+     INT8_W4_WINDOWS, "nesterov int8 W=4"),
+    ("hierarchical 2x2", 1, HIER, PODS, False, None, {B2: 1},
+     "nesterov hierarchical 2x2"),
+    ("hierarchical 2x2, worker 1 dead", 1, HIER, PODS, False, POISONED,
+     {B2: 1}, "nesterov hierarchical 2x2, worker 1 dead"),
+)
+CLIENT_W1 = (("nesterov", {"agg_opt_chunks": 1}, "nesterov W=1"),
+             ("sgd", {"sgd_opt_chunks": 1}, "sgd W=1"),
+             ("adam", {"adam_opt_chunks": 1}, None))
+CLIENT_ADAM_EPS = 1e-3
+CLIENT_ADAM_ATOL = 1e-6   # textbook vs residual-form EMAs (ROADMAP queue C)
+MLP_PARAMS, MLP_CHUNK = 32 * 128 + 128 + 128 * 8 + 8, 4096
+CLIENT_GLOO_STEPS = 2     # the first step of a fresh rank is cold
 
 
 def log(msg: str) -> None:
@@ -2859,6 +2916,364 @@ def serve_path(torch, arch: str, batch: int, prompt: int, steps: int
     return launches
 
 
+def expect_launches(launches: dict, expect: dict, steps: int,
+                    label: str) -> None:
+    """Every kernel launched ``expect[name] * steps`` times, every other
+    one 0."""
+    for name, count in launches.items():
+        want = expect.get(name, 0) * steps
+        check(count == want, f"{label}: {name} launched {count} times, "
+                             f"want {want}")
+
+
+def client_model(torch, tc, arch: str = ARCH):
+    """The full ``arch`` as a user's ``nn.Module``: weights drawn from
+    ``tc.seed`` on the card, as ``PHubEngine.init_model`` draws them."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import DecoderLM
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(tc.seed)
+    return DecoderLM(get_arch(arch), device="cuda", generator=gen)
+
+
+def worker_grads(torch, model, tc, tokens, labels):
+    """One worker's loss and gradients, as an external loop takes them:
+    the module's forward, ``chunked_cross_entropy``, ``autograd.grad``."""
+    from repro_torch.models import chunked_cross_entropy
+    params = [p for _, p in model.named_parameters()]
+    x = model(tokens, remat=tc.remat)
+    loss = chunked_cross_entropy(x, model.lm_head_weight(), labels,
+                                 chunk=tc.loss_chunk)
+    return loss.detach(), torch.autograd.grad(loss, params)
+
+
+def client_path(torch, label: str, steps: int, fields: dict, pods: int,
+                flat: bool, dead, expect: dict, workers: int = WORKERS
+                ) -> dict:
+    """The external loop on the stacked Comm: full llama3.2-1b as a plain
+    ``nn.Module``, each worker's forward and backward on its slice of the
+    batch, the push stacked by the caller, and only ``PHubClient``:
+    ``push_pull`` (tree mode: the caller's ``(W, *leaf)`` push tree, the
+    parameters written in place) or ``push_pull_flat`` (the caller's own
+    ``(W, padded)`` rows, each worker's gradients flattened into its row,
+    and the parameters views of the flat store).  Returns the losses, the
+    parameters' fingerprint after every step, per-worker losses, step ms,
+    peak GiB and the launches."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import PHubClient, StackedComm, module_tree, nest
+    from repro_torch.core.chunking import leaf_paths
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.elastic import Membership
+
+    tc = TrainConfig(loss_chunk=min(1024, SEQ), **fields)
+    model = client_model(torch, tc)
+    client = PHubClient(tc, StackedComm(workers, pods),
+                        device="cuda").register(module_tree(model))
+    if dead is not None:
+        client.set_membership(Membership.full(workers).leave(dead))
+    opt = client.init_state()
+    names = [n for n, _ in model.named_parameters()]
+
+    def adopt(store):
+        views = dict(leaf_paths(client.unflatten(store)))
+        with torch.no_grad():
+            for path, p in leaf_paths(module_tree(model)):
+                p.data = views[path]
+
+    if flat:
+        pstore = client.flatten(module_tree(model))
+        adopt(pstore)
+        gstore = {k: torch.zeros((workers,) + v.shape, device="cuda")
+                  for k, v in pstore.items()}
+    else:
+        push = {n: torch.empty((workers,) + p.shape, device="cuda")
+                for n, p in model.named_parameters()}
+        grads_tree = nest(push.items())
+    data = SyntheticTokens(model.cfg, BATCH, SEQ, seed=tc.seed)
+    bw = BATCH // workers
+    losses, worker_losses, prints, step_ms, peaks = [], [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        batch = data.torch_batch(i, "cuda")
+        ls = []
+        for w in range(workers):
+            sl = slice(w * bw, (w + 1) * bw)
+            loss, grads = worker_grads(torch, model, tc,
+                                       batch["tokens"][sl],
+                                       batch["labels"][sl])
+            if flat:
+                client.flatten(nest(zip(names, grads)),
+                               out={k: v[w] for k, v in gstore.items()})
+            else:
+                for n, g in zip(names, grads):
+                    push[n][w].copy_(g)
+            del grads
+            ls.append(loss)
+        if flat:
+            pstore, opt = client.push_pull_flat(gstore, pstore, opt)
+            adopt(pstore)
+        else:
+            _, opt = client.push_pull(grads_tree, module_tree(model), opt)
+        losses.append(float(torch.stack(ls).mean()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        worker_losses.append([float(x) for x in ls])
+        prints.append(fingerprint(torch, model))
+        log(f"(g) client {label} step {i}: loss {losses[-1]!r}  "
+            f"{step_ms[-1]:.1f} ms  "
+            f"{BATCH * SEQ / (step_ms[-1] / 1e3):,.0f} tokens/s  peak "
+            f"{peaks[-1]:.2f} GiB")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    launches = all_launches()
+    expect_launches(launches, expect, steps, f"client {label}")
+    del model, client, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "worker_losses": worker_losses,
+            "prints": prints, "step_ms": step_ms, "peak_gib": peaks,
+            "launches": launches}
+
+
+def client_one_worker(torch, rule: str) -> dict:
+    """(g) W=1, full width: one worker's gradients on the whole batch,
+    ``push_pull`` against the tree-level ``make_optimizer`` update on the
+    same gradients: Nesterov and SGD bitwise (every leaf), Adam within
+    CLIENT_ADAM_ATOL.  The client's step (forward, backward, push_pull)
+    is timed; the reference update runs after it, on a copy of the
+    parameters taken before it."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import PHubClient, StackedComm, module_tree, nest
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.optim import make_optimizer
+
+    lr = {"adam": ADAM_LR, "sgd": SGD_LR}.get(rule)
+    tc = TrainConfig(loss_chunk=min(1024, SEQ), optimizer=rule,
+                     adam_eps=CLIENT_ADAM_EPS, **({"lr": lr} if lr else {}))
+    model = client_model(torch, tc)
+    names = [n for n, _ in model.named_parameters()]
+    p0 = nest((n, p.detach().clone()) for n, p in model.named_parameters())
+    client = PHubClient(tc, StackedComm(1), device="cuda").register(
+        module_tree(model))
+    opt = client.init_state()
+    batch = SyntheticTokens(model.cfg, BATCH, SEQ, seed=tc.seed
+                            ).torch_batch(0, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    loss, grads = worker_grads(torch, model, tc, batch["tokens"],
+                               batch["labels"])
+    _, opt = client.push_pull(nest(zip(names, (g[None] for g in grads))),
+                              module_tree(model), opt)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = all_launches()
+    del opt, client
+    gc.collect()
+    init, update = make_optimizer(tc)
+    ref, _ = update(p0, nest(zip(names, grads)), init(p0))
+    del grads, p0
+    from repro_torch.core.chunking import leaf_paths
+    got = dict(leaf_paths(module_tree(model)))
+    gap = 0.0
+    for path, want in leaf_paths(ref):
+        if rule == "adam":
+            gap = max(gap, float((got[path].detach() - want).abs().max()))
+        else:
+            check(torch.equal(got[path], want),
+                  f"(g) client W=1 {rule}: {path} differs from "
+                  f"make_optimizer's update")
+    if rule == "adam":
+        check(gap <= CLIENT_ADAM_ATOL,
+              f"(g) client W=1 adam: {gap} from make_optimizer's update, "
+              f"bound {CLIENT_ADAM_ATOL}")
+    print_after = fingerprint(torch, model)
+    log(f"(g) client W=1 {rule}: loss {float(loss)!r}  {ms:.1f} ms  "
+        f"{BATCH * SEQ / (ms / 1e3):,.0f} tokens/s  peak {peak:.2f} GiB "
+        f"(with the reference's copy of the parameters, 4.60 GiB); "
+        + (f"{gap!r} from make_optimizer's update (bound "
+           f"{CLIENT_ADAM_ATOL})" if rule == "adam" else
+           "every leaf bitwise equal to make_optimizer's update"))
+    del model, ref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": [float(loss)], "prints": [print_after],
+            "step_ms": [ms], "peak_gib": [peak], "launches": launches}
+
+
+def client_rank(comm, device):
+    """(h) a spawned rank: its own slice of the batch through the full
+    model, the (1, *leaf) push, ``PHubClient`` over its
+    ``ProcessGroupComm``, CLIENT_GLOO_STEPS steps.  Returns per step its
+    loss, the fingerprint, step ms (and the forward/backward's and
+    push_pull's parts, and the collectives' ms) and peak GiB, and its
+    launches."""
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import PHubClient, module_tree, nest
+    from repro_torch.data import SyntheticTokens
+
+    tc = TrainConfig(loss_chunk=min(1024, SEQ), chunk_size_bytes=DIST_CHUNK)
+    model = client_model(torch, tc)
+    names = [n for n, _ in model.named_parameters()]
+    client = PHubClient(tc, comm, device=device).register(
+        module_tree(model))
+    opt = client.init_state()
+    data = SyntheticTokens(model.cfg, BATCH, SEQ, seed=tc.seed)
+    bw = BATCH // comm.n_workers
+    sl = slice(comm.rank * bw, (comm.rank + 1) * bw)
+
+    def collective_s():
+        return sum(st["seconds"] for st in comm.stats.values())
+
+    out = {k: [] for k in ("loss", "print", "step_ms", "backward_ms",
+                           "push_pull_ms", "collective_ms", "peak_gib")}
+    reset_all_launches()
+    for i in range(CLIENT_GLOO_STEPS):
+        batch = data.torch_batch(i, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0, t0 = collective_s(), time.perf_counter()
+        loss, grads = worker_grads(torch, model, tc, batch["tokens"][sl],
+                                   batch["labels"][sl])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, opt = client.push_pull(nest(zip(names, (g[None] for g in grads))),
+                                  module_tree(model), opt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del grads
+        for k, v in (("loss", float(loss)), ("step_ms", (t2 - t0) * 1e3),
+                     ("backward_ms", (t1 - t0) * 1e3),
+                     ("push_pull_ms", (t2 - t1) * 1e3),
+                     ("collective_ms", (collective_s() - c0) * 1e3),
+                     ("peak_gib", torch.cuda.max_memory_allocated() / 2**30),
+                     ("print", fingerprint(torch, model))):
+            out[k].append(v)
+    out["launches"] = all_launches()
+    return out
+
+
+def client_phase(torch, runs: dict, bases: dict, count) -> None:
+    """13. The framework-agnostic client: (g) stacked, full llama3.2-1b
+    (``CLIENT_PATHS``), each path bitwise equal to the engine's run of
+    this call; W=1 against ``make_optimizer``; (h) gloo, GLOO_W ranks
+    sharing the card, against the stacked client at GLOO_W; the external
+    MLP loop of ``examples/torch_external_loop.py``."""
+    import importlib.util
+
+    from repro_torch.core import chunking
+    from repro_torch.core.pipeline import effective_windows
+    from repro_torch.launch import dist
+
+    t_phase = time.perf_counter()
+    for (label, steps, fields, pods, flat, dead, expect,
+         base) in CLIENT_PATHS:
+        run = client_path(torch, label, steps, fields, pods, flat, dead,
+                          expect)
+        count(f"client {label}", run["launches"])
+        hold_run(torch, f"client {label}", run, runs[base], steps)
+        eng = runs[base]
+        log(f"(g) client {label}: losses and parameters bitwise equal to "
+            f"the engine's {base} over {steps} step(s); launches "
+            f"{ {k: v for k, v in run['launches'].items() if v} }; step "
+            f"ms {[round(x, 3) for x in run['step_ms']]} against the "
+            f"engine's {[round(x, 3) for x in eng['step_ms'][:steps]]}, "
+            f"tokens/s "
+            f"{[round(BATCH * SEQ / (x / 1e3)) for x in run['step_ms']]} "
+            f"against "
+            f"{[round(BATCH * SEQ / (x / 1e3)) for x in eng['step_ms'][:steps]]}"
+            f", peak GiB {[round(x, 3) for x in run['peak_gib']]} against "
+            f"{[round(x, 3) for x in eng['peak_gib'][:steps]]}")
+    for rule, expect, base in CLIENT_W1:
+        run = client_one_worker(torch, rule)
+        expect_launches(run["launches"], expect, 1, f"client W=1 {rule}")
+        count(f"client W=1 {rule}", run["launches"])
+        if base is not None:
+            hold_run(torch, f"client W=1 {rule}", run, runs[base], 1)
+            eng = runs[base]
+            log(f"(g) client W=1 {rule}: also bitwise equal to the "
+                f"engine's {base} step; its step {eng['step_ms'][0]:.1f} "
+                f"ms, peak {eng['peak_gib'][0]:.2f} GiB")
+
+    # (h) across processes: the stacked client at GLOO_W first
+    steps = CLIENT_GLOO_STEPS
+    stacked = client_path(torch, f"W={GLOO_W} in 64 KB chunks", steps,
+                          {"chunk_size_bytes": DIST_CHUNK}, 1, False, None,
+                          {"multi_agg_opt_chunks": 1}, workers=GLOO_W)
+    hold_run(torch, f"client W={GLOO_W}", stacked, bases["nesterov"], steps)
+    count(f"client W={GLOO_W}", stacked["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = dist.run(client_rank, GLOO_W, "gloo", "cuda", DIST_TIMEOUT,
+                     timing=True)
+    for r, res in enumerate(ranks):
+        for i in range(steps):
+            check(res["loss"][i] == stacked["worker_losses"][i][r],
+                  f"(h) gloo rank {r} step {i}: loss {res['loss'][i]!r}, "
+                  f"the stacked client's worker {r} "
+                  f"{stacked['worker_losses'][i][r]!r}")
+            check(same_fingerprint(torch, res["print"][i],
+                                   stacked["prints"][i]),
+                  f"(h) gloo rank {r}: the parameters after step {i} "
+                  f"differ from the stacked client's")
+        expect_launches(res["launches"], {"multi_agg_opt_chunks": 1},
+                        steps, f"(h) gloo rank {r}")
+
+        def r1(k):
+            return [round(x, 1) for x in res[k]]
+        log(f"(h) client over gloo, rank {r} of {GLOO_W} on one card, "
+            f"{steps} steps: losses and parameters bitwise equal to the "
+            f"stacked client's (and the engine's stacked W={GLOO_W} "
+            f"steps); launches "
+            f"{ {k: v for k, v in res['launches'].items() if v} }; step ms "
+            f"{r1('step_ms')} (the first cold), tokens/s of the global "
+            f"batch {[round(BATCH * SEQ / (x / 1e3)) for x in res['step_ms']]}"
+            f"; forward and backward {r1('backward_ms')} ms, push_pull "
+            f"{r1('push_pull_ms')} ms of which collectives "
+            f"{r1('collective_ms')} ms; peak GiB "
+            f"{[round(x, 3) for x in res['peak_gib']]}; the stacked client "
+            f"{[round(x, 1) for x in stacked['step_ms']]} ms, "
+            f"{[round(x, 3) for x in stacked['peak_gib']]} GiB")
+    count(f"client gloo W={GLOO_W}, rank 0", ranks[0]["launches"])
+
+    # the external MLP loop, imported from the example
+    path = os.path.join(ROOT, "examples", "torch_external_loop.py")
+    spec = importlib.util.spec_from_file_location("torch_external_loop",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    (group,) = chunking.build_plan(
+        {"w": torch.empty(MLP_PARAMS, device="meta")},
+        chunk_bytes=MLP_CHUNK, n_shards=WORKERS).groups
+    launches_a_step = effective_windows(group, 2) * WORKERS
+    reset_all_launches()
+    t0 = time.perf_counter()
+    losses = mod.main(["--device", "cuda"])
+    ms = (time.perf_counter() - t0) * 1e3 / len(losses)
+    launches = all_launches()
+    check(all(math.isfinite(x) for x in losses), "the MLP loop's mse is "
+                                                 "not finite")
+    check(losses[-1] <= losses[0] / 4,
+          f"the MLP loop's mse fell from {losses[0]!r} to {losses[-1]!r}, "
+          f"less than 4x")
+    expect_launches(launches, {"adam_opt_chunks": launches_a_step},
+                    len(losses), "the external MLP loop")
+    count("client external MLP loop", launches)
+    log(f"(g) external MLP loop (examples/torch_external_loop.py, 4 "
+        f"stacked workers, Adam, {len(losses)} steps): mse "
+        f"{losses[0]!r} -> {losses[-1]!r} ({losses[0] / losses[-1]:.1f}x), "
+        f"adam_opt_chunks {launches['adam_opt_chunks']} launches "
+        f"({launches_a_step} a step), {ms:.3f} ms a step")
+    log(f"13. the client phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2952,9 +3367,7 @@ def main() -> None:
     # wire's windows: 3 quantizes and 2 dequantizes on each window's ring
     # hops, one of each for the pull, one tail launch a window
     S4 = WORKERS
-    int8_windows = {"quantize_chunks": 3 * WINDOWS_W4 + 1,
-                    "dequantize_chunks": 2 * WINDOWS_W4 + 1,
-                    "dequant_agg_opt_chunks": WINDOWS_W4}
+    int8_windows = INT8_W4_WINDOWS
     pipeline_paths = (
         (f"windows {WINDOWS_W4} flat W=4", WORKERS, STEPS, "nesterov",
          dict(pipeline_windows=WINDOWS_W4, flat_residency=True),
@@ -3037,6 +3450,7 @@ def main() -> None:
             f"{[round(x, 3) for x in mono['peak_gib'][:steps]]}")
     for arch, batch, prompt, steps in SERVE_PATHS + (SSM_SERVE_PATH,):
         count(f"serve {arch}", serve_path(torch, arch, batch, prompt, steps))
+    client_phase(torch, runs, bases, count)
     for k in kernels.values():
         if "tol" in k:            # checked against its tolerance above
             k["verdict"] = "within_tol"

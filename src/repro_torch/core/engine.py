@@ -6,30 +6,33 @@ The step for W workers stacked on one card (``core/comm.py``):
    (``torch.autograd.grad`` on the shared parameters) and its gradient is
    flattened into row w of a ``(W, padded)`` buffer per dtype group — one
    worker's autograd gradients are freed before the next worker runs;
-2. the exchange (``core/exchange.py``, ``TrainConfig.strategy``:
-   sharded_ps, hierarchical, allreduce or centralized_ps) runs the rule's
-   fused aggregate + update over that buffer, through its CUDA kernel:
-   Nesterov through ``agg_opt_chunks`` (W == 1) or ``multi_agg_opt_chunks``
-   (W > 1), SGD through ``sgd_opt_chunks`` and Adam through
-   ``adam_opt_chunks`` (any W); for W > 1 the kernel folds the
-   reduce-scatter's sum and the /W into the update (hierarchical: the
-   in-pod partials are added into each pod's first row first, and the
-   kernel sums the P partial rows and divides by N);
+2. the exchange runs the rule's fused aggregate + update over that buffer
+   through the engine's ``PHubClient`` (``core/client.py``: the engine is
+   its thin consumer, as the reference's is; ``exchange_flats`` holds the
+   dispatch over strategies, wires and windows): ``core/exchange.py``
+   (``TrainConfig.strategy``: sharded_ps, hierarchical, allreduce or
+   centralized_ps), through the rule's CUDA kernel: Nesterov through
+   ``agg_opt_chunks`` (W == 1) or ``multi_agg_opt_chunks`` (W > 1), SGD
+   through ``sgd_opt_chunks`` and Adam through ``adam_opt_chunks`` (any
+   W); for W > 1 the kernel folds the reduce-scatter's sum and the /W
+   into the update (hierarchical: the in-pod partials are added into each
+   pod's first row first, and the kernel sums the P partial rows and
+   divides by N);
 3. the new parameters are unflattened back into the module in place (the
    all-gather is a no-op on one card).
 
-Under an encoded wire (``TrainConfig.wire_format``, ``core/wire.py``) step
-2 is ``core/pipeline.py::run_wire_exchange`` instead: the ring partials
-hop the stacked workers encoded (inside each pod under hierarchical), the
-int8 tail runs through ``dequant_agg_opt_chunks`` (Nesterov, no cross-pod
-leg) or is decoded for the rule's kernel, the pull's parameter delta is
-encoded, and the parameters written back are p plus the decoded delta;
-the optimizer state then has one more slot, ``wire_ef``, last.  Under an
-encoded DCN tier (``TrainConfig.wire_format_dcn``, hierarchical only) with
-the identity ICI wire, step 2 is ``core/pipeline.py::run_dcn_exchange``:
-each pod's partial plus its residual crosses the pods encoded, and
-``wire_ef`` holds each pod's residual (``slot_shape``: P rows a shard on
-the stacked Comm).
+Under an encoded wire (``TrainConfig.wire_format``, ``core/wire.py``) the
+client's step 2 is the encoded exchange of ``core/pipeline.py``: the ring
+partials hop the stacked workers encoded (inside each pod under
+hierarchical), the int8 tail runs through ``dequant_agg_opt_chunks``
+(Nesterov, no cross-pod leg) or is decoded for the rule's kernel, the
+pull's parameter delta is encoded, and the parameters written back are p
+plus the decoded delta; the optimizer state then has one more slot,
+``wire_ef``, last.  Under an encoded DCN tier
+(``TrainConfig.wire_format_dcn``, hierarchical only) with the identity
+ICI wire, each pod's partial plus its residual crosses the pods encoded,
+and ``wire_ef`` holds each pod's residual (``PHubClient.slot_shape``: P
+rows a shard on the stacked Comm).
 
 PHub's gradient processing pipeline (``TrainConfig``'s
 ``pipeline_windows``, ``flat_residency``, ``overlap_backward``;
@@ -109,77 +112,43 @@ from ..configs.base import ModelConfig, TrainConfig
 from ..kernels.agg_opt.ops import fused_health_scan
 from ..kernels.agg_opt.ref import sqrt_rn
 from ..models import DecoderLM, chunked_cross_entropy, param_specs
-from ..optim.protocol import make_sharded_optimizer
 from . import chunking
+from .client import PHubClient
 from .comm import require_stacked
-from .exchange import check_strategy, check_wire
-from .pipeline import (check_pipeline, run_chunk_ready_exchange,
-                       run_dcn_exchange, run_exchange, run_wire_exchange)
-from .wire import (WIRE_EF_SLOT, exchange_extra_slots, make_dcn_wire_format,
-                   make_wire_format)
+from .exchange import check_strategy
+from .pipeline import check_pipeline
 
 
 class PHubEngine:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, comm, *,
                  device="cuda"):
-        self.wire = make_wire_format(tc)
-        self.wire_dcn = make_dcn_wire_format(tc)
         check_pipeline(tc)
         check_strategy(tc.strategy)
         self.cfg, self.tc, self.comm = cfg, tc, comm
         self.device = torch.device(device)
-        self.sopt = make_sharded_optimizer(tc)
-        check_wire(tc.strategy, self.wire, self.wire_dcn)
-        self.exchange_slots = (self.sopt.slots
-                               + exchange_extra_slots(self.wire,
-                                                      self.wire_dcn))
-        self.chunk_plan = chunking.build_plan(
-            param_specs(cfg), chunk_bytes=tc.chunk_size_bytes,
-            n_shards=comm.n_shards(tc.strategy))
+        # the exchange, its slots and its buffers are the client's
+        self.client = PHubClient(tc, comm, device=device).register(
+            param_specs(cfg))
+        self.chunk_plan = self.client.plan
+        self.sopt = self.client.sopt
+        self.wire, self.wire_dcn = self.client.wire, self.client.wire_dcn
+        self.exchange_slots = self.client.exchange_slots
         self.store_layout = chunking.build_store_layout(self.chunk_plan, {},
                                                         1)
-        self._gbuf = None
         self._side = None
 
     # ------------------------------------------------------------------ state
 
-    def local_shards(self) -> int:
-        """Shards whose state this process keeps: every one on the stacked
-        Comm, the one a rank owns over a process group (under
-        centralized_ps rank 0, the PS, keeps the one shard and the other
-        ranks none)."""
-        st = self.tc.strategy
-        if self.comm.local_workers() == self.comm.n_workers:
-            return self.comm.n_shards(st)
-        if st == "centralized_ps":
-            return 1 if self.comm.rank == 0 else 0
-        return 1
-
     def slot_shape(self, group, spec) -> tuple[int, int]:
-        """(rows, state_len) of slot ``spec`` of ``group`` in this
-        process: ``local_shards`` rows, or for the DCN tier's ``wire_ef``
-        (each pod's residual: an encoded DCN tier under the identity ICI
-        wire) on the stacked Comm one row a (pod, shard), pod-major."""
-        rows = self.local_shards()
-        if (spec.name == WIRE_EF_SLOT and self.wire_dcn is not None
-                and not self.wire.error_feedback
-                and self.comm.local_workers() == self.comm.n_workers):
-            rows *= self.comm.pods
-        return rows, self.comm.state_len(self.tc.strategy, group.padded)
+        """(rows, state_len) of one slot in this process
+        (``PHubClient.slot_shape``)."""
+        return self.client.slot_shape(group, spec)
 
     def init_opt(self) -> dict:
-        """Zero optimizer slots: {dtype_name: {slot_name: (S, state_len)}},
-        row s the state of the chunks shard s owns (over a process group
-        one row, this rank's shard); as many slots as the
-        rule declares (Nesterov 1, SGD 0, Adam 4) and, under an encoded
-        wire or DCN tier, ``wire_ef`` last (``slot_shape``: the DCN tier's
-        is per pod), each in its own dtype (Adam's k1/k2 and ``wire_ef``
-        are f32 in every group)."""
-        return {g.key: {s.name: torch.zeros(
-                            self.slot_shape(g, s),
-                            dtype=s.resolve_dtype(g.dtype), device=self.device)
-                        for s in self.exchange_slots}
-                for g in self.chunk_plan.groups}
+        """Zero optimizer slots (``PHubClient.init_state``): {dtype_name:
+        {slot_name: (rows, state_len)}}, ``wire_ef`` last under an encoded
+        wire or DCN tier."""
+        return self.client.init_state()
 
     def init_model(self, seed: int | None = None) -> DecoderLM:
         """Fresh weights drawn from ``seed`` (default ``tc.seed``), resident
@@ -220,9 +189,7 @@ class PHubEngine:
         """{dtype_name: (padded,)} parameters for the exchange: the store's
         row under flat residency, a fresh flatten of the tree otherwise."""
         if not self.tc.flat_residency:
-            with torch.no_grad():
-                return chunking.flatten_groups(self.chunk_plan,
-                                               model.param_tree())
+            return self.client.flatten(model.param_tree())
         if model.flat_store is None:
             raise ValueError("flat_residency: the model's parameters are not "
                              "views of a flat store; pass it through "
@@ -236,12 +203,7 @@ class PHubEngine:
             self._adopt_store(model, {k: v.view(1, -1)
                                       for k, v in new_p.items()})
             return
-        leaves = dict(chunking.leaf_paths(model.param_tree()))
-        with torch.no_grad():
-            for g in self.chunk_plan.groups:
-                for path, new in chunking.group_leaves(
-                        g, new_p.pop(g.key)).items():
-                    leaves[path].copy_(new)
+        self.client.write_params(model.param_tree(), new_p)
 
     # ------------------------------------------------------------ train step
 
@@ -257,45 +219,16 @@ class PHubEngine:
 
     def update_fn(self, group):
         """The fused agg+opt for one dtype group, through the rule's CUDA
-        kernel."""
-        return self.sopt.kernel_update(group.chunk_elems,
-                                       self.sopt.coefs(self.tc))
-
-    def fused_dequant(self, group, n_live=None):
-        """The int8 wire's tail kernel for one group (decode + own rows +
-        mean + rule), or None: another wire, or a rule without one.  A
-        static live count ``n_live`` (a number) is baked in as
-        ``1/n_live``, as the reference's ``_fused_dequant`` does; the
-        gate's (a tensor on the card) goes to the kernel's divisor at the
-        call."""
-        if not self.wire.has_scales:
-            return None
-        n = n_live if isinstance(n_live, (int, float)) else \
-            self.comm.n_workers
-        return self.sopt.kernel_dequant_update(
-            group.chunk_elems, self.sopt.coefs(self.tc), 1.0 / n)
-
-    def _wire_args(self, group, opt, n_live) -> dict:
-        """The encoded-wire (or DCN tier's) arguments of one group's
-        exchange."""
-        args = dict(wire_dcn=self.wire_dcn,
-                    residual=opt[group.key][WIRE_EF_SLOT].view(-1))
-        if self.wire.error_feedback:
-            args.update(wire=self.wire,
-                        fused_dequant=self.fused_dequant(group, n_live))
-        return args
+        kernel (``PHubClient.update_fn``)."""
+        return self.client.update_fn(group)
 
     def grad_buffers(self) -> dict:
         """The stacked gradient buffers {dtype_name: (W, padded)} (one row
-        over a process group), allocated once and shared by every step
-        function of this engine (a step of another membership reuses
-        them); the chunk-ready windows read their strips in place."""
-        if self._gbuf is None:
-            W = self.comm.local_workers()
-            self._gbuf = {g.key: torch.zeros((W, g.padded), dtype=g.dtype,
-                                             device=self.device)
-                          for g in self.chunk_plan.groups}
-        return self._gbuf
+        over a process group): the client's, allocated once and shared by
+        every step function of this engine (a step of another membership
+        reuses them); the chunk-ready windows read their strips in
+        place."""
+        return self.client.grad_buffers()
 
     def side_stream(self):
         """The CUDA stream the chunk-ready windows run on (one per engine),
@@ -305,26 +238,6 @@ class PHubEngine:
         if self._side is None:
             self._side = torch.cuda.Stream(device=self.device)
         return self._side
-
-    def elastic_mask(self, membership):
-        """(mask, n_live) for an elastic membership, or (None, None) on
-        the static full-rack path: the all-live case runs the same step as
-        no membership at all."""
-        if membership is None or membership.all_live:
-            return None, None
-        membership.validate_world(self.comm.n_workers)
-        membership.require_quorum()
-        return membership.mask(), float(membership.n_live)
-
-    def _masked_grads(self, gbuf: dict, mask: np.ndarray) -> None:
-        """The k-of-n push gate: zero every excluded worker's row that this
-        process holds in place, so it adds exactly nothing to the worker
-        sum."""
-        first = self.comm.rank * self.comm.local_workers()
-        for w in np.nonzero(mask == 0)[0]:
-            if first <= w < first + self.comm.local_workers():
-                for v in gbuf.values():
-                    v[w - first].zero_()
 
     def grad_sumsq(self, gbuf: dict) -> torch.Tensor:
         """(W,) f32 sum of squares of each worker's whole push through the
@@ -365,51 +278,10 @@ class PHubEngine:
 
     def exchange_stage(self, gbuf: dict, flats_p: dict, opt: dict,
                        n_live=None, ready=None):
-        """Run the exchange per dtype group on the stacked gradients
-        ``gbuf`` ({dtype_name: (W, padded)}) and the flat parameters
-        ``flats_p`` ({dtype_name: (padded,)}, consumed).  ``n_live`` (a
-        number: a static membership over an encoded wire; or a 0-dim
-        tensor on the card) divides the worker sum instead of W.
-        ``ready``: {dtype_name: ChunkReadyExchange} of the groups whose
-        windows were dispatched during the backward; they are finished
-        here.  Returns ({dtype_name: p'}, the new optimizer
-        state).  A rule whose kernel updates its slots in place (Adam, and
-        every rule in windows) returns the tensors of ``opt`` themselves."""
-        cp = self.chunk_plan
-        names = self.sopt.slot_names
-        encoded = self.wire.error_feedback or self.wire_dcn is not None
-        new_p, new_opt = {}, {}
-        with torch.no_grad():
-            for g in cp.groups:
-                slots = tuple(opt[g.key][n].view(-1) for n in names)
-                p = flats_p.pop(g.key)
-                if ready and g.key in ready:
-                    p2, s2, *r2 = ready[g.key].finish()
-                elif self.wire.error_feedback:
-                    p2, s2, *r2 = run_wire_exchange(
-                        self.tc.strategy, self.comm, gbuf[g.key], p, slots,
-                        self.update_fn(g), g,
-                        windows=self.tc.pipeline_windows, n_live=n_live,
-                        **self._wire_args(g, opt, n_live))
-                elif encoded:
-                    p2, s2, *r2 = run_dcn_exchange(
-                        self.tc.strategy, self.comm, gbuf[g.key], p, slots,
-                        self.update_fn(g), g,
-                        windows=self.tc.pipeline_windows, n_live=n_live,
-                        **self._wire_args(g, opt, n_live))
-                else:
-                    p2, s2 = run_exchange(self.tc.strategy, self.comm,
-                                          gbuf[g.key], p, slots,
-                                          self.update_fn(g), g,
-                                          self.tc.pipeline_windows, n_live)
-                del p
-                new_p[g.key] = p2
-                new_opt[g.key] = {n: v.view(opt[g.key][n].shape)
-                                  for n, v in zip(names, s2)}
-                if encoded:
-                    new_opt[g.key][WIRE_EF_SLOT] = r2[0].view(
-                        opt[g.key][WIRE_EF_SLOT].shape)
-        return new_p, new_opt
+        """The exchange of one step: ``PHubClient.exchange_flats`` with
+        this engine's ``update_fn``."""
+        return self.client.exchange_flats(gbuf, flats_p, opt, n_live, ready,
+                                          update_fn=self.update_fn)
 
     def _chunk_ready_backward(self, loss, paths, leaves, gbuf, flats_p, opt,
                               n_live) -> dict:
@@ -421,18 +293,13 @@ class PHubEngine:
         ChunkReadyExchange} for ``exchange_stage``; a group with one
         effective window is not in it and exchanges after the backward."""
         last = self.comm.n_workers - 1
-        names = self.sopt.slot_names
         ready, where = {}, {}
         for g in self.chunk_plan.groups:
             row = gbuf[g.key][last]
             row[g.total:].zero_()
-            slots = tuple(opt[g.key][n].view(-1) for n in names)
-            ex = run_chunk_ready_exchange(
-                self.tc.strategy, self.comm, gbuf[g.key], flats_p[g.key],
-                slots, self.update_fn(g), g, self.tc.pipeline_windows,
-                n_live, self.side_stream(),
-                **(self._wire_args(g, opt, n_live)
-                   if WIRE_EF_SLOT in opt[g.key] else {}))
+            ex = self.client.chunk_ready(g, gbuf, flats_p[g.key], opt,
+                                         n_live, self.side_stream(),
+                                         update_fn=self.update_fn)
             if ex is not None:
                 ready[g.key] = ex
             for i, (path, off) in enumerate(zip(
@@ -479,16 +346,13 @@ class PHubEngine:
             require_stacked(self.comm, "chunk-ready dispatch")
         cp = self.chunk_plan
         loss_fn = self.build_loss_fn()
-        mask, live = self.elastic_mask(membership)
+        mask, live = self.client.elastic_mask(membership)
         # built once: a copy to the card in the step would make the host
         # wait for the backward before it queues the exchange
         mask_t = divisor = None
         if mask is not None:
             mask_t = torch.from_numpy(mask).to(self.device)
-            # an encoded wire's static count goes by value (the int8 tail
-            # kernel bakes 1/n_live), the identity rules' on the card
-            divisor = (live if self.wire.error_feedback
-                       else torch.tensor(live, device=self.device))
+            divisor = self.client.live_divisor(live)
         # chunk-ready dispatch needs the last worker's push to join as it
         # is: the gate judges the whole backward, and an excluded worker's
         # row must stay zero
@@ -520,7 +384,7 @@ class PHubEngine:
                                                      mask_t)
                 metrics.update(ok_mask=ok, grad_norms=norms, n_live=n_live)
             elif mask is not None:
-                self._masked_grads(gbuf, mask)
+                self.client.mask_rows(gbuf, mask)
             flats_p = self._flat_params(model)
             ready = None
             if chunk_ready:

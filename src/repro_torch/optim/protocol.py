@@ -19,7 +19,9 @@ place).  It returns ``(p', slots')``; Adam's kernel updates its slots in
 place and returns the same tensors.  ``update_fn(..., p_out=buf)`` is the
 windowed exchange's form (``core/pipeline.py``): p' is written into
 ``buf`` and every slot is updated in place.  ``tuple_update`` closes
-the plain rule over its coefficients, for a pre-aggregated ``g``.
+the plain rule over its coefficients, for a pre-aggregated ``g``;
+``tree_init`` and ``tree_update`` apply it leaf by leaf over a nested dict
+of tensors (``optim/api.py``'s single-process oracle).
 ``kernel_dequant_update`` is the counterpart of ``pallas_dequant_update``:
 the int8 wire's tail (decode the ring partial, add the owner's own rows,
 take the mean, run the rule) in one kernel, ``dequant_agg_opt_chunks``
@@ -238,3 +240,37 @@ def tuple_update(opt: ShardedOptimizer, coefs: tuple) -> Callable:
     def upd(p, g, slots):
         return opt.update(p, g, slots, coefs)
     return upd
+
+
+# ------------------------------------------------------- tree-level API
+
+def _tree_map(fn: Callable, tree: dict, *rest: dict) -> dict:
+    """``fn`` leaf by leaf over nested dicts of one structure."""
+    return {k: (_tree_map(fn, v, *(r[k] for r in rest))
+                if isinstance(v, dict) else fn(v, *(r[k] for r in rest)))
+            for k, v in tree.items()}
+
+
+def tree_init(opt: ShardedOptimizer, params: dict) -> dict:
+    """{slot_name: tree of zeros like ``params``}, each leaf in its slot's
+    dtype: the tree-level state."""
+    return {s.name: _tree_map(
+                lambda p, s=s: torch.zeros(p.shape,
+                                           dtype=s.resolve_dtype(p.dtype),
+                                           device=p.device), params)
+            for s in opt.slots}
+
+
+def tree_update(opt: ShardedOptimizer, coefs: tuple, params: dict,
+                grads: dict, state: dict):
+    """The protocol rule leaf by leaf over nested dicts (the reference,
+    non-exchange path; the single-process oracle the chunk exchange is
+    held against).  Returns (params', state')."""
+    names = opt.slot_names
+    with torch.no_grad():
+        out = _tree_map(lambda p, g, *slots: opt.update(p, g, slots, coefs),
+                        params, grads, *(state[n] for n in names))
+    new_p = _tree_map(lambda t: t[0], out)
+    new_state = {n: _tree_map(lambda t, i=i: t[1][i], out)
+                 for i, n in enumerate(names)}
+    return new_p, new_state

@@ -9,7 +9,7 @@ import sys
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, importlib.util, json, pkgutil, sys
 sys.path.insert(0, sys.argv[1])
 sys.path.insert(0, sys.argv[2])
 import repro_torch
@@ -18,23 +18,30 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+spec = importlib.util.spec_from_file_location(
+    "torch_external_loop", sys.argv[3])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
 
+EXAMPLE = os.path.join(ROOT, "examples", "torch_external_loop.py")
+
 
 def test_port_imports_no_jax_and_no_repro():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
-        [sys.executable, "-c", PROBE, os.path.join(ROOT, "src"), ROOT],
+        [sys.executable, "-c", PROBE, os.path.join(ROOT, "src"), ROOT,
+         EXAMPLE],
         capture_output=True, text=True, env=env, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("kernels.agg_opt.ops", "core.engine", "elastic.chaos",
                  "elastic.membership", "resilience.supervisor",
                  "resilience.watchdog", "checkpoint.checkpointer",
                  "kernels.swa_attn.ops", "kernels.decode_attn.ops",
-                 "kernels.rwkv_scan.ops", "models.rwkv", "launch.serve"):
+                 "kernels.rwkv_scan.ops", "models.rwkv", "launch.serve",
+                 "core.client", "optim.api", "optim.sgd", "optim.adam"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
@@ -42,11 +49,12 @@ def test_port_imports_no_jax_and_no_repro():
 def test_entry_points_default_to_cuda():
     from repro_torch.convert import (cache_from_numpy, opt_from_numpy,
                                      params_from_numpy)
-    from repro_torch.core import PHubEngine
+    from repro_torch.core import PHubClient, PHubEngine
     from repro_torch.data import SyntheticTokens
     from repro_torch.models import DecoderLM, init_cache
 
     for fn, arg in ((PHubEngine.__init__, "device"),
+                    (PHubClient.__init__, "device"),
                     (DecoderLM.__init__, "device"),
                     (SyntheticTokens.torch_batch, "device"),
                     (params_from_numpy, "device"),
@@ -66,3 +74,5 @@ def test_entry_points_default_to_cuda():
         src = open(os.path.join(ROOT, "src", "repro_torch", "launch",
                                 launcher)).read()
         assert 'ap.add_argument("--device", default="cuda")' in src, launcher
+    assert 'ap.add_argument("--device", default="cuda")' in open(
+        EXAMPLE).read()
