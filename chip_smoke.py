@@ -253,7 +253,36 @@
    step is cold), bitwise equal to the stacked client at W=2 after each
    (and to the engine's stacked W=2 steps).  Step ms,
    tokens/s and peak GiB of every path beside the engine's.
-14. Prints the kernels line, then the device line last.
+14. PHub's multi-tenant rack (``core/api.py::PHubConnectionManager``,
+   ``co_phase``, ``CO_PATHS``): tenant A is the full llama3.2-1b at the
+   TrainConfig defaults (Nesterov, lr 1e-2, momentum 0.9, seed 0: the main
+   paths' weights and data), tenant B llama3.2-1b at full width and 4
+   layers (lr 1e-2 / 3, momentum 0.8, seed 1), batch 8 x 512 each, both
+   attached to one packed rack chunk domain and stepped by ``co_step``,
+   2 steps unless named:
+   (i) stacked W=4 in one window and in 5, hierarchical 2 pods x 2, W=4
+   with worker 3 left (``leave(3)``), B under SGD (W=4), B under Adam
+   (W=2), W=1 (1 step): each tenant equal to its solo run of this call
+   bitwise (losses and the fingerprint after every step; A's solo runs
+   are the main paths' where they exist), each rule's kernel launched
+   once on each (window strip, tenant run) that meet (``tenant_launches``
+   predicts the counts from the layout); the int8 wire in 5 windows
+   bitwise equal to itself in one (16 quantize_chunks, 11
+   dequantize_chunks and one dequant_agg_opt_chunks a (window row,
+   tenant run) a step), and each tenant after one step within
+   CO_INT8_BOUND of its solo int8 run (the packed layout moves a tenant's
+   chunks to other owner shards, whose ring starts at another worker); the
+   lifecycle (A 2 solo steps, attached with its momentum, 2 co-steps,
+   detached, 2 solo steps) bitwise equal to 6 solo steps;
+   ``launch/train.py --tenants 2 --workers 2 --steps 2`` on the full model
+   (4 multi_agg_opt_chunks launches a step); gloo, 2 processes on cuda:0,
+   reduced tenants, bitwise equal to ``StackedComm(2)``'s co-step.  Step
+   ms, aggregate tokens/s and peak GiB beside the solo steps', the packed
+   layout and ``accounting()`` (model bytes, domain share, push and pull
+   bytes a step).  Then each kernel of the co-step on a tenant run of the
+   packed domain (``co_kernel_phase``), bitwise against its plain version
+   and timed beside the run's bytes bound.
+15. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 card and refuses to run without one.
@@ -1544,6 +1573,17 @@ def same_fingerprint(torch, a: list, b: list) -> bool:
         for (pa, sa, ia, xa), (pb, sb, ib, xb) in zip(a, b))
 
 
+def path_tc(optimizer: str, wire: str, fields: dict):
+    """A main path's TrainConfig: ``loss_chunk`` at most the sequence, the
+    rule's lr (Adam ADAM_LR, SGD SGD_LR, Nesterov the default) and
+    ``fields``."""
+    from repro_torch.configs import TrainConfig
+    lr = {"adam": ADAM_LR, "sgd": SGD_LR}.get(optimizer)
+    return TrainConfig(loss_chunk=min(1024, SEQ), optimizer=optimizer,
+                       wire_format=wire, **({"lr": lr} if lr else {}),
+                       **fields)
+
+
 def main_path(torch, workers: int, steps: int, expect: dict,
               optimizer: str = "nesterov", wire: str = "identity",
               faults=None, pipeline=None, arch: str = ARCH,
@@ -1569,7 +1609,7 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     fingerprint before and after every step, step ms, peak GiB, the
     exchange's and collectives' ms a step and the Comm's calls, bytes and
     seconds per operation over the run."""
-    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.configs import get_arch
     from repro_torch.core import PHubEngine, StackedComm
     from repro_torch.core.chunking import leaf_paths
     from repro_torch.data import SyntheticTokens
@@ -1583,11 +1623,8 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     cfg = get_arch(arch)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    lr = {"adam": ADAM_LR, "sgd": SGD_LR}.get(optimizer)
     from repro_torch.core.pipeline import effective_windows
-    tc = TrainConfig(loss_chunk=min(1024, SEQ), optimizer=optimizer,
-                     wire_format=wire, **({"lr": lr} if lr else {}),
-                     **(pipeline or {}))
+    tc = path_tc(optimizer, wire, pipeline or {})
     engine = PHubEngine(cfg, tc, comm or StackedComm(workers, pods),
                         device="cuda")
     where = (f"rank {comm.rank} of {workers} ({comm.backend}) "
@@ -3274,6 +3311,553 @@ def client_phase(torch, runs: dict, bases: dict, count) -> None:
     log(f"13. the client phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# 14. PHub's multi-tenant rack (``core/api.py::PHubConnectionManager``):
+# tenant A the full llama3.2-1b at the TrainConfig defaults (Nesterov, lr
+# 1e-2, momentum 0.9, seed 0: the data and weights of the main paths), B
+# llama3.2-1b at full width and CO_B_LAYERS layers (lr / 3, momentum 0.8,
+# seed 1).  (label, workers, pods, the tenants' TrainConfig fields {ns:
+# (rule, wire, fields)}, steps, a static dead worker, the pipeline windows,
+# the solo runs of ``runs`` (or None: run here) each tenant equals)
+CO_B_LAYERS, CO_STEPS, CO_DEAD = 4, 2, 3
+_CO_B = dict(lr=1e-2 / 3, momentum=0.8, seed=1)
+CO_PATHS = (
+    ("W=4", WORKERS, 1, {"A": ("nesterov", "identity", {}),
+                         "B": ("nesterov", "identity", _CO_B)},
+     CO_STEPS, None, 1, {"A": "nesterov W=4", "B": "co B W=4"}),
+    (f"W=4 in {WINDOWS_W4} windows", WORKERS, 1,
+     {"A": ("nesterov", "identity", dict(pipeline_windows=WINDOWS_W4)),
+      "B": ("nesterov", "identity", dict(_CO_B,
+                                         pipeline_windows=WINDOWS_W4))},
+     CO_STEPS, None, WINDOWS_W4, {"A": "nesterov W=4", "B": "co B W=4"}),
+    ("hierarchical 2x2", WORKERS, PODS,
+     {"A": ("nesterov", "identity", HIER),
+      "B": ("nesterov", "identity", dict(_CO_B, **HIER))},
+     CO_STEPS, None, 1, {"A": "nesterov hierarchical 2x2",
+                         "B": "co B hierarchical 2x2"}),
+    (f"W=4, worker {CO_DEAD} dead", WORKERS, 1,
+     {"A": ("nesterov", "identity", {}),
+      "B": ("nesterov", "identity", _CO_B)}, CO_STEPS, CO_DEAD, 1,
+     {"A": f"co A W=4, worker {CO_DEAD} dead",
+      "B": f"co B W=4, worker {CO_DEAD} dead"}),
+    ("W=4, B under SGD", WORKERS, 1,
+     {"A": ("nesterov", "identity", {}),
+      "B": ("sgd", "identity", dict(seed=1))}, CO_STEPS, None, 1,
+     {"A": "nesterov W=4", "B": "co B sgd W=4"}),
+    ("W=2, B under Adam", 2, 1,
+     {"A": ("nesterov", "identity", {}),
+      "B": ("adam", "identity", dict(seed=1))}, CO_STEPS, None, 1,
+     {"A": "nesterov stacked W=2", "B": "co B adam W=2"}),
+    ("W=1", 1, 1, {"A": ("nesterov", "identity", {}),
+                   "B": ("nesterov", "identity", _CO_B)}, 1, None, 1,
+     {"A": "nesterov W=1", "B": "co B W=1"}),
+)
+# the int8 wire: the co-step in CO_INT8_WINDOWS windows against itself in
+# one (bitwise), and each tenant against its solo int8 run within
+# CO_INT8_BOUND of the step's largest change: the packed layout puts a
+# tenant's chunks on other owner shards than its solo layout, whose ring
+# starts at another worker, so the re-quantized partials differ by steps
+# of the int8 grid (1/127 of a chunk's peak)
+CO_INT8_WINDOWS, CO_INT8_BOUND = WINDOWS_W4, 0.02
+CO_LIFECYCLE = (2, 2, 2)         # A solo, co-scheduled, solo again
+CO_GLOO_W, CO_GLOO_CHUNK, CO_GLOO_SEQ = 2, 24 * 1024, 64
+
+
+def tenant_launches(domain, windows: int, kernels: dict) -> dict:
+    """Each kernel's launches a step of a co-scheduled exchange: one per
+    (window strip of a shard, tenant run) that meet; ``kernels``: {tenant:
+    its rule's kernel}."""
+    out: dict = {}
+    for g in domain.groups.values():
+        L = g.shard_len
+        Lw = L // windows
+        for s in g.slots:
+            for _, off, n in s.runs:
+                for j in range(g.n_shards):
+                    for w in range(windows):
+                        lo = j * L + w * Lw
+                        if off < lo + Lw and lo < off + n:
+                            name = kernels[s.tenant]
+                            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def co_configs(tenants: dict) -> dict:
+    """{ns: (ModelConfig, TrainConfig)} of ``CO_PATHS``' tenant fields,
+    the TrainConfig as ``main_path`` builds it."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch(ARCH)
+    return {ns: (cfg if ns == "A" else dataclasses.replace(
+                     cfg, n_layers=CO_B_LAYERS),
+                 path_tc(rule, wire, fields))
+            for ns, (rule, wire, fields) in tenants.items()}
+
+
+def co_run(torch, label: str, comm, configs: dict, steps: int,
+           dead=None, lifecycle=None, device="cuda") -> dict:
+    """Two tenants co-scheduled by a ``PHubConnectionManager`` over
+    ``comm`` for ``steps`` steps, each on its own data (``SyntheticTokens``
+    from its seed, batch BATCH x SEQ): per tenant its losses and the
+    fingerprint after every step, step ms, peak GiB, the launches, the
+    packed domain and ``accounting()``.  ``lifecycle``: (s1, s2, s3):
+    tenant A trains s1 solo steps first, attaches with its momentum, the
+    pair co-steps s2, and A detaches and trains s3 solo steps."""
+    from repro_torch.core import PHubConnectionManager
+    from repro_torch.data import SyntheticTokens
+
+    cm = PHubConnectionManager()
+    hs, models, data = [], {}, {}
+    for ns, (cfg, tc) in configs.items():
+        h = cm.create_service(ns, cfg, tc, comm, device=device)
+        models[ns] = cm.init_service(h)[0]
+        data[ns] = SyntheticTokens(cfg, BATCH, SEQ, seed=tc.seed)
+        hs.append(h)
+    if dead is not None:
+        cm.leave(dead)
+    out = {ns: {"losses": [], "prints": []} for ns in configs}
+    hA = hs[0]
+    s1, steps, s3 = lifecycle or (0, steps, 0)
+    optA = cm.connect_service(hA).init_opt() if s1 else None
+    for i in range(s1):
+        models["A"], optA, met = cm.push_pull(
+            hA, models["A"], optA, data["A"].torch_batch(i, device))
+        out["A"]["losses"].append(float(met["loss"]))
+        out["A"]["prints"].append(fingerprint(torch, models["A"]))
+    cm.attach_services(hs, {"A": optA} if s1 else None)
+    del optA
+    dom = cm.packed_domain
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    step_ms, peaks = [], []
+    for i in range(steps):
+        batches = {ns: data[ns].torch_batch(s1 + i if ns == "A" else i,
+                                            device) for ns in configs}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models, met = cm.co_step(hs, models, batches)
+        losses = {ns: float(m["loss"]) for ns, m in met.items()}
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        for ns in configs:
+            out[ns]["losses"].append(losses[ns])
+            out[ns]["prints"].append(fingerprint(torch, models[ns]))
+        log(f"(i) {label} co-step {i}: losses {losses}  {step_ms[-1]:.1f} ms"
+            f"  {len(configs) * BATCH * SEQ / (step_ms[-1] / 1e3):,.0f} "
+            f"aggregate tokens/s  peak {peaks[-1]:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+    launches = all_launches()
+    acct = cm.accounting()
+    if s1:
+        optA = cm.detach_service(hA)
+        cm.detach_service(hs[1])
+        for i in range(s1 + steps, s1 + steps + s3):
+            models["A"], optA, met = cm.push_pull(
+                hA, models["A"], optA, data["A"].torch_batch(i, device))
+            out["A"]["losses"].append(float(met["loss"]))
+            out["A"]["prints"].append(fingerprint(torch, models["A"]))
+        del optA
+    res = {"tenants": out, "step_ms": step_ms, "peak_gib": peaks,
+           "launches": launches, "domain": dom, "accounting": acct}
+    del models, cm, hs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def co_note(run: dict) -> str:
+    dom = run["domain"]
+    acct = {ns: {"model_bytes": a["model_bytes"],
+                 "domain_share": round(a["domain_share"], 6),
+                 "push_bytes_a_step": a["per_step"]["push_bytes"],
+                 "pull_bytes_a_step": a["per_step"]["pull_bytes"],
+                 "wire_push_bytes_a_step": a["per_step"]["wire_push_bytes"]}
+            for ns, a in run["accounting"].items()}
+    return (f"packed domain "
+            + ", ".join(f"{k}: {g.padded:,} ({g.n_shards} shards of "
+                        f"{g.chunks_per_shard} chunks, chunks a shard "
+                        f"{dom.shard_loads(k)})"
+                        for k, g in dom.groups.items())
+            + f"; co-step ms {[round(x, 3) for x in run['step_ms']]}, "
+            f"aggregate tokens/s "
+            f"{[round(2 * BATCH * SEQ / (x / 1e3)) for x in run['step_ms']]}"
+            f", peak GiB {[round(x, 3) for x in run['peak_gib']]}; "
+            f"launches { {k: v for k, v in run['launches'].items() if v} }"
+            f"; accounting {acct}")
+
+
+def hold_tenant(torch, label: str, got: dict, solo: dict, steps: int,
+                first: int = 0) -> None:
+    """A co-scheduled tenant's losses and fingerprints equal to its solo
+    run's steps first .. first+steps-1, bitwise."""
+    check(got["losses"][first:first + steps] ==
+          solo["losses"][first:first + steps],
+          f"{label}: losses {got['losses']} differ from the solo run's "
+          f"{solo['losses']}")
+    for i in range(first, first + steps):
+        check(same_fingerprint(torch, got["prints"][i], solo["prints"][i]),
+              f"{label}: the parameters after step {i} differ from the "
+              f"solo run's")
+
+
+def co_solo(torch, runs: dict, key: str, label: str, W: int, pods: int,
+            rule: str, wire: str, fields: dict, steps: int, layers: int,
+            dead=None) -> dict:
+    """A tenant's solo run: ``runs[key]`` when the main paths ran it, else
+    ``main_path`` now (stored there); its launches are checked by
+    ``main_path`` against one rule launch a step."""
+    if key in runs:
+        return runs[key]
+    kernel = {"adam": "adam_opt_chunks", "sgd": "sgd_opt_chunks"}.get(
+        rule, "multi_agg_opt_chunks" if W > 1 else "agg_opt_chunks")
+    expect = dict(INT8_W4, **({} if rule == "nesterov" else
+                              {"dequant_agg_opt_chunks": 0,
+                               "dequantize_chunks": W, kernel: 1})) \
+        if wire == "int8" else {kernel: 1}
+    runs[key] = main_path(torch, W, steps, expect, rule, wire,
+                          pipeline=dict(fields), layers=layers, dead=dead,
+                          pods=pods)
+    log(f"(i) solo {label}: step ms "
+        f"{[round(x, 3) for x in runs[key]['step_ms']]}, peak GiB "
+        f"{[round(x, 3) for x in runs[key]['peak_gib']]}")
+    return runs[key]
+
+
+def co_phase(torch, runs: dict, bases: dict, count) -> dict:
+    """14. PHub's multi-tenant rack (module docstring).  Returns the
+    packed W=4 domain's runs for ``co_kernel_phase``."""
+    from repro_torch.core import StackedComm
+    from repro_torch.core.pipeline import effective_windows
+    from repro_torch.launch import dist
+    from repro_torch.launch import train as train_cli
+
+    if "nesterov" in bases:
+        runs.setdefault("nesterov stacked W=2", bases["nesterov"])
+    kernel_of = {"nesterov": "multi_agg_opt_chunks", "sgd": "sgd_opt_chunks",
+                 "adam": "adam_opt_chunks"}
+    domains = {}
+    for (label, W, pods, tenants, steps, dead, windows,
+         solo_keys) in CO_PATHS:
+        configs = co_configs(tenants)
+        solos = {}
+        for ns, (rule, wire, fields) in tenants.items():
+            # windows give the same bits: the solo run has one
+            fields = {k: v for k, v in fields.items()
+                      if k != "pipeline_windows"}
+            solos[ns] = co_solo(torch, runs, solo_keys[ns],
+                                f"{ns} of {label}", W, pods, rule, wire,
+                                fields, steps,
+                                0 if ns == "A" else CO_B_LAYERS, dead)
+        run = co_run(torch, label, StackedComm(W, pods), configs, steps,
+                     dead)
+        g = next(iter(run["domain"].groups.values()))
+        check(effective_windows(g, windows) == windows,
+              f"(i) {label}: {windows} windows do not take effect")
+        want = tenant_launches(run["domain"], windows, {
+            ns: (kernel_of[rule] if W > 1 or rule != "nesterov"
+                 else "agg_opt_chunks")
+            for ns, (rule, _, _) in tenants.items()})
+        expect_launches(run["launches"], want, steps, f"(i) {label}")
+        for ns in tenants:
+            hold_tenant(torch, f"(i) {label}, tenant {ns}",
+                        run["tenants"][ns], solos[ns], steps)
+        count(f"co-scheduled {label}", run["launches"])
+        solo_ms = [a + b for a, b in zip(solos["A"]["step_ms"],
+                                         solos["B"]["step_ms"])]
+        log(f"(i) {label}: both tenants bitwise equal to their solo runs "
+            f"over {steps} step(s) (losses, parameters); launches as "
+            f"predicted {want} a step; solo A + B step ms "
+            f"{[round(x, 3) for x in solo_ms[:steps]]}; " + co_note(run))
+        domains[label] = run["domain"]
+
+    # the int8 wire in CO_INT8_WINDOWS windows and in one
+    tenants = {"A": ("nesterov", "int8", {}),
+               "B": ("nesterov", "int8", _CO_B)}
+    int8 = {}
+    for windows in (CO_INT8_WINDOWS, 1):
+        configs = co_configs({ns: (r, w, dict(f, pipeline_windows=
+                                                      windows))
+                                     for ns, (r, w, f) in tenants.items()})
+        run = co_run(torch, f"int8 in {windows} window(s)",
+                     StackedComm(WORKERS), configs, CO_STEPS)
+        g = next(iter(run["domain"].groups.values()))
+        check(effective_windows(g, windows) == windows,
+              f"int8: {windows} windows do not take effect")
+        want = tenant_launches(run["domain"], windows,
+                               {ns: "dequant_agg_opt_chunks"
+                                for ns in tenants})
+        want.update(quantize_chunks=3 * windows + 1,
+                    dequantize_chunks=2 * windows + 1)
+        expect_launches(run["launches"], want, CO_STEPS,
+                        f"(i) int8 in {windows} windows")
+        count(f"co-scheduled int8 in {windows} window(s)", run["launches"])
+        int8[windows] = run
+        log(f"(i) int8 in {windows} window(s): launches as predicted {want}"
+            f" a step; " + co_note(run))
+    for ns in tenants:
+        hold_tenant(torch, f"(i) int8 in {CO_INT8_WINDOWS} windows, tenant "
+                           f"{ns}", int8[CO_INT8_WINDOWS]["tenants"][ns],
+                    int8[1]["tenants"][ns], CO_STEPS)
+    solos = {"A": co_solo(torch, runs, "nesterov int8 W=4", "A int8 W=4",
+                          WORKERS, 1, "nesterov", "int8", {}, CO_STEPS, 0),
+             "B": co_solo(torch, runs, "co B int8 W=4", "B int8 W=4",
+                          WORKERS, 1, "nesterov", "int8", _CO_B, CO_STEPS,
+                          CO_B_LAYERS)}
+    for ns, solo in solos.items():
+        got = int8[1]["tenants"][ns]
+        check(got["losses"][0] == solo["losses"][0],
+              f"int8 tenant {ns}: step 0's loss differs from the solo run's")
+        gap = sampled_gap(torch, got["prints"][0], solo["prints"][0])
+        step = sampled_step(torch, solo, 0)
+        check(gap <= CO_INT8_BOUND * step,
+              f"int8 tenant {ns} after one step: {gap} from its solo run, "
+              f"bound {CO_INT8_BOUND} x {step}")
+        log(f"(i) int8 tenant {ns}: in {CO_INT8_WINDOWS} windows bitwise "
+            f"equal to one window; after one step its sampled parameters "
+            f"lie {gap!r} from its solo int8 run's, {gap / step!r} of the "
+            f"step's largest change {step!r} (bound {CO_INT8_BOUND}); "
+            f"solo step ms {[round(x, 3) for x in solo['step_ms']]}")
+
+    # the lifecycle: A solo, attached with its momentum, co-stepped, back
+    solo6 = co_solo(torch, runs, "co A lifecycle", "A, 6 steps", WORKERS, 1,
+                    "nesterov", "identity", {}, sum(CO_LIFECYCLE), 0)
+    run = co_run(torch, "lifecycle", StackedComm(WORKERS),
+                 co_configs({"A": ("nesterov", "identity", {}),
+                                    "B": ("nesterov", "identity", _CO_B)}),
+                 CO_LIFECYCLE[1], lifecycle=CO_LIFECYCLE)
+    hold_tenant(torch, "(i) lifecycle, tenant A", run["tenants"]["A"], solo6,
+                sum(CO_LIFECYCLE))
+    want = tenant_launches(run["domain"], 1, {"A": "multi_agg_opt_chunks",
+                                              "B": "multi_agg_opt_chunks"})
+    expect_launches(run["launches"], want, CO_LIFECYCLE[1], "(i) lifecycle")
+    count("co-scheduled lifecycle", run["launches"])
+    log(f"(i) lifecycle: A {CO_LIFECYCLE[0]} solo steps, attached with its "
+        f"momentum, {CO_LIFECYCLE[1]} co-steps beside B, detached, "
+        f"{CO_LIFECYCLE[2]} solo steps: bitwise equal to "
+        f"{sum(CO_LIFECYCLE)} solo steps (losses, parameters); "
+        + co_note(run))
+
+    # the launcher: --tenants 2 --workers 2 on the full model
+    reset_all_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = train_cli.main(["--arch", ARCH, "--tenants", "2", "--workers",
+                             "2", "--steps", str(CO_STEPS), "--batch",
+                             str(BATCH), "--seq", str(SEQ), "--device",
+                             "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    check(set(losses) == {"job0", "job1"} and all(
+        len(v) == CO_STEPS and all(math.isfinite(x) for x in v)
+        for v in losses.values()), f"launcher losses {losses}")
+    check(launches["multi_agg_opt_chunks"] == 4 * CO_STEPS
+          and sum(launches.values()) == 4 * CO_STEPS,
+          f"launcher launches {launches}")
+    count("co-scheduled launcher --tenants 2 --workers 2", launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"(i) launch/train.py --tenants 2 --workers 2 --steps {CO_STEPS} "
+        f"(full {ARCH} twice): losses {losses}, {wall:.1f} s in all, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+    # gloo, CO_GLOO_W ranks on cuda:0, reduced, against the stacked co-step
+    want = co_reduced_run(torch, StackedComm(CO_GLOO_W))
+    ranks = dist.run(co_reduced_rank, CO_GLOO_W, "gloo", "cuda",
+                     DIST_TIMEOUT)
+    for r, got in enumerate(ranks):
+        check(got["losses"] == want["losses"]
+              and got["params"] == want["params"],
+              f"(i) gloo rank {r}: losses or parameters differ from the "
+              f"stacked co-step's")
+        check(got["launches"]["multi_agg_opt_chunks"] * CO_GLOO_W
+              == want["launches"]["multi_agg_opt_chunks"],
+              f"(i) gloo rank {r}: launches {got['launches']}, the stacked "
+              f"step's {want['launches']}")
+    log(f"(i) gloo, {CO_GLOO_W} processes on one card: reduced {ARCH} "
+        f"tenants (d_model 256 and 512), {CO_STEPS} co-steps, every rank's "
+        f"losses and parameters bitwise equal to StackedComm({CO_GLOO_W})'s;"
+        f" a rank's launches {ranks[0]['launches']}")
+    return domains
+
+
+def co_reduced_run(torch, comm, device="cuda") -> dict:
+    """Two reduced tenants co-stepped CO_STEPS steps over ``comm``:
+    losses, per-leaf bit-pattern sums of both tenants, launches."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_arch, reduced
+    from repro_torch.core import PHubConnectionManager
+    from repro_torch.core.chunking import leaf_paths
+    from repro_torch.data import SyntheticTokens
+
+    cm = PHubConnectionManager()
+    hs, models, data = [], {}, {}
+    for ns, d in (("A", 256), ("B", 512)):
+        cfg = dataclasses.replace(reduced(get_arch(ARCH), d_model=d),
+                                  dtype="float32")
+        tc = TrainConfig(loss_chunk=CO_GLOO_SEQ,
+                         chunk_size_bytes=CO_GLOO_CHUNK,
+                         **(_CO_B if ns == "B" else {}))
+        h = cm.create_service(ns, cfg, tc, comm, device=device)
+        models[ns] = cm.init_service(h)[0]
+        data[ns] = SyntheticTokens(cfg, BATCH, CO_GLOO_SEQ, seed=tc.seed)
+        hs.append(h)
+    cm.attach_services(hs)
+    reset_all_launches()
+    losses = []
+    for i in range(CO_STEPS):
+        models, met = cm.co_step(hs, models, {
+            ns: d.torch_batch(i, device) for ns, d in data.items()})
+        losses.append({ns: float(m["loss"]) for ns, m in met.items()})
+    return {"losses": losses, "launches": all_launches(),
+            "params": {ns: [bit_sum(torch, t) for _, t in
+                            leaf_paths(m.param_tree())]
+                       for ns, m in models.items()}}
+
+
+def co_reduced_rank(comm, device):
+    import torch
+    return co_reduced_run(torch, comm, device)
+
+
+def co_kernel_phase(torch, domains: dict, ce: int) -> dict:
+    """Each kernel of the co-scheduled step on a tenant run of the packed
+    full-width domains of ``co_phase`` (A + B), as ``RunUpdate`` launches
+    it, bitwise against its plain version on the same views and timed
+    (CUDA events, median of 10) beside the run's bytes bound: B2 and B3 on
+    B's run of shard 1 at W=4, the (4, run) gradient read at the packed
+    row stride; B4 on B's run of shard 1 at W=2 (2 rows at that stride);
+    B1 on B's run of the W=1 domain, pre-aggregated; B7 on B's part of
+    window 3 of 5 of shard 0 at W=4 (after A's tail); B6a and B6b on a
+    window's packed strips of all four shards.  Returns {kernel:
+    {"tenant_run": {...}}} for the kernels line."""
+    from repro_torch.kernels.agg_opt import (adam_opt_ref, agg_opt_ref,
+                                             dequant_agg_opt_ref,
+                                             fused_adam_opt, fused_agg_opt,
+                                             fused_dequant_agg_opt,
+                                             fused_multi_agg_opt,
+                                             fused_sgd_opt,
+                                             multi_agg_opt_ref, sgd_opt_ref)
+    from repro_torch.kernels.quant import (dequantize_int8,
+                                           dequantize_int8_ref,
+                                           quantize_int8, quantize_int8_ref)
+    out = {}
+
+    def hold(name, run, plain, where, elems, n_bytes, n_ops, extra=0,
+             timed=None):
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        err, ulp = compare(torch, got, want)
+        del got, want
+        check(ulp == 0, f"{name} on a tenant run differs from its plain "
+                        f"version (max_ulp {ulp})")
+        ms = median_ms(torch, timed or run, reps=10)
+        plain_ms = median_ms(torch, plain, reps=3)
+        bound_ms, bound_by = bound(elems, n_bytes, n_ops, extra)
+        log(f"(i) {name} on {where}: {elems:,} elements, max_abs {err:.3e} "
+            f"max_ulp {ulp}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms ({bound_by}; "
+            f"{100 * bound_ms / ms:.1f}% of it)")
+        out[name] = {"tenant_run": {
+            "where": where, "elements": elems, "max_abs_err": err,
+            "max_ulp": ulp, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}}
+
+    g4 = domains["W=4"].groups["float32"]
+    gbuf = torch.empty(WORKERS, g4.padded, device="cuda")
+    lr, mu = 1e-2 / 3, 0.8
+
+    def run_of(label, i):
+        g = domains[label].groups["float32"]
+        (_, off, n) = g.slot("B").runs[i]
+        return g, off, n
+
+    # B2, B3: B's run of shard 1 at W=4
+    g, off, n = run_of("W=4", 1)
+    for w in range(WORKERS):
+        gbuf[w, off:off + n].copy_(draw(torch, "g", n, 177 + w))
+    gv = gbuf[:, off:off + n]
+    p, m = draw(torch, "p", n, 191), draw(torch, "m", n, 192)
+    where = (f"B's run of shard 1 at W=4, g (4, {n:,}) at row stride "
+             f"{gv.stride(0):,}")
+    hold("multi_agg_opt_chunks",
+         lambda: fused_multi_agg_opt(p, gv, m, lr=lr, momentum=mu),
+         lambda: multi_agg_opt_ref(p, gv, m, lr=lr, momentum=mu), where, n,
+         4 * (WORKERS + 4), WORKERS - 1 + 7)
+    hold("sgd_opt_chunks", lambda: (fused_sgd_opt(p, gv, lr=SGD_LR),),
+         lambda: (sgd_opt_ref(p, gv, lr=SGD_LR),), where, n,
+         4 * (WORKERS + 2), WORKERS + 1)
+    del p, m
+    # B7: the window where B's first run starts holds A's tail, then B's
+    # head (window 3 of 5 of shard 0)
+    L, Lw = g.shard_len, g.shard_len // CO_INT8_WINDOWS
+    (_, b0, bn) = g.slot("B").runs[0]
+    j, w = b0 // L, b0 % L // Lw
+    k = min(j * L + (w + 1) * Lw, b0 + bn) - b0
+    q, s = quantize_int8(draw(torch, "g", k, 201), chunk_elems=ce)
+    own = gbuf[0, b0:b0 + k]
+    own.copy_(draw(torch, "g", k, 202))
+    p, m0, p_out = draw(torch, "p", k, 203), draw(torch, "m", k, 204), \
+        torch.empty(k, device="cuda")
+    m = m0.clone()
+    kw = dict(lr=1e-2, momentum=0.9, inv_n=1 / WORKERS, chunk_elems=ce)
+    hold("dequant_agg_opt_chunks",
+         lambda: fused_dequant_agg_opt(p, q, s, own, m, p_out=p_out, **kw),
+         lambda: dequant_agg_opt_ref(p, q, s, own, m0, **kw),
+         f"B's part of window {w} of {CO_INT8_WINDOWS}, shard {j} at W=4",
+         k,
+         4 * 5 + 1, 9, extra=4 * (k // ce))
+    del q, s, own, p, m, m0, p_out
+    # B6a, B6b: a window's packed strips of all four shards
+    nw = g.n_shards * Lw
+    x = gbuf[1:3].reshape(-1)[:nw]
+    x.copy_(draw(torch, "g", nw, 211))
+    where = f"a window's packed strips at W=4 ({g.n_shards} x {Lw:,})"
+    hold("quantize_chunks", lambda: quantize_int8(x, chunk_elems=ce),
+         lambda: quantize_int8_ref(x, ce), where, nw, 5, 2,
+         extra=4 * (nw // ce))
+    qw, sw = quantize_int8(x, chunk_elems=ce)
+    hold("dequantize_chunks",
+         lambda: (dequantize_int8(qw, sw, chunk_elems=ce),),
+         lambda: (dequantize_int8_ref(qw, sw, ce),), where, nw, 5, 1,
+         extra=4 * (nw // ce))
+    del x, qw, sw
+    # B4: B's run of shard 1 at W=2, its slots in place
+    g, off, n = run_of("W=2, B under Adam", 1)
+    for w in range(2):
+        gbuf[w, off:off + n].copy_(draw(torch, "g", n, 221 + w))
+    g2 = gbuf[:2, off:off + n]
+    p, p_out = draw(torch, "p", n, 231), torch.empty(n, device="cuda")
+    saved = [draw(torch, kind, n, 232 + i)
+             for i, kind in enumerate(("m", "v", "k1", "k2"))]
+    slots = [t.clone() for t in saved]
+    akw = dict(lr=ADAM_LR, b1=0.9, b2=0.999, eps=1e-8)
+    hold("adam_opt_chunks",
+         lambda: fused_adam_opt(p, g2, *slots, p_out=p_out, **akw),
+         lambda: adam_opt_ref(p, g2, *saved, **akw),
+         f"B's run of shard 1 at W=2, g (2, {n:,}) at row stride "
+         f"{g2.stride(0):,}", n, 4 * (2 + 10), 2 + 22)
+    del gbuf, g2, p, p_out, saved, slots
+    # B1: B's run of the W=1 domain, pre-aggregated
+    g, off, n = run_of("W=1", 0)
+    p, m, g1 = (draw(torch, kind, n, 241 + i)
+                for i, kind in enumerate(("p", "m", "g")))
+    hold("agg_opt_chunks",
+         lambda: fused_agg_opt(p, g1, m, lr=lr, momentum=mu),
+         lambda: agg_opt_ref(p, g1, m, lr=lr, momentum=mu),
+         "B's run at W=1, pre-aggregated", n, 4 * 5, 7)
+    del p, m, g1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3451,6 +4035,9 @@ def main() -> None:
     for arch, batch, prompt, steps in SERVE_PATHS + (SSM_SERVE_PATH,):
         count(f"serve {arch}", serve_path(torch, arch, batch, prompt, steps))
     client_phase(torch, runs, bases, count)
+    domains = co_phase(torch, runs, bases, count)
+    for name, entry in co_kernel_phase(torch, domains, ce).items():
+        kernels[name].update(entry)
     for k in kernels.values():
         if "tol" in k:            # checked against its tolerance above
             k["verdict"] = "within_tol"

@@ -30,7 +30,7 @@ DCN tier (the hierarchical strategy's ``wire_format_dcn``) ``wire_ef`` is
 each pod's residual, and a snapshot keeps all P rows (pod-major,
 ``PHubEngine.slot_shape``), so a restore continues bitwise; the reference
 saves pod 0's view only.  Restoring at another world size (the rebalance
-plan) is ROADMAP.md queue A item 7.
+plan) is ROADMAP.md queue A item 7b.
 """
 from __future__ import annotations
 
@@ -338,7 +338,7 @@ def _params_from(engine, params) -> dict:
             raise ValueError(
                 f"checkpoint flat store {got}, the engine's {shapes}; "
                 f"restoring at another world size is ROADMAP.md queue A "
-                f"item 7")
+                f"item 7b")
         params = engine.store_layout.to_tree(params, specs)
     want = dict(leaf_paths(specs))
     got = dict(leaf_paths(params))
@@ -384,7 +384,7 @@ def _opt_from(engine, opt: dict, step: int) -> dict:
                 raise ValueError(
                     f"opt slot {path!r}: {t.dtype} {tuple(t.shape)}, the "
                     f"engine's {dtype} {shape}; restoring at another world "
-                    f"size is ROADMAP.md queue A item 7")
+                    f"size is ROADMAP.md queue A item 7b")
             slots[spec.name] = t.reshape(shape).to(engine.device)
         out[g.key] = slots
     # an encoded-wire snapshot into an identity-wire engine: wire_ef holds

@@ -160,6 +160,17 @@ class TrainConfig:
 
     seed: int = 0
 
+    def exchange_signature(self) -> tuple:
+        """The fields that define the shared collective schedule (the
+        reference's, less the fields the port has not).  Tenants
+        co-scheduled onto one rack chunk domain (``core/api.py``) must
+        agree on these, one wire format included; lr, momentum, the
+        architecture, the batch and the optimizer itself may differ per
+        tenant."""
+        return (self.strategy, self.chunk_size_bytes, self.pipeline_windows,
+                self.flat_residency, self.wire_format, self.overlap_backward,
+                self.wire_format_dcn or "identity")
+
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 256,
             n_experts: int = 4) -> ModelConfig:

@@ -9,6 +9,11 @@ them out as the port's ``(S, state_len)``, any slots in their own dtypes
 (Adam's m/v in the group dtype, k1/k2 and an encoded wire's ``wire_ef``
 f32 in every group).  Given the engine's ``exchange_slots``, it checks
 that the reference's state holds exactly those slots, in those dtypes.
+``packed_opt_from_numpy`` and ``packed_opt_to_numpy`` carry the
+co-scheduler's packed optimizer state of a ``TenantPackedDomain`` across
+(the reference's ``{dtype: {slot: (mo, S, Lr) or (mo, padded)}}`` over
+its domain, the port's stacked ``(S, state_len)`` over the same layout),
+so both packages can start a co-scheduled step from the same momentum.
 ``cache_from_numpy`` takes the reference's decode cache (``init_cache`` /
 ``prefill``'s ``cache``: a KV ring, or the ssm family's state) and
 returns the port's, ``next`` as a host int.
@@ -58,8 +63,40 @@ def opt_from_numpy(plan: ChunkPlan, opt: dict, *, slots=None,
     """The reference's optimizer slots -> {dtype: {slot: (S, L) tensor}}.
     ``slots``: the engine's ``exchange_slots`` (SlotSpecs) to check the
     slot names and dtypes against, or None."""
+    return _slots_from_numpy(plan.groups, opt, slots, device)
+
+
+def packed_opt_from_numpy(domain, opt: dict, *, slots=None,
+                          device="cuda") -> dict:
+    """The reference's packed optimizer state over a TenantPackedDomain
+    (``{dtype: {slot: (1, S, Lr) or (1, padded)}}``, the union slots and
+    ``wire_ef``) -> the port's {dtype: {slot: (S, L) tensor}} over the
+    same domain (``PHubConnectionManager``'s, on the stacked Comm).
+    ``slots``: ``engine.co_slot_specs`` to check against, or None."""
+    return _slots_from_numpy(domain.groups.values(), opt, slots, device)
+
+
+def packed_opt_to_numpy(domain, opt: dict) -> dict:
+    """The port's packed optimizer state -> the reference's layout over
+    the same domain, ``{dtype: {slot: (1, padded) array}}`` (bf16 slots
+    as numpy's ``bfloat16``, bit for bit)."""
     out = {}
-    for g in plan.groups:
+    for key, g in domain.groups.items():
+        out[key] = {}
+        for name, t in opt[key].items():
+            t = t.detach().to("cpu").reshape(1, g.padded)
+            if t.dtype == torch.bfloat16:
+                import ml_dtypes
+                a = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+            else:
+                a = t.numpy()
+            out[key][name] = a.copy()
+    return out
+
+
+def _slots_from_numpy(groups, opt: dict, slots, device) -> dict:
+    out = {}
+    for g in groups:
         if slots is not None:
             want = {s.name: s.resolve_dtype(g.dtype) for s in slots}
             got = {n: _tensor(np.asarray(a).reshape(-1)[:1], "cpu").dtype

@@ -14,6 +14,14 @@ analysis (``window_leaves``, ``chunk_ready_schedule``), and the flat
 parameter store (``FlatParamStore``, ``build_store_layout``), whose
 ``to_tree`` leaves are views of the store, so a model whose parameters
 are those views trains on the exchange's own domain.
+
+The co-scheduler's shared rack domain is here too (``TenantPackedDomain``,
+``pack_domains``): per dtype, every attached tenant's chunks packed
+shard-major, tenant-major inside a shard, so that each tenant holds one
+contiguous run of every shard it meets.  Besides the reference's copying
+``pack``/``unpack``, ``segments`` maps a range of a tenant's flat vector
+onto packed offsets, so that a worker's gradients and a tenant's
+parameters are written into the packed buffers directly.
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+
+from .partition import cochunk_counts
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -339,3 +349,210 @@ def build_store_layout(plan: ChunkPlan, model_dims: dict,
             "queue A item 5b)")
     return FlatParamStore(plan=plan, mo=1, offsets={
         g.key: leaf_offsets(g) for g in plan.groups})
+
+
+# ------------------------------------------------------ multi-tenant packing
+
+@dataclass(frozen=True)
+class TenantSlot:
+    """One tenant's residency inside a packed dtype group."""
+    tenant: str
+    total: int                    # unpadded element count
+    padded: int                   # chunk-granularity padding: n_chunks * ce
+    runs: tuple[tuple[int, int, int], ...]   # (tenant_off, packed_off, len)
+
+
+@dataclass(frozen=True)
+class PackedGroup:
+    """One dtype group of the shared rack chunk domain: every tenant's
+    chunks packed shard-major (counts from ``partition.cochunk_counts``).
+    It has the fields of a ``GroupPlan`` that the exchange reads (``key``,
+    ``dtype``, ``padded``, ``shard_len``, ``chunk_elems``, ``n_shards``,
+    ``chunks_per_shard``, ``n_chunks``), so the exchange takes it where it
+    takes a plan's group."""
+    dtype: torch.dtype
+    chunk_elems: int
+    n_shards: int
+    shard_len: int                # elements per shard (multiple of ce)
+    padded: int                   # n_shards * shard_len
+    slots: tuple[TenantSlot, ...]
+    # packed-order segments: (tenant|None, tenant_off, length); None = pad
+    layout: tuple[tuple[Any, int, int], ...]
+
+    @property
+    def key(self) -> str:
+        return dtype_name(self.dtype)
+
+    @property
+    def chunks_per_shard(self) -> int:
+        return self.shard_len // self.chunk_elems
+
+    @property
+    def n_chunks(self) -> int:
+        return self.padded // self.chunk_elems
+
+    def slot(self, tenant: str) -> TenantSlot:
+        for s in self.slots:
+            if s.tenant == tenant:
+                return s
+        raise KeyError(tenant)
+
+    def pad_runs(self) -> tuple[tuple[int, int], ...]:
+        """(packed_off, length) of every pad segment (no tenant's)."""
+        out, off = [], 0
+        for tenant, _, length in self.layout:
+            if tenant is None:
+                out.append((off, length))
+            off += length
+        return tuple(out)
+
+
+@dataclass(frozen=True)
+class TenantPackedDomain:
+    """Shared rack-scale chunk domain of co-scheduled tenants (§3.1
+    multi-tenancy): per dtype, every tenant's chunk-padded flat vector is
+    split into per-shard quota runs and packed shard-major, so one
+    exchange carries every job's gradients at once.  The offset tables
+    (``TenantSlot.runs``) are the namespace isolation: each tenant's
+    update touches exactly its own ranges."""
+    groups: dict                  # dtype_name -> PackedGroup
+    tenants: tuple[str, ...]
+    n_shards: int
+    chunk_bytes: int
+
+    def pack(self, key: str, flats: dict) -> torch.Tensor:
+        """Per-tenant chunk-padded flats -> one (padded,) packed vector (a
+        copy; the pad zero)."""
+        g = self.groups[key]
+        first = next(iter(flats.values()))
+        out = torch.zeros(g.padded, dtype=g.dtype, device=first.device)
+        off = 0
+        for tenant, toff, length in g.layout:
+            if tenant is not None:
+                out[off:off + length].copy_(flats[tenant][toff:toff + length])
+            off += length
+        return out
+
+    def unpack(self, key: str, packed: torch.Tensor,
+               tenant: str) -> torch.Tensor:
+        """Packed vector -> the tenant's (slot.padded,) chunk-padded flat
+        (a copy)."""
+        g = self.groups[key]
+        runs = sorted(g.slot(tenant).runs)        # ascending tenant_off
+        return torch.cat([packed[poff:poff + length]
+                          for _, poff, length in runs])
+
+    def segments(self, key: str, tenant: str, lo: int, hi: int
+                 ) -> list[tuple[int, int, int]]:
+        """The tenant's flat range [lo, hi) as (tenant_off, packed_off,
+        length) pieces of its runs, in tenant order."""
+        out = []
+        for toff, poff, length in sorted(self.groups[key].slot(tenant).runs):
+            a, b = max(lo, toff), min(hi, toff + length)
+            if a < b:
+                out.append((a, poff + a - toff, b - a))
+        return out
+
+    def leaf_pieces(self, key: str, tenant: str, group: GroupPlan
+                    ) -> tuple:
+        """For the tenant's own dtype group plan ``group``: (path,
+        leaf_off, packed_off, length) of every piece of every leaf, so a
+        leaf's flat gradient or parameter is written into the packed
+        buffer directly; and the packed (off, length) pieces of the
+        tenant's chunk tail [total, slot.padded), which stay zero."""
+        pieces, off = [], 0
+        for path, size in zip(group.paths, group.sizes):
+            for toff, poff, length in self.segments(key, tenant, off,
+                                                    off + size):
+                pieces.append((path, toff - off, poff, length))
+            off += size
+        slot = self.groups[key].slot(tenant)
+        tail = tuple((poff, length) for _, poff, length in
+                     self.segments(key, tenant, slot.total, slot.padded))
+        return tuple(pieces), tail
+
+    def coef_vector(self, key: str, values: dict, fill: float = 0.0
+                    ) -> torch.Tensor:
+        """(padded,) per-position coefficient table in the group dtype, on
+        the CPU: position i carries its owner tenant's value (pad chunks
+        ``fill``): the reference's way to apply each tenant's rule to its
+        own chunk ranges inside one shared update."""
+        g = self.groups[key]
+        out = torch.full((g.padded,), fill, dtype=g.dtype)
+        off = 0
+        for tenant, _, length in g.layout:
+            if tenant is not None:
+                out[off:off + length] = values[tenant]
+            off += length
+        return out
+
+    def tenant_bytes(self, tenant: str) -> int:
+        """Unpadded model bytes this tenant exchanges per step."""
+        return sum(g.slot(tenant).total * g.dtype.itemsize
+                   for g in self.groups.values()
+                   if any(s.tenant == tenant for s in g.slots))
+
+    def shard_loads(self, key: str) -> dict:
+        """Per-tenant chunks per shard (balance introspection)."""
+        g = self.groups[key]
+        loads = {s.tenant: [0] * g.n_shards for s in g.slots}
+        for s in g.slots:
+            for _, poff, length in s.runs:
+                loads[s.tenant][poff // g.shard_len] += \
+                    length // g.chunk_elems
+        return loads
+
+
+def pack_domains(tenant_plans: dict, *, n_shards: int,
+                 chunk_bytes: int) -> TenantPackedDomain:
+    """Pack per-tenant ChunkPlans into one TenantPackedDomain.
+
+    Tenants are padded only to chunk granularity here: the rack-level
+    padding to ``n_shards`` granularity is shared across jobs, and the LPT
+    quota (``partition.cochunk_counts``) decides which shard serves which
+    slice of which tenant."""
+    tenants = tuple(tenant_plans)
+    by_dtype: dict[str, list[tuple[str, GroupPlan]]] = {}
+    for t in tenants:
+        for g in tenant_plans[t].groups:
+            if g.chunk_elems != max(chunk_bytes // g.dtype.itemsize, 1):
+                raise ValueError(
+                    f"tenant {t!r} group {g.key} was chunked at a different "
+                    f"chunk size; co-scheduled tenants must share "
+                    f"chunk_size_bytes")
+            by_dtype.setdefault(g.key, []).append((t, g))
+    groups = {}
+    for key, members in by_dtype.items():
+        ce = members[0][1].chunk_elems
+        n_chunks = [-(-m.total // ce) for _, m in members]
+        counts, pad = cochunk_counts(n_chunks, n_shards)
+        cps = (sum(n_chunks) + sum(pad)) // n_shards
+        shard_len = cps * ce
+        layout: list[tuple[Any, int, int]] = []
+        slot_runs: dict[str, list[tuple[int, int, int]]] = {
+            t: [] for t, _ in members}
+        cursors = {t: 0 for t, _ in members}
+        off = 0
+        for s in range(n_shards):
+            for ti, (t, _) in enumerate(members):
+                q = counts[ti][s]
+                if not q:
+                    continue
+                length = q * ce
+                layout.append((t, cursors[t], length))
+                slot_runs[t].append((cursors[t], off, length))
+                cursors[t] += length
+                off += length
+            if pad[s]:
+                layout.append((None, 0, pad[s] * ce))
+                off += pad[s] * ce
+        slots = tuple(
+            TenantSlot(tenant=t, total=m.total, padded=n_chunks[ti] * ce,
+                       runs=tuple(slot_runs[t]))
+            for ti, (t, m) in enumerate(members))
+        groups[key] = PackedGroup(
+            dtype=members[0][1].dtype, chunk_elems=ce, n_shards=n_shards,
+            shard_len=shard_len, padded=n_shards * shard_len, slots=slots,
+            layout=tuple(layout))
+    return TenantPackedDomain(groups=groups, tenants=tenants,
+                              n_shards=n_shards, chunk_bytes=chunk_bytes)

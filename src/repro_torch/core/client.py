@@ -37,13 +37,17 @@ tier (``wire_format_dcn``, hierarchical only).  Chunk-ready dispatch
 window of the finished push as it becomes ready, stacked only (as the
 engine's, ``core/comm.py::require_stacked``, ROADMAP.md queue A item 4b).
 
-Left out of the reference's client:
-- the co-scheduler's ``groups`` / ``slot_specs`` / ``update_by_key`` /
-  ``aux_by_key`` overrides of ``exchange_flats`` (ROADMAP.md queue A item
-  7); ``update_fn=`` takes one rule factory for every group, which is how
-  the engine passes its own;
-- telemetry spans and ``compile_count`` (items 9 and 10): the port builds
-  no programs.
+The co-scheduler (``core/engine.py::make_co_train_step``, the connection
+manager of ``core/api.py``) hands the packed tenant domain through the
+same ``exchange_flats``: its groups (``chunking.PackedGroup``), the
+tenants' union slots (``slot_specs``, ``wire_ef`` still last) and one
+update per group (``update_by_key``: the kernel form
+``optim/protocol.py::RunUpdate``, whose per-run int8 tail keeps B7 on a
+Nesterov tenant's runs; or, on CPU tensors, the reference's table form
+with its ``aux_by_key`` tables).
+
+Left out of the reference's client: telemetry spans and ``compile_count``
+(ROADMAP.md queue A items 9 and 10): the port builds no programs.
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels.agg_opt.ref import worker_mean
 from ..optim.protocol import make_sharded_optimizer
 from . import chunking
 from .comm import require_stacked
@@ -79,6 +84,25 @@ def module_tree(module: torch.nn.Module) -> dict:
     """An ``nn.Module``'s ``named_parameters()`` as a nested dict; the
     leaves are the parameters themselves."""
     return nest(module.named_parameters())
+
+
+def _table_update(upd, aux: tuple):
+    """The reference's table form ``upd(p, g, slots, *aux)`` (CPU) under
+    the exchange's update contract: a stacked g averaged as the kernels
+    average it (``worker_mean``, in worker order, then divided), the
+    tables' part at the strip ``[at, at + n)``, p' into ``p_out`` and the
+    new slots copied into the given ones."""
+    def step(p, g, slots, divisor=None, p_out=None, at=0):
+        if g.dim() == p.dim() + 1:
+            g = worker_mean(g, divisor)
+        n = p.numel()
+        p2, s2 = upd(p, g, slots, *(t[at:at + n] for t in aux))
+        for s, v in zip(slots, s2):
+            s.copy_(v)
+        if p_out is None:
+            return p2, slots
+        return p_out.copy_(p2), slots
+    return step
 
 
 def _meta_tree(tree: dict) -> dict:
@@ -282,6 +306,12 @@ class PHubClient:
                           for g in self.plan.groups}
         return self._gbuf
 
+    def release_buffers(self) -> None:
+        """Drop the stacked gradient buffers (``grad_buffers`` allocates
+        them again at the next use): a co-scheduled tenant pushes into the
+        packed domain's buffers instead."""
+        self._gbuf = None
+
     # -------------------------------------------------------- the exchange
 
     def update_fn(self, group):
@@ -290,28 +320,32 @@ class PHubClient:
         return self.sopt.kernel_update(group.chunk_elems,
                                        self.sopt.coefs(self.tc))
 
-    def fused_dequant(self, group, n_live=None):
+    def fused_dequant(self, group, n_live=None, update=None):
         """The int8 wire's tail kernel for one group (decode + own rows +
         mean + rule), or None: another wire, or a rule without one.  A
         static live count ``n_live`` (a number) is baked in as
         ``1/n_live``, as the reference's ``_fused_dequant`` does; the
         gate's (a tensor on the card) goes to the kernel's divisor at the
-        call."""
+        call.  ``update``: an override's update, whose own ``dequant``
+        (the co-scheduler's per-run tail) is used, if it has one."""
         if not self.wire.has_scales:
             return None
         n = n_live if isinstance(n_live, (int, float)) else \
             self.comm.n_workers
+        if update is not None:
+            dequant = getattr(update, "dequant", None)
+            return None if dequant is None else dequant(1.0 / n)
         return self.sopt.kernel_dequant_update(
             group.chunk_elems, self.sopt.coefs(self.tc), 1.0 / n)
 
-    def _wire_args(self, group, opt, n_live) -> dict:
+    def _wire_args(self, group, opt, n_live, update=None) -> dict:
         """The encoded wire's (or the DCN tier's) arguments of one group's
         exchange."""
         args = dict(wire_dcn=self.wire_dcn,
                     residual=opt[group.key][WIRE_EF_SLOT].view(-1))
         if self.wire.error_feedback:
-            args.update(wire=self.wire,
-                        fused_dequant=self.fused_dequant(group, n_live))
+            args.update(wire=self.wire, fused_dequant=self.fused_dequant(
+                group, n_live, update))
         return args
 
     def chunk_ready(self, group, gbuf: dict, p: torch.Tensor, opt: dict,
@@ -332,7 +366,9 @@ class PHubClient:
             self.tc.pipeline_windows, n_live, stream, **wire)
 
     def exchange_flats(self, gbuf: dict, flats_p: dict, opt: dict,
-                       n_live=None, ready=None, *, update_fn=None):
+                       n_live=None, ready=None, *, update_fn=None,
+                       groups=None, slot_specs=None, update_by_key=None,
+                       aux_by_key=None):
         """Run the exchange per dtype group on the stacked gradients
         ``gbuf`` ({dtype_name: (local_workers, padded)}) and the flat
         parameters ``flats_p`` ({dtype_name: (padded,)}, consumed), over
@@ -348,32 +384,57 @@ class PHubClient:
         state); a rule whose kernel updates its slots in place (Adam, and
         every rule in windows) returns the tensors of ``opt`` themselves.
         Under an encoded wire the slots' last entry, ``wire_ef``, is the
-        residual the wire threads, not a slot of the rule."""
+        residual the wire threads, not a slot of the rule.
+
+        The co-scheduler's overrides: ``groups`` ({dtype_name: group},
+        e.g. a packed tenant domain's ``PackedGroup``s) in place of the
+        plan's; ``slot_specs`` (the exchange's slots, ``wire_ef`` last
+        under an encoded wire) in place of ``exchange_slots``;
+        ``update_by_key`` ({dtype_name: update}) in place of the factory,
+        its int8 tail its own ``dequant`` if it has one; ``aux_by_key``
+        ({dtype_name: tables}, CPU tensors): the update is the reference's
+        table form (``optim/protocol.py::make_combined_update``), called
+        on the worker mean with the tables' part at the strip, its slots
+        copied back in place, and no fused int8 tail."""
         make = update_fn or self.update_fn
-        names = self.sopt.slot_names
+        specs = self.exchange_slots if slot_specs is None else slot_specs
         encoded = self.wire.error_feedback or self.wire_dcn is not None
+        if encoded:
+            if not specs or specs[-1].name != WIRE_EF_SLOT:
+                raise ValueError(
+                    f"encoded wire {self.wire.name!r} expects the "
+                    f"{WIRE_EF_SLOT!r} residual as the last slot spec; got "
+                    f"{[s.name for s in specs]}")
+            specs = specs[:-1]
+        names = tuple(s.name for s in specs)
         st, comm, windows = (self.tc.strategy, self.comm,
                              self.tc.pipeline_windows)
         new_p, new_opt = {}, {}
         with torch.no_grad():
-            for g in self.plan.groups:
+            for g in (self.plan.groups if groups is None
+                      else tuple(groups.values())):
                 slots = tuple(opt[g.key][n].view(-1) for n in names)
                 p = flats_p.pop(g.key)
+                over = update_by_key is not None or aux_by_key is not None
+                upd = update_by_key[g.key] if update_by_key else make(g)
+                if aux_by_key is not None:
+                    upd = _table_update(upd, aux_by_key[g.key])
                 if ready and g.key in ready:
                     p2, s2, *r2 = ready[g.key].finish()
                 elif self.wire.error_feedback:
                     p2, s2, *r2 = run_wire_exchange(
-                        st, comm, gbuf[g.key], p, slots, make(g), g,
+                        st, comm, gbuf[g.key], p, slots, upd, g,
                         windows=windows, n_live=n_live,
-                        **self._wire_args(g, opt, n_live))
+                        **self._wire_args(g, opt, n_live,
+                                          upd if over else None))
                 elif encoded:
                     p2, s2, *r2 = run_dcn_exchange(
-                        st, comm, gbuf[g.key], p, slots, make(g), g,
+                        st, comm, gbuf[g.key], p, slots, upd, g,
                         windows=windows, n_live=n_live,
                         **self._wire_args(g, opt, n_live))
                 else:
                     p2, s2 = run_exchange(st, comm, gbuf[g.key], p, slots,
-                                          make(g), g, windows, n_live)
+                                          upd, g, windows, n_live)
                 del p
                 new_p[g.key] = p2
                 new_opt[g.key] = {n: v.view(opt[g.key][n].shape)

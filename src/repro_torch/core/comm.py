@@ -115,8 +115,8 @@ class ProcessGroupComm:
     ``init_process_group`` gets ``backend``, ``rank``, ``world``, an explicit
     ``init_method`` (``tcp://localhost:<port>`` or ``file://<path>``) and a
     ``timeout`` in seconds; nothing comes from environment variables.
-    ``device``: where this rank's tensors live (NCCL: a CUDA device, and
-    without CUDA it raises).  gloo always hands its collectives host
+    ``device``: where this rank's tensors live, the card unless the CPU is
+    asked for (NCCL: a CUDA device, and without CUDA it raises).  gloo always hands its collectives host
     tensors: a CPU tensor as it is, a CUDA tensor through a pinned host
     buffer of this Comm (one a role, allocated at first use, grown to the
     largest request and reused by every later step).  ``pods``: P pods of
@@ -130,7 +130,7 @@ class ProcessGroupComm:
     (staging copies included)."""
 
     def __init__(self, rank: int, world: int, backend: str, init_method: str,
-                 *, timeout: float = 600.0, device="cpu",
+                 *, timeout: float = 600.0, device="cuda",
                  timing: bool = False, pods: int = 1):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "

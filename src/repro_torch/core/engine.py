@@ -95,6 +95,21 @@ tail kernel's divisor pointer (the reference takes its jnp tail there,
 ``/ n_live``, the same arithmetic); the rules without a tail kernel
 divide the decoded sum by the count.
 
+Co-scheduled tenants (``make_co_train_step``, the reference's; §3.1
+multi-tenancy, driven by ``core/api.py::PHubConnectionManager``): every
+attached tenant's W workers run forward and backward in turn, each
+worker's gradients written straight into its row of the packed ``(W,
+padded)`` buffer of the shared tenant domain (``chunking.pack_domains``);
+a static membership zeroes the excluded rows; one ``exchange_flats`` over
+the packed groups, with the tenants' union slots, runs each tenant's own
+rule kernel on its own runs at its own coefficients
+(``optim/protocol.py::RunUpdate``); each tenant's p' is written back into
+its module.  A co-scheduled tenant therefore equals its solo run bitwise
+over the identity wire (each chunk is the same elementwise rule over the
+same worker rows); over the int8 wire the packed layout moves a tenant's
+chunks to other owner shards, whose ring starts at another worker, so
+the re-quantized partials differ from the solo run's.
+
 Every ported family trains: the attention-free (ssm) family through
 autograd of its chunked scan (``models/rwkv.py::rwkv_chunked``), as the
 reference trains it without Pallas; the scan kernel serves only (the
@@ -112,11 +127,14 @@ from ..configs.base import ModelConfig, TrainConfig
 from ..kernels.agg_opt.ops import fused_health_scan
 from ..kernels.agg_opt.ref import sqrt_rn
 from ..models import DecoderLM, chunked_cross_entropy, param_specs
+from ..optim.protocol import RuleBinding, make_combined_update, \
+    make_run_update, union_slots
 from . import chunking
 from .client import PHubClient
 from .comm import require_stacked
 from .exchange import check_strategy
 from .pipeline import check_pipeline
+from .wire import exchange_extra_slots
 
 
 class PHubEngine:
@@ -431,3 +449,206 @@ class PHubEngine:
             x = model.decode(tokens, cache)
             return self._last_logits(model, x), cache
         return serve_step
+
+
+# ---------------------------------------------------- co-scheduled exchange
+
+def co_slot_specs(tenants: dict) -> tuple:
+    """The union of the attached tenants' optimizer slot sets (same-named
+    slots share one packed buffer; each tenant touches only its own
+    ranges), then the shared wire's exchange slots (``wire_ef``) last, so
+    the rules' slot indices stay stable.  All attached tenants share one
+    wire (checked at attach, ``core/api.py``)."""
+    specs = union_slots([e.sopt for e in tenants.values()])
+    e0 = next(iter(tenants.values()))
+    return specs + exchange_extra_slots(e0.wire, e0.wire_dcn)
+
+
+def co_opt_state_shapes(e0: PHubEngine, domain, slots) -> dict:
+    """{dtype_name: {slot_name: meta tensor}}: one shared buffer per
+    (dtype, slot) over the packed domain, in the engine's own layout
+    (``PHubClient.slot_shape`` over the packed groups)."""
+    return {key: {s.name: torch.empty(e0.slot_shape(g, s),
+                                      dtype=s.resolve_dtype(g.dtype),
+                                      device="meta")
+                  for s in slots}
+            for key, g in domain.groups.items()}
+
+
+def _table_updates(tenants: dict, domain, slot_index: dict) -> tuple:
+    """The reference's table form of every packed group ({key: update},
+    {key: aux tables}): the tenants grouped by rule, a coefficient that
+    differs within a rule as a per-position table, and per-rule mask
+    tables when the rules differ (the reference's ``coef_update``)."""
+    names = list(tenants)
+    rules: dict = {}
+    for ns in names:
+        rules.setdefault(tenants[ns].sopt, []).append(ns)
+    multi = len(rules) > 1
+    upd_by_key, aux_by_key = {}, {}
+    for key in domain.groups:
+        aux, bindings = [], []
+        for sopt, members in rules.items():
+            coefs = []
+            for i in range(len(sopt.coef_names)):
+                vals = {ns: sopt.coefs(tenants[ns].tc)[i] for ns in members}
+                if len(set(vals.values())) == 1:
+                    coefs.append(next(iter(vals.values())))
+                else:
+                    aux.append(domain.coef_vector(
+                        key, {ns: vals.get(ns, 0.0) for ns in names}))
+                    coefs.append(("aux", len(aux) - 1))
+            mask_idx = None
+            if multi:
+                aux.append(domain.coef_vector(
+                    key, {ns: 1.0 if ns in members else 0.0
+                          for ns in names}))
+                mask_idx = len(aux) - 1
+            bindings.append(RuleBinding(
+                opt=sopt, slot_idx=tuple(slot_index[n]
+                                         for n in sopt.slot_names),
+                coefs=tuple(coefs), mask_aux=mask_idx))
+        upd_by_key[key] = make_combined_update(bindings)
+        aux_by_key[key] = tuple(aux)
+    return upd_by_key, aux_by_key
+
+
+def _write_pieces(pieces, leaves: dict, out: torch.Tensor) -> None:
+    """Each leaf's pieces into the packed vector ``out`` in place."""
+    for path, loff, poff, n in pieces:
+        out[poff:poff + n].copy_(leaves[path].reshape(-1)[loff:loff + n])
+
+
+def make_co_train_step(tenants: dict, domain, membership=None, *,
+                       gbuf: dict | None = None, tables: bool = False):
+    """One step over every attached tenant (§3.1 multi-tenancy).
+
+    ``tenants``: {namespace: PHubEngine}, already checked compatible (one
+    Comm, one device, one exchange signature); ``domain``: the
+    ``TenantPackedDomain`` over their chunk plans.  Each tenant's workers
+    run forward and backward in turn, as the solo step's do, and each
+    worker's gradients go straight into its row of the packed ``(local
+    workers, padded)`` buffer (``gbuf``: a dict the buffers are allocated
+    into once and shared by every step of this domain); the parameters
+    are written into one packed vector the same way.  ``membership``: the
+    rack's live set, one worker mask for every tenant: excluded rows are
+    zeroed and the shared mean divides by the live count.  One
+    ``exchange_flats`` runs over the packed groups with the tenants' union
+    slots and ``RunUpdate`` (each tenant's rule kernel on its own runs);
+    ``tables`` (CPU tensors only) takes the reference's table form
+    instead.  Each tenant's p' is written back into its module in place.
+
+    Returns ``step(models, packed_opt, batches) -> (models, packed_opt',
+    metrics)``, {namespace: ...} each; the metrics hold each tenant's
+    loss, the mean over its workers."""
+    names = list(tenants)
+    e0 = tenants[names[0]]
+    tc0, comm = e0.tc, e0.comm
+    if tc0.overlap_backward:
+        raise ValueError(
+            "co-scheduled tenants pack every tenant's full flat gradient "
+            "into one shared domain before the exchange; the chunk-ready "
+            "per-window assembly (overlap_backward) has no packed-domain "
+            "seam yet — train tenants solo or drop overlap_backward")
+    if tc0.flat_residency:
+        raise NotImplementedError(
+            "co-scheduling runs on tree-state tenants; flat_residency "
+            "stores are not packed yet (DESIGN.md §9)")
+    W, local = comm.n_workers, comm.local_workers()
+    first = comm.rank * local
+    mask, live = e0.client.elastic_mask(membership)
+    divisor = None if mask is None else e0.client.live_divisor(live)
+    slot_specs = co_slot_specs(tenants)
+    slot_index = {s.name: i for i, s in enumerate(slot_specs)}
+    if tables:
+        upd_by_key, aux_by_key = _table_updates(tenants, domain,
+                                                slot_index)
+    else:
+        aux_by_key = None
+        upd_by_key = {
+            key: make_run_update([RuleBinding(
+                opt=tenants[sl.tenant].sopt,
+                slot_idx=tuple(slot_index[n]
+                               for n in tenants[sl.tenant].sopt.slot_names),
+                coefs=tenants[sl.tenant].sopt.coefs(tenants[sl.tenant].tc),
+                runs=tuple((poff, n) for _, poff, n in sl.runs))
+                for sl in pg.slots], pg)
+            for key, pg in domain.groups.items()}
+    # per tenant and group: the leaves' pieces in the packed domain, and
+    # the packed pieces that stay zero (its chunk tail)
+    pieces = {ns: {g.key: domain.leaf_pieces(g.key, ns, g)
+                   for g in tenants[ns].chunk_plan.groups}
+              for ns in names}
+    zero = {key: pg.pad_runs() + tuple(
+                z for ns in names if key in pieces[ns]
+                for z in pieces[ns][key][1])
+            for key, pg in domain.groups.items()}
+    loss_fns = {ns: tenants[ns].build_loss_fn() for ns in names}
+    gbuf = {} if gbuf is None else gbuf
+
+    def buffers() -> dict:
+        if not gbuf:
+            gbuf.update({key: torch.zeros((local, pg.padded), dtype=pg.dtype,
+                                          device=e0.device)
+                         for key, pg in domain.groups.items()})
+        return gbuf
+
+    def packed_params(models: dict) -> dict:
+        flats = {}
+        for key, pg in domain.groups.items():
+            out = torch.empty(pg.padded, dtype=pg.dtype, device=e0.device)
+            for off, n in zero[key]:
+                out[off:off + n].zero_()
+            flats[key] = out
+        with torch.no_grad():
+            for ns in names:
+                leaves = dict(chunking.leaf_paths(models[ns].param_tree()))
+                for key, (pcs, _) in pieces[ns].items():
+                    _write_pieces(pcs, leaves, flats[key])
+        return flats
+
+    def step(models: dict, opt: dict, batches: dict):
+        buf = buffers()
+        metrics = {}
+        for ns in names:
+            model = models[ns]
+            tokens, labels = batches[ns]["tokens"], batches[ns]["labels"]
+            B = tokens.shape[0]
+            if B % W:
+                raise ValueError(f"tenant {ns!r}: global batch {B} does not "
+                                 f"split over {W} workers")
+            bw = B // W
+            paths, leaves = zip(*chunking.leaf_paths(model.param_tree()))
+            losses = []
+            for w in range(local):
+                sl = slice((first + w) * bw, (first + w + 1) * bw)
+                loss = loss_fns[ns](model, tokens[sl], labels[sl])
+                grads = dict(zip(paths, torch.autograd.grad(loss, leaves)))
+                with torch.no_grad():
+                    for key, (pcs, _) in pieces[ns].items():
+                        _write_pieces(pcs, grads, buf[key][w])
+                del grads
+                losses.append(loss.detach())
+            metrics[ns] = {"loss": comm.gather_small(
+                torch.stack(losses)).reshape(-1).mean()}
+        with torch.no_grad():
+            for key, rows in buf.items():
+                for off, n in zero[key]:
+                    rows[:, off:off + n].zero_()
+        if mask is not None:
+            e0.client.mask_rows(buf, mask)
+        new_p, new_opt = e0.client.exchange_flats(
+            buf, packed_params(models), opt, divisor,
+            groups=domain.groups, slot_specs=slot_specs,
+            update_by_key=upd_by_key, aux_by_key=aux_by_key)
+        with torch.no_grad():
+            for ns in names:
+                leaves = dict(chunking.leaf_paths(models[ns].param_tree()))
+                for key, (pcs, _) in pieces[ns].items():
+                    flat = new_p[key]
+                    for path, loff, poff, n in pcs:
+                        leaves[path].view(-1)[loff:loff + n].copy_(
+                            flat[poff:poff + n])
+        return models, new_opt, metrics
+
+    return step

@@ -69,10 +69,12 @@ STRATEGIES = ("allreduce", "sharded_ps", "centralized_ps", "hierarchical",
 PORTED_STRATEGIES = ("allreduce", "sharded_ps", "centralized_ps",
                      "hierarchical")
 
-# update_fn(p, g, slots, divisor=None, p_out=None) -> (p', slots'): the
-# protocol's fused rule, taking g pre-aggregated or stacked (W, n), the
+# update_fn(p, g, slots, divisor=None, p_out=None, at=0) -> (p', slots'):
+# the protocol's fused rule, taking g pre-aggregated or stacked (W, n), the
 # stacked mean divided by W or by a one-element f32 tensor on the card
-# (optim/protocol.py)
+# (optim/protocol.py); ``at`` is where p starts in its dtype group (every
+# call site passes it; the co-scheduled update finds its tenants' runs by
+# it, the solo rules ignore it)
 UpdateFn = Callable[..., tuple[torch.Tensor, tuple]]
 
 
@@ -133,20 +135,21 @@ def exchange_group(comm, g: torch.Tensor, p: torch.Tensor,
         # the reduce-scatter over one worker is the identity, and /1 (or
         # /max(n_live, 1) = /1) is exact: the reference's path into
         # agg_opt_chunks
-        return update_fn(p, g[0], slots)
+        return update_fn(p, g[0], slots, at=0)
     if strategy == "hierarchical":
         # the in-pod partials into each pod's row d = 0, then one launch
         # over the P partial rows: the cross-pod sum in pod order, / N
         rows = pod_rows_(g, comm.pods)
         return update_fn(p, rows, slots, divisor=mean_divisor(
-            comm.n_workers if n_live is None else n_live, g.device))
+            comm.n_workers if n_live is None else n_live, g.device), at=0)
     # sharded_ps: shard s owns the contiguous run [s*L, (s+1)*L) of every
     # row, so one tall-aggregation pass over the whole domain equals the S
     # per-shard (sum over workers, /W, update) passes of the reference;
     # allreduce and centralized_ps have one shard, the same pass
     if n_live is None:
-        return update_fn(p, g, slots)
-    return update_fn(p, g, slots, divisor=mean_divisor(n_live, g.device))
+        return update_fn(p, g, slots, at=0)
+    return update_fn(p, g, slots, divisor=mean_divisor(n_live, g.device),
+                     at=0)
 
 
 def _process_group_baseline(comm: ProcessGroupComm, g, p, slots, update_fn,
@@ -157,20 +160,21 @@ def _process_group_baseline(comm: ProcessGroupComm, g, p, slots, update_fn,
     if strategy == "allreduce":
         row = g[0]
         if W == 1:
-            return update_fn(p, row, slots)
+            return update_fn(p, row, slots, at=0)
         total = comm.all_reduce(row.float() if row.dtype != torch.float32
                                 else row)
         return update_fn(p, total[None], slots, divisor=mean_divisor(
-            W if n_live is None else n_live, g.device))
+            W if n_live is None else n_live, g.device), at=0)
     rows = comm.gather_to(g[0], 0)
     if comm.rank == 0:
         if W == 1:
-            p2, slots = update_fn(p, rows[0], slots)
+            p2, slots = update_fn(p, rows[0], slots, at=0)
         elif n_live is None:
-            p2, slots = update_fn(p, rows, slots)
+            p2, slots = update_fn(p, rows, slots, at=0)
         else:
             p2, slots = update_fn(p, rows, slots,
-                                  divisor=mean_divisor(n_live, g.device))
+                                  divisor=mean_divisor(n_live, g.device),
+                                  at=0)
     else:
         p2 = torch.empty_like(p)
     return comm.broadcast_from(p2, 0), slots

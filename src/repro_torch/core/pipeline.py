@@ -431,14 +431,17 @@ class WindowedExchange:
             Lw = p.numel() // W
             cols = slice(w * Lw, (w + 1) * Lw)
             self.update_fn(p[cols], g[0, cols], tuple(s[cols] for s in slots),
-                           p_out=p_out[cols])
+                           p_out=p_out[cols], at=cols.start)
             return
+        L = p.numel() // S
+        Lw = L // W
         parts = ring_reduce_scatter(g, self.wire, self.ce, W, w)
         if self.fused_dequant is not None:
             self.fused_dequant(
                 _strip(p, S, W, w), parts, own_strips(g, W, w),
                 tuple(_strip(s, S, W, w) for s in slots),
-                divisor=self.gate, p_out=_strip(p_out, S, W, w))
+                divisor=self.gate, p_out=_strip(p_out, S, W, w),
+                at=tuple(j * L + w * Lw for j in range(S)))
             return
         gsum = self.wire.decode(parts, self.ce)
         del parts
@@ -447,14 +450,13 @@ class WindowedExchange:
         # Python number multiplies by the reciprocal
         gsum.div_(self.divisor)
         if W == 1:                       # the strips are the whole domain
-            self.update_fn(p, gsum, slots, p_out=p_out)
+            self.update_fn(p, gsum, slots, p_out=p_out, at=0)
             return
-        L = p.numel() // S
-        Lw = L // W
         for j in range(S):
             cols = slice(j * L + w * Lw, j * L + (w + 1) * Lw)
             self.update_fn(p[cols], gsum[j * Lw:(j + 1) * Lw],
-                           tuple(s[cols] for s in slots), p_out=p_out[cols])
+                           tuple(s[cols] for s in slots), p_out=p_out[cols],
+                           at=cols.start)
 
     def _dcn_leg(self, rows: torch.Tensor, w: int) -> None:
         """Window w's DCN tier (identity ICI wire, P > 1): x = each pod's
@@ -503,7 +505,8 @@ class WindowedExchange:
         p, p_out, slots, S, W = (self.p, self.p_out, self.slots, self.S,
                                  self.windows)
         if W == 1:
-            self.update_fn(p, rows, slots, divisor=self.divisor, p_out=p_out)
+            self.update_fn(p, rows, slots, divisor=self.divisor, p_out=p_out,
+                           at=0)
             return
         L = p.numel() // S
         Lw = L // W
@@ -511,7 +514,8 @@ class WindowedExchange:
             cols = slice(j * L + w * Lw, j * L + (w + 1) * Lw)
             self.update_fn(p[cols], rows[:, j * Lw:(j + 1) * Lw],
                            tuple(s[cols] for s in slots),
-                           divisor=self.divisor, p_out=p_out[cols])
+                           divisor=self.divisor, p_out=p_out[cols],
+                           at=cols.start)
 
     def finish(self) -> tuple:
         if self.wire is None:
@@ -548,10 +552,10 @@ def exchange_window(rows: torch.Tensor, p: torch.Tensor, slots: tuple,
         sl = slice(j * L + w * Lw, j * L + (w + 1) * Lw)
         sw = tuple(s[sl] for s in slots)
         if rows.shape[0] == 1 and divisor is None:
-            update_fn(p[sl], rows[0, sl], sw, p_out=p_out[sl])
+            update_fn(p[sl], rows[0, sl], sw, p_out=p_out[sl], at=sl.start)
         else:
             update_fn(p[sl], rows[:, sl], sw, divisor=divisor,
-                      p_out=p_out[sl])
+                      p_out=p_out[sl], at=sl.start)
 
 
 class ChunkReadyExchange:
@@ -643,8 +647,8 @@ def pipelined_wire_exchange(comm, g: torch.Tensor,
     in order, then the pull.  g: (W, padded) stacked gradients; p:
     (padded,); ``slots``: the rule's (padded,) state vectors, updated in
     place; ``residual``: the (padded,) f32 ``wire_ef`` slot.
-    ``fused_dequant(p, parts, g_own, slots, divisor=, p_out=)`` fuses the
-    owner's decode, its own rows and the mean into the rule
+    ``fused_dequant(p, parts, g_own, slots, divisor=, p_out=, at=)``
+    fuses the owner's decode, its own rows and the mean into the rule
     (``ShardedOptimizer.kernel_dequant_update``; unused once a cross-pod
     leg follows the ring); without it the partial is decoded, the own
     rows added, the sum divided by N and handed to ``update_fn``.
@@ -781,6 +785,7 @@ class ProcessGroupExchange:
         cols = slice(w * self.Lw, (w + 1) * self.Lw)
         p, p_out = self.p_sh[cols], self.p_out[cols]
         slots = tuple(s[cols] for s in self.slots)
+        at = self.r * self.L + cols.start      # the strip in the group
         if self.wire is None:
             rows = comm.push(_strip(self.row, S, self.windows, w), self.over)
             if self.hier:
@@ -790,7 +795,7 @@ class ProcessGroupExchange:
                     rows = self._cross(rows[0], w, residual=True)
                 else:
                     rows = rows[:1]
-            self._rule(p, rows, slots, p_out)
+            self._rule(p, rows, slots, p_out, at)
             return
         own = self._run(self.r, w)
         if P > 1:
@@ -800,30 +805,30 @@ class ProcessGroupExchange:
             else:
                 gsum = own.float()
             self._rule(p, self._cross(gsum, w, residual=False), slots,
-                       p_out)
+                       p_out, at)
             return
         if S == 1:
-            self.update_fn(p, own, slots, p_out=p_out)
+            self.update_fn(p, own, slots, p_out=p_out, at=at)
             return
         parts = self._ring(w)
         if self.fused_dequant is not None:
             self.fused_dequant(p, parts, own, slots, divisor=self.gate,
-                               p_out=p_out)
+                               p_out=p_out, at=at)
             return
         gsum = self.wire.decode(parts, self.ce)
         del parts
         # divided, by a tensor on the device (see WindowedExchange.window)
         gsum.add_(own).div_(self.divisor)
-        self.update_fn(p, gsum, slots, p_out=p_out)
+        self.update_fn(p, gsum, slots, p_out=p_out, at=at)
 
-    def _rule(self, p, rows, slots, p_out) -> None:
+    def _rule(self, p, rows, slots, p_out, at: int) -> None:
         """The rule on the rows this rank aggregates: pre-aggregated for
         one worker in all, else stacked with the divisor."""
         if self.comm.n_workers == 1:
-            self.update_fn(p, rows[0], slots, p_out=p_out)
+            self.update_fn(p, rows[0], slots, p_out=p_out, at=at)
         else:
             self.update_fn(p, rows, slots, divisor=self.divisor,
-                           p_out=p_out)
+                           p_out=p_out, at=at)
 
     def _cross(self, x: torch.Tensor, w: int, residual: bool
                ) -> torch.Tensor:

@@ -36,7 +36,7 @@ Emulation caveat: workers are rows of the stacked buffer and their
 number is fixed per engine — "leaving" masks a position's gradient out of
 the aggregation (exact: +0.0 contributions).  A true *resize* (fewer
 workers, state migrated through the rebalance plan) is ROADMAP.md queue A
-item 7.
+item 7b.
 """
 from __future__ import annotations
 

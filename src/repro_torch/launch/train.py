@@ -22,6 +22,8 @@ Usage:
   ... --nproc 2 --backend gloo      # one worker a process (gloo)
   ... --workers 4 --pods 2 --strategy hierarchical --wire-format-dcn int8
                                     # PHub's rack deployment, int8 DCN tier
+  ... --tenants 2 --workers 2       # N jobs co-scheduled on one packed
+                                    # rack domain (lr x (i+1), seed i)
 
 Values the port does not implement (fsdp_stream, another architecture, a
 batch that does not split over the workers) raise.
@@ -29,6 +31,7 @@ batch that does not split over the workers) raise.
 from __future__ import annotations
 
 import argparse
+import time
 
 # a collective of --nproc that takes longer is a hung group
 COLLECTIVE_TIMEOUT_S = 1800.0
@@ -58,6 +61,23 @@ def resolve_mode_flags(supervise, elastic, chaos, chaos_faults):
             f"supervised loop. Run {el_src} without {sup_src}, or use "
             f"--chaos-faults alone for supervised fault injection.")
     return supervise, elastic
+
+
+def check_tenants(args) -> None:
+    """Refuse what a co-scheduled run cannot honour, naming the flag."""
+    if args.tenants < 1:
+        raise SystemExit(f"--tenants must be >= 1, got {args.tenants}")
+    if args.tenants == 1:
+        return
+    if args.supervise:
+        raise SystemExit("--supervise drives a solo engine; --tenants > 1 "
+                         "is not supervised (run the jobs separately)")
+    for flag, on in (("--elastic/--chaos", args.elastic),
+                     ("--checkpoint-dir", args.checkpoint_dir)):
+        if on:
+            raise SystemExit(f"{flag} drives a solo engine; --tenants > 1 "
+                             f"co-schedules jobs without it (run the jobs "
+                             f"separately)")
 
 
 def main(argv=None):
@@ -121,9 +141,13 @@ def main(argv=None):
                     help="a seeded FaultSchedule (NaN pushes, gradient "
                          "blow-ups, checkpoint corruption, stalls) for the "
                          "supervisor to absorb (implies --supervise)")
+    ap.add_argument("--tenants", type=int, default=1,
+                    help="co-schedule N jobs of this config (job i at lr x "
+                         "(i+1), seed i) onto one shared rack chunk domain")
     args = ap.parse_args(argv)
     args.supervise, args.elastic = resolve_mode_flags(
         args.supervise, args.elastic, args.chaos, args.chaos_faults)
+    check_tenants(args)
     if args.nproc > 1 or args.backend is not None:
         if args.workers != 1:
             raise SystemExit("--nproc runs one worker a process; drop "
@@ -159,6 +183,8 @@ def _train(comm, device, args):
                      pipeline_windows=args.windows,
                      overlap_backward=args.overlap,
                      loss_chunk=min(1024, args.seq))
+    if args.tenants > 1:
+        return _train_multitenant(comm, device, cfg, tc, args, say)
     engine = PHubEngine(cfg, tc, comm, device=device)
     params, opt = engine.init_state()
     data = SyntheticTokens(cfg, args.batch, args.seq, seed=tc.seed)
@@ -185,6 +211,62 @@ def _train(comm, device, args):
                 checkpoint_every=args.checkpoint_every)
     losses = state.losses
     say(f"[train] done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+    return losses
+
+
+def _train_multitenant(comm, device, cfg, tc, args, say=print):
+    """The co-scheduled loop: N jobs of one config (job i at lr x (i+1),
+    seed i, its own data), attached in one ``attach_services`` and stepped
+    together by ``co_step``.  Returns {job: losses}."""
+    import dataclasses
+
+    import torch
+
+    from ..core import PHubConnectionManager
+    from ..data import SyntheticTokens
+
+    cm = PHubConnectionManager()
+    handles, models, data = [], {}, {}
+    for i in range(args.tenants):
+        ns = f"job{i}"
+        tci = dataclasses.replace(tc, lr=args.lr * (i + 1), seed=i)
+        h = cm.create_service(ns, cfg, tci, comm, device=device)
+        models[ns] = cm.init_service(h)[0]
+        data[ns] = SyntheticTokens(cfg, args.batch, args.seq, seed=i)
+        handles.append(h)
+    cm.attach_services(handles)       # one re-pack for the whole fleet
+    dom = cm.packed_domain
+    say(f"[train] arch={cfg.arch_id} params={cfg.n_params() / 1e6:.1f}M "
+        f"tenants={args.tenants} workers={comm.n_workers} pods={comm.pods} "
+        f"strategy={tc.strategy} wire={tc.wire_format} "
+        f"windows={tc.pipeline_windows} device={device}; packed domain: "
+        + ", ".join(f"{k}: {g.padded:,} ({g.n_shards} shards of "
+                    f"{g.chunks_per_shard} chunks; chunks a shard "
+                    f"{dom.shard_loads(k)})" for k, g in dom.groups.items()))
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+    losses = {h.namespace: [] for h in handles}
+    sync()
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        batches = {ns: d.torch_batch(step, device) for ns, d in data.items()}
+        models, metrics = cm.co_step(handles, models, batches)
+        for ns, m in metrics.items():
+            losses[ns].append(float(m["loss"]))
+        if args.log_every and step % args.log_every == 0:
+            say(f"[train] step {step:4d} " + " ".join(
+                f"{ns}={losses[ns][-1]:.4f}" for ns in losses))
+    sync()
+    dt = time.perf_counter() - t0
+    tput = args.tenants * args.batch * args.seq * args.steps / dt
+    say(f"[train] done: {tput:,.0f} aggregate tok/s over {args.tenants} "
+        f"tenants")
+    for ns, acct in cm.accounting().items():
+        cum = acct["cumulative"]
+        say(f"[train] {ns}: steps={cum['steps']} "
+            f"model_mb={acct['model_bytes'] / 1e6:.1f} "
+            f"share={acct['domain_share']:.2f} "
+            f"pushed_mb={cum['push_bytes'] / 1e6:.1f}")
     return losses
 
 

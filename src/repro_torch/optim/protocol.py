@@ -8,8 +8,9 @@ CUDA kernel at scalar coefficients, one kernel per TPU kernel --
 Nesterov through ``agg_opt_chunks`` (pre-aggregated g) or
 ``multi_agg_opt_chunks`` (stacked g), SGD through ``sgd_opt_chunks`` and
 Adam through ``adam_opt_chunks`` (either g).  Its ``update_fn(p, g,
-slots, divisor=None)`` takes ``g`` either pre-aggregated (same shape as
-``p``) or as stacked worker gradients ``(W, *p.shape)``, which the kernel
+slots, divisor=None, p_out=None, at=None)`` takes ``g`` either
+pre-aggregated (same shape as ``p``) or as stacked worker gradients ``(W,
+*p.shape)``, which the kernel
 averages over dim 0 (summed in worker order, divided by W, or by
 ``divisor``, a one-element f32 tensor on the card) before the rule: that
 is the tall aggregation the stacked exchange fuses into the update
@@ -18,7 +19,9 @@ than ``p``'s length (a window's strip of the stacked buffer, read in
 place).  It returns ``(p', slots')``; Adam's kernel updates its slots in
 place and returns the same tensors.  ``update_fn(..., p_out=buf)`` is the
 windowed exchange's form (``core/pipeline.py``): p' is written into
-``buf`` and every slot is updated in place.  ``tuple_update`` closes
+``buf`` and every slot is updated in place.  ``at``, the strip's offset
+in its dtype group, is for the co-scheduled update and ignored here.
+``tuple_update`` closes
 the plain rule over its coefficients, for a pre-aggregated ``g``;
 ``tree_init`` and ``tree_update`` apply it leaf by leaf over a nested dict
 of tensors (``optim/api.py``'s single-process oracle).
@@ -33,23 +36,40 @@ computes the TPU kernel's body; they agree to rounding, not bitwise.  For
 Adam the protocol keeps the residual-form EMAs ``m + (1-b1)*(g-m)`` in the
 group dtype, the kernel the textbook ``b1*m + (1-b1)*g`` in f32.
 
+The co-scheduler's pieces (``core/engine.py::make_co_train_step``):
+``union_slots`` (the attached tenants' slot sets, same-named slots shared),
+``RuleBinding`` and two forms of the combined update over a packed tenant
+domain.  ``make_combined_update`` is the reference's table form, the plain
+version, on CPU tensors only: every rule runs over the whole vector at
+per-position coefficient tables and mask tables select each position's
+owner rule.  ``make_run_update`` is the port's kernel form: each tenant's
+own rule kernel, at its own scalar coefficients, launched on each of its
+runs that meets the strip (every tenant holds one contiguous run of each
+shard it meets), pad runs copied through untouched.  The exchange tells it
+where a strip starts in the packed group (``at=``); the solo rules ignore
+that.  At every position it computes what the tenant's solo step computes
+there, so a co-scheduled tenant equals its solo run bitwise.
+
 Weight decay is not ported: none of the kernels has a ``+wd*p`` term, and a
 rule without its kernel would leave the card's one route through them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, ClassVar, Optional
+from typing import Callable, ClassVar, Optional, Sequence
 
 import torch
 
 from ..kernels.agg_opt.ref import sqrt_rn
 
 
-def _const(x: float, like: torch.Tensor) -> torch.Tensor:
+def _const(x, like: torch.Tensor) -> torch.Tensor:
     """A Python scalar in ``like``'s dtype, as JAX's weakly typed scalars
     are: in a bf16 body the reference rounds 0.1 to bf16 before the
-    product, where PyTorch would keep it in f32."""
+    product, where PyTorch would keep it in f32.  A tensor (a coefficient
+    table) is cast to it."""
+    if isinstance(x, torch.Tensor):
+        return x.to(like.dtype)
     return torch.tensor(x, dtype=like.dtype)
 
 
@@ -90,13 +110,14 @@ class ShardedOptimizer:
 
     def kernel_dequant_update(self, chunk_elems: int, coefs: tuple,
                               inv_n: float) -> Optional[Callable]:
-        """``upd(p, (q, scales), g_own, slots, divisor=None, p_out=None)
-        -> (p', slots')``: the int8 ring partial decoded, the owner's own
-        rows ``g_own`` added, the mean taken as ``* inv_n`` (or ``/
-        divisor``, the gate's live count on the card) and the rule run,
-        in one kernel; p, g_own and the slots may be a window's runs, and
-        with ``p_out`` p' goes there and the slots are updated in place.
-        None where the rule has no such kernel."""
+        """``upd(p, (q, scales), g_own, slots, divisor=None, p_out=None,
+        at=None) -> (p', slots')``: the int8 ring partial decoded, the
+        owner's own rows ``g_own`` added, the mean taken as ``* inv_n`` (or
+        ``/ divisor``, the gate's live count on the card) and the rule
+        run, in one kernel; p, g_own and the slots may be a window's runs,
+        and with ``p_out`` p' goes there and the slots are updated in
+        place; ``at`` (where the strip sits) is ignored.  None where the
+        rule has no such kernel."""
         return None
 
 
@@ -119,7 +140,7 @@ class NesterovOptimizer(ShardedOptimizer):
         from ..kernels.agg_opt.ops import fused_agg_opt, fused_multi_agg_opt
         lr, mu = coefs
 
-        def upd(p, g, slots, divisor=None, p_out=None):
+        def upd(p, g, slots, divisor=None, p_out=None, at=None):
             if g.dim() == p.dim() + 1:
                 p2, m2 = fused_multi_agg_opt(
                     p, g, slots[0], lr=lr, momentum=mu,
@@ -136,7 +157,8 @@ class NesterovOptimizer(ShardedOptimizer):
         from ..kernels.agg_opt.ops import fused_dequant_agg_opt
         lr, mu = coefs
 
-        def upd(p, parts, g_own, slots, divisor=None, p_out=None):
+        def upd(p, parts, g_own, slots, divisor=None, p_out=None,
+                at=None):
             q, scales = parts
             p2, m2 = fused_dequant_agg_opt(
                 p, q, scales, g_own, slots[0], lr=lr, momentum=mu,
@@ -161,7 +183,7 @@ class SGDOptimizer(ShardedOptimizer):
         from ..kernels.agg_opt.ops import fused_sgd_opt
         (lr,) = coefs
 
-        def upd(p, g, slots, divisor=None, p_out=None):
+        def upd(p, g, slots, divisor=None, p_out=None, at=None):
             return fused_sgd_opt(p, g, lr=lr, chunk_elems=chunk_elems,
                                  divisor=divisor, p_out=p_out), ()
         return upd
@@ -209,7 +231,7 @@ class AdamOptimizer(ShardedOptimizer):
         from ..kernels.agg_opt.ops import fused_adam_opt
         (lr,) = coefs
 
-        def upd(p, g, slots, divisor=None, p_out=None):
+        def upd(p, g, slots, divisor=None, p_out=None, at=None):
             p2, *slots2 = fused_adam_opt(p, g, *slots, lr=lr, b1=self.b1,
                                          b2=self.b2, eps=self.eps,
                                          chunk_elems=chunk_elems,
@@ -232,6 +254,167 @@ def make_sharded_optimizer(tc) -> ShardedOptimizer:
         return AdamOptimizer(b1=tc.adam_b1, b2=tc.adam_b2, eps=tc.adam_eps)
     raise ValueError(f"unknown optimizer {tc.optimizer!r}; expected one of "
                      f"{tuple(OPTIMIZERS)}")
+
+
+# ------------------------------------------------- the co-scheduler's update
+
+def union_slots(opts: Sequence[ShardedOptimizer]) -> tuple[SlotSpec, ...]:
+    """The union of the rules' slot sets, in order of first appearance.
+    Same-named slots are shared buffers (Nesterov's m and Adam's m occupy
+    one packed buffer; each tenant touches only its own ranges) and must
+    agree on dtype."""
+    out: list[SlotSpec] = []
+    seen: dict[str, SlotSpec] = {}
+    for o in opts:
+        for s in o.slots:
+            prev = seen.get(s.name)
+            if prev is None:
+                seen[s.name] = s
+                out.append(s)
+            elif prev.dtype != s.dtype:
+                raise ValueError(
+                    f"slot {s.name!r} declared with conflicting dtypes "
+                    f"{prev.dtype!r} vs {s.dtype!r}")
+    return tuple(out)
+
+
+@dataclass(frozen=True)
+class RuleBinding:
+    """One rule of a combined update: the union-slot indices it reads and
+    writes, its coefficients (a float, or ``("aux", i)``: table i of the
+    table form), its member mask's table index (None for a single-rule
+    update, which selects nothing) and, for the kernel form, the packed
+    runs ``(packed_off, length)`` its tenant owns."""
+    opt: ShardedOptimizer
+    slot_idx: tuple[int, ...]
+    coefs: tuple
+    mask_aux: Optional[int] = None
+    runs: tuple[tuple[int, int], ...] = ()
+
+
+def make_combined_update(bindings: Sequence[RuleBinding]) -> Callable:
+    """The reference's table form, the plain version: ``upd(p, g, slots,
+    *aux) -> (p', slots')`` over the whole packed vector (g
+    pre-aggregated), every rule's protocol body at its coefficients (a
+    table index reads ``aux``) and, with more than one rule, each position
+    selected from its owner's rule by the mask tables (exact 0/1
+    selections); positions nobody owns (pad) keep their inputs in the
+    multi-rule case and rely on the rules' zero fixed points in the
+    single-rule case.  CPU tensors only: on the card the co-scheduled
+    update is ``make_run_update``'s kernels."""
+    single = len(bindings) == 1
+
+    def upd(p, g, slots, *aux):
+        if p.device.type != "cpu":
+            raise ValueError(
+                "the table form is the co-scheduled update's plain version "
+                "and takes CPU tensors; a tensor on the card goes through "
+                "make_run_update's kernels")
+        new_p = p
+        new_slots = list(slots)
+        for b in bindings:
+            coefs = tuple(aux[c[1]] if isinstance(c, tuple) else c
+                          for c in b.coefs)
+            sub = tuple(slots[i] for i in b.slot_idx)
+            cand_p, cand_s = b.opt.update(p, g, sub, coefs)
+            if single:
+                new_p = cand_p
+                for i, s2 in zip(b.slot_idx, cand_s):
+                    new_slots[i] = s2
+            else:
+                mask = aux[b.mask_aux] != 0
+                new_p = torch.where(mask, cand_p, new_p)
+                for i, s2 in zip(b.slot_idx, cand_s):
+                    new_slots[i] = torch.where(mask, s2, new_slots[i])
+        return new_p, tuple(new_slots)
+    return upd
+
+
+def _meets(runs, at: int, n: int):
+    """(lo, hi) of each run's part in the strip [at, at + n), relative to
+    the strip."""
+    for off, length in runs:
+        lo, hi = max(off, at), min(off + length, at + n)
+        if lo < hi:
+            yield lo - at, hi - at
+
+
+class RunUpdate:
+    """The kernel form of the co-scheduled update for one packed dtype
+    group: ``upd(p, g, slots, divisor=None, p_out=None, at=0)`` with the
+    exchange's update contract (g pre-aggregated, or stacked rows any
+    distance apart; ``at`` the strip's offset in the packed group).  Each
+    binding's ``kernel_update``, at its scalar coefficients, is launched
+    once on each of its runs that meets the strip, on its union slots
+    (updated in place), p' into ``p_out`` (a new buffer when None); p is
+    copied into the pad runs' part of p'.  ``dequant(inv_n)`` is the int8
+    wire's tail in the same form (None when a bound rule has no tail
+    kernel).  Returns (p', slots), the slots the tensors given."""
+
+    def __init__(self, bindings: Sequence[RuleBinding], chunk_elems: int,
+                 pad: tuple = ()):
+        for b in bindings:
+            if any(isinstance(c, tuple) for c in b.coefs):
+                raise ValueError("the kernel form takes scalar coefficients, "
+                                 "one binding a tenant")
+        self.bindings, self.ce, self.pad = tuple(bindings), chunk_elems, pad
+        self.kernels = tuple(b.opt.kernel_update(chunk_elems, b.coefs)
+                             for b in self.bindings)
+
+    def __call__(self, p, g, slots, divisor=None, p_out=None, at=0):
+        n = p.numel()
+        if p_out is None:
+            p_out = torch.empty_like(p)
+        for lo, hi in _meets(self.pad, at, n):
+            p_out[lo:hi].copy_(p[lo:hi])
+        for b, k in zip(self.bindings, self.kernels):
+            for lo, hi in _meets(b.runs, at, n):
+                k(p[lo:hi], g[..., lo:hi],
+                  tuple(slots[i][lo:hi] for i in b.slot_idx),
+                  divisor=divisor, p_out=p_out[lo:hi])
+        return p_out, slots
+
+    def dequant(self, inv_n: float) -> Optional[Callable]:
+        """``upd(p, (q, scales), g_own, slots, divisor=None, p_out=None,
+        at=0)``: each binding's ``kernel_dequant_update`` launched on each
+        of its runs meeting each row of p (a 1-D strip at offset ``at``,
+        or (R, Lr) runs at the offsets ``at[r]``, q and the scales packed
+        row after row); None when a bound rule has no tail kernel."""
+        ks = tuple(b.opt.kernel_dequant_update(self.ce, b.coefs, inv_n)
+                   for b in self.bindings)
+        if any(k is None for k in ks):
+            return None
+        ce = self.ce
+
+        def upd(p, parts, g_own, slots, divisor=None, p_out=None, at=0):
+            q, scales = parts
+            if p_out is None:
+                p_out = torch.empty_like(p)
+            flat = p.dim() == 1
+            two = (lambda t: t[None]) if flat else (lambda t: t)
+            rows, own, out = two(p), two(g_own), two(p_out)
+            sl = tuple(two(s) for s in slots)
+            Lr = rows.shape[1]
+            for r, a0 in enumerate((at,) if flat else at):
+                base = r * Lr
+                for lo, hi in _meets(self.pad, a0, Lr):
+                    out[r, lo:hi].copy_(rows[r, lo:hi])
+                for b, k in zip(self.bindings, ks):
+                    for lo, hi in _meets(b.runs, a0, Lr):
+                        k(rows[r, lo:hi],
+                          (q[base + lo:base + hi],
+                           scales[(base + lo) // ce:(base + hi) // ce]),
+                          own[r, lo:hi],
+                          tuple(sl[i][r, lo:hi] for i in b.slot_idx),
+                          divisor=divisor, p_out=out[r, lo:hi])
+            return p_out, slots
+        return upd
+
+
+def make_run_update(bindings: Sequence[RuleBinding], group) -> RunUpdate:
+    """The kernel form for one ``PackedGroup`` (its chunk size and pad
+    runs)."""
+    return RunUpdate(bindings, group.chunk_elems, group.pad_runs())
 
 
 def tuple_update(opt: ShardedOptimizer, coefs: tuple) -> Callable:

@@ -41,7 +41,8 @@ def test_port_imports_no_jax_and_no_repro():
                  "resilience.watchdog", "checkpoint.checkpointer",
                  "kernels.swa_attn.ops", "kernels.decode_attn.ops",
                  "kernels.rwkv_scan.ops", "models.rwkv", "launch.serve",
-                 "core.client", "optim.api", "optim.sgd", "optim.adam"):
+                 "core.client", "optim.api", "optim.sgd", "optim.adam",
+                 "core.api", "core.partition", "core.cost_model"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
@@ -49,12 +50,15 @@ def test_port_imports_no_jax_and_no_repro():
 def test_entry_points_default_to_cuda():
     from repro_torch.convert import (cache_from_numpy, opt_from_numpy,
                                      params_from_numpy)
-    from repro_torch.core import PHubClient, PHubEngine
+    from repro_torch.core import (PHubClient, PHubConnectionManager,
+                                  PHubEngine, ProcessGroupComm)
     from repro_torch.data import SyntheticTokens
     from repro_torch.models import DecoderLM, init_cache
 
     for fn, arg in ((PHubEngine.__init__, "device"),
                     (PHubClient.__init__, "device"),
+                    (ProcessGroupComm.__init__, "device"),
+                    (PHubConnectionManager.create_service, "device"),
                     (DecoderLM.__init__, "device"),
                     (SyntheticTokens.torch_batch, "device"),
                     (params_from_numpy, "device"),

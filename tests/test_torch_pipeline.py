@@ -319,7 +319,7 @@ def test_chunk_ready_waits_for_every_leaf_of_a_window():
     grads, p = torch.zeros(4, g.padded), torch.zeros(g.padded)
     launched = []
 
-    def upd(p, g_, slots, divisor=None, p_out=None):
+    def upd(p, g_, slots, divisor=None, p_out=None, at=None):
         launched.append(p.storage_offset())
         return p_out, slots
 

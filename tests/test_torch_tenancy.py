@@ -1,0 +1,829 @@
+"""The port's co-scheduled rack (``core/partition.py``, the tenant part of
+``core/chunking.py``, ``optim/protocol.py``'s combined updates,
+``core/engine.py::make_co_train_step``) against the JAX package's.
+
+1. ``lpt_partition``, ``bin_loads``, ``makespan_ratio``, ``quota_movement``
+   and ``cochunk_counts`` equal the reference's; LPT keeps the list
+   scheduling bound (mean + max item), which is what Graham's argument
+   gives without the optimum.  ``pack_domains`` over two reduced
+   llama3.2-1b plans (d_model 64 and 128, as ``check_tenancy.py``) equals
+   the reference's: runs, layout, ``coef_vector``, ``shard_loads``,
+   ``tenant_bytes`` and the chunk-size refusal.
+2. ``union_slots`` equals the reference's; the combined update's table
+   form equals the reference's ``make_combined_update`` on integer-valued
+   inputs bitwise (Nesterov, SGD, mixed), and the per-run kernel form
+   (``RunUpdate``, the plain versions on the CPU) equals the table form
+   and each tenant's solo update on its own runs bitwise (Adam: the
+   kernel's textbook EMAs against the protocol's residual form within
+   ``ADAM_ATOL``), pad runs untouched; on a window's strip (``at``) too.
+3. ``make_co_train_step`` against the reference's, both driven by the
+   same integer-valued worker pushes (each package's loss is the dot
+   product of its parameters with a fixed push, so its gradient is the
+   push exactly), the reference on 4 forced host devices in one
+   subprocess (``AxisType.Auto``): sharded_ps and hierarchical (2 pods x
+   2) in 1 and 2 windows, bitwise; Nesterov + SGD bitwise; Nesterov +
+   Adam within ``ADAM_ATOL``; the int8 wire within ``INT8_RTOL`` (XLA
+   divides the int8 scale as ``* (1/127)``, ROADMAP.md queue C); and the
+   lifecycle (solo 2, attach with momentum, co 2, detach, solo 2)
+   bitwise, the packed momentum carried across by ``convert``.
+4. Inside the port, reduced models trained for real: every co-scheduled
+   tenant equals its solo run bitwise (losses and parameters) under
+   sharded_ps and hierarchical in 1 and 2 windows, a 3-of-4 membership,
+   Nesterov + SGD and Nesterov + Adam; the table form of the co-step
+   equals the kernel form; the lifecycle equals 6 solo steps.  Over the
+   int8 wire the co-step equals itself in 2 windows and 1.
+"""
+import dataclasses
+import functools
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import chunking as jax_chunking
+from repro.core import partition as jax_partition
+from repro.optim import protocol as jax_protocol
+from repro_torch.configs import TrainConfig, get_arch, reduced
+from repro_torch.convert import (packed_opt_from_numpy, packed_opt_to_numpy,
+                                 params_from_numpy)
+from repro_torch.core import (PHubConnectionManager, StackedComm,
+                              pack_domains, partition)
+from repro_torch.core.chunking import build_plan, leaf_paths
+from repro_torch.core.engine import co_slot_specs
+from repro_torch.core.pipeline import effective_windows
+from repro_torch.data import SyntheticTokens
+from repro_torch.models import param_specs
+from repro_torch.optim import protocol
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHUNK = 512                     # 2 windows take effect at S = 4 and S = 2
+D_MODELS = {"A": 64, "B": 128}
+ADAM_EPS = 1e-3
+ADAM_ATOL = 1e-6                # textbook vs residual-form EMAs (queue C)
+# port vs XLA's int8 scale (``* (1/127)``) on integer pushes: a code that
+# flips moves its element by one step of its chunk's grid, 1/127 of the
+# chunk's peak; p and m stay within 1% of their largest value (p: of the
+# change), wire_ef (at most half a step of the pull's grid) within two
+# steps, 4 * max|wire_ef|
+INT8_RTOL = 0.01
+B, T = 4, 8
+TIMEOUT = 600
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def cfg_of(ns):
+    return reduced(get_arch("llama3.2-1b"), d_model=D_MODELS[ns])
+
+
+def plans(n_shards, chunk=CHUNK):
+    return {ns: build_plan(param_specs(cfg_of(ns)), chunk_bytes=chunk,
+                           n_shards=n_shards) for ns in D_MODELS}
+
+
+def jax_plans(n_shards, chunk=CHUNK):
+    out = {}
+    for ns, d in D_MODELS.items():
+        like = {path: jax.ShapeDtypeStruct(tuple(t.shape), jnp.float32)
+                for path, t in leaf_paths(param_specs(cfg_of(ns)))}
+        # rebuild the nesting from the port's paths
+        tree: dict = {}
+        for path, sd in like.items():
+            keys = [k.strip("'") for k in path[1:-1].split("][")]
+            node = tree
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = sd
+        out[ns] = jax_chunking.build_plan(tree, chunk_bytes=chunk,
+                                          n_shards=n_shards)
+    return out
+
+
+# ------------------------------------------------ 1. partition, packing
+
+@pytest.mark.parametrize("seed", range(6))
+def test_partition_equals_the_reference(seed):
+    rng = np.random.default_rng(seed)
+    costs = [int(c) for c in rng.integers(1, 10_000, int(rng.integers(1,
+                                                                      120)))]
+    n_bins = int(rng.integers(1, 16))
+    a = partition.lpt_partition(costs, n_bins)
+    assert a == jax_partition.lpt_partition(costs, n_bins)
+    loads = partition.bin_loads(costs, a, n_bins)
+    assert loads == jax_partition.bin_loads(costs, a, n_bins)
+    assert sum(loads) == sum(costs)
+    assert partition.makespan_ratio(costs, a, n_bins) == \
+        jax_partition.makespan_ratio(costs, a, n_bins)
+    # list scheduling: the last job placed starts at most at the mean
+    assert max(loads) <= sum(costs) / n_bins + max(costs)
+    chunks = [int(c) for c in rng.integers(0, 300, int(rng.integers(1, 5)))]
+    S = int(rng.integers(1, 9))
+    got = partition.cochunk_counts(chunks, S)
+    assert got == jax_partition.cochunk_counts(chunks, S)
+    counts, pad = got
+    assert [sum(r) for r in counts] == chunks
+    per = [sum(r[s] for r in counts) + pad[s] for s in range(S)]
+    assert len(set(per)) == 1
+    other = partition.cochunk_counts(chunks[::-1], S + 1)[0][::-1]
+    assert partition.quota_movement(counts, other) == \
+        jax_partition.quota_movement(counts, other)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_pack_domains_equals_the_reference(n_shards):
+    port = pack_domains(plans(n_shards), n_shards=n_shards,
+                        chunk_bytes=CHUNK)
+    ref = jax_chunking.pack_domains(jax_plans(n_shards),
+                                    n_shards=n_shards, chunk_bytes=CHUNK)
+    assert port.tenants == ref.tenants and list(port.groups) == \
+        list(ref.groups)
+    values = {"A": 0.25, "B": 0.5}
+    for key, g in port.groups.items():
+        r = ref.groups[key]
+        assert (g.chunk_elems, g.n_shards, g.shard_len, g.padded,
+                g.chunks_per_shard, g.n_chunks) == \
+            (r.chunk_elems, r.n_shards, r.shard_len, r.padded,
+             r.chunks_per_shard, r.n_chunks)
+        assert [(s.tenant, s.total, s.padded, s.runs) for s in g.slots] == \
+            [(s.tenant, s.total, s.padded, s.runs) for s in r.slots]
+        assert list(g.layout) == list(r.layout)
+        assert g.key == key
+        np.testing.assert_array_equal(port.coef_vector(
+            key, values, fill=-1.0).numpy(), ref.coef_vector(
+            key, values, fill=-1.0))
+        assert port.shard_loads(key) == ref.shard_loads(key)
+        # every tenant holds one contiguous run of each shard it meets
+        for s in g.slots:
+            shards = [poff // g.shard_len for _, poff, _ in s.runs]
+            assert len(shards) == len(set(shards))
+    for ns in D_MODELS:
+        assert port.tenant_bytes(ns) == ref.tenant_bytes(ns)
+
+
+def test_pack_unpack_and_leaf_pieces_round_trip():
+    port = pack_domains(plans(4), n_shards=4, chunk_bytes=CHUNK)
+    (key,) = port.groups
+    g = port.groups[key]
+    rng = np.random.default_rng(0)
+    flats = {s.tenant: torch.from_numpy(rng.standard_normal(
+        s.padded).astype(np.float32)) for s in g.slots}
+    packed = port.pack(key, flats)
+    for off, n in g.pad_runs():
+        assert not packed[off:off + n].any()
+    for ns, f in flats.items():
+        assert torch.equal(port.unpack(key, packed, ns), f)
+        plan_group = plans(4)[ns].groups[0]
+        pieces, tail = port.leaf_pieces(key, ns, plan_group)
+        out = torch.zeros(g.padded)
+        leaves = {p: f[o:o + n] for p, o, n in zip(
+            plan_group.paths, np.cumsum((0,) + plan_group.sizes[:-1]),
+            plan_group.sizes)}
+        for path, loff, poff, n in pieces:
+            out[poff:poff + n] = leaves[path][loff:loff + n]
+        assert sum(n for *_, n in pieces) == plan_group.total
+        assert sum(n for _, n in tail) == g.slot(ns).padded - \
+            plan_group.total
+        mine = port.unpack(key, out, ns)
+        assert torch.equal(mine[:plan_group.total],
+                           f[:plan_group.total])
+
+
+def test_pack_domains_refuses_a_mismatched_chunk_size():
+    tree = {"w": torch.empty(4096, device="meta")}
+    a = build_plan(tree, chunk_bytes=1024, n_shards=2)
+    b = build_plan(tree, chunk_bytes=512, n_shards=2)
+    with pytest.raises(ValueError, match="chunk size"):
+        pack_domains({"A": a, "B": b}, n_shards=2, chunk_bytes=1024)
+
+
+# ------------------------------------------- 2. the combined updates
+
+RULES = {"nesterov": (protocol.NesterovOptimizer(),
+                      jax_protocol.NesterovOptimizer()),
+         "sgd": (protocol.SGDOptimizer(), jax_protocol.SGDOptimizer()),
+         "adam": (protocol.AdamOptimizer(eps=ADAM_EPS),
+                  jax_protocol.AdamOptimizer(eps=ADAM_EPS))}
+COEFS = {"A": {"lr": 0.25, "momentum": 0.5},
+         "B": {"lr": 0.125, "momentum": 0.25}}
+
+
+@pytest.mark.parametrize("rules", [("nesterov",), ("nesterov", "adam"),
+                                   ("sgd", "nesterov", "adam")])
+def test_union_slots_equal_the_reference(rules):
+    got = protocol.union_slots([RULES[r][0] for r in rules])
+    want = jax_protocol.union_slots([RULES[r][1] for r in rules])
+    assert [(s.name, s.dtype) for s in got] == \
+        [(s.name, s.dtype) for s in want]
+
+
+def _bindings(domain, key, rule_of, pkg):
+    """Both forms' bindings for tenants A, B under ``rule_of``: (table
+    bindings, aux tables, run bindings), the reference's recipe."""
+    g = domain.groups[key]
+    opts = {ns: RULES[rule_of[ns]][pkg] for ns in rule_of}
+    union = (protocol if pkg == 0 else jax_protocol).union_slots(
+        list(opts.values()))
+    index = {s.name: i for i, s in enumerate(union)}
+    rules: dict = {}
+    for ns, o in opts.items():
+        rules.setdefault(o, []).append(ns)
+    multi = len(rules) > 1
+    aux, table = [], []
+    Binding = (protocol if pkg == 0 else jax_protocol).RuleBinding
+    for o, members in rules.items():
+        coefs = []
+        for name in o.coef_names:
+            vals = {ns: COEFS[ns][name] for ns in members}
+            if len(set(vals.values())) == 1:
+                coefs.append(next(iter(vals.values())))
+            else:
+                aux.append(domain.coef_vector(
+                    key, {ns: vals.get(ns, 0.0) for ns in rule_of}))
+                coefs.append(("aux", len(aux) - 1))
+        mask = None
+        if multi:
+            aux.append(domain.coef_vector(
+                key, {ns: 1.0 if ns in members else 0.0 for ns in rule_of}))
+            mask = len(aux) - 1
+        table.append(Binding(opt=o, slot_idx=tuple(index[n] for n in
+                                                   o.slot_names),
+                             coefs=tuple(coefs), mask_aux=mask))
+    runs = [protocol.RuleBinding(
+        opt=opts[ns], slot_idx=tuple(index[n] for n in opts[ns].slot_names),
+        coefs=tuple(COEFS[ns][n] for n in opts[ns].coef_names),
+        runs=tuple((poff, n) for _, poff, n in g.slot(ns).runs))
+        for ns in rule_of] if pkg == 0 else None
+    return table, aux, runs, union
+
+
+def _int_inputs(g, union, seed):
+    rng = np.random.default_rng(seed)
+    n = g.padded
+    covered = np.zeros(n, bool)
+    for s in g.slots:
+        for _, poff, ln in s.runs:
+            covered[poff:poff + ln] = True
+    p = rng.integers(-4, 5, n).astype(np.float32)
+    gr = rng.integers(-8, 9, n).astype(np.float32)
+    slots = [rng.integers(-4, 5, n).astype(np.float32) for _ in union]
+    for i, s in enumerate(union):
+        if s.name in ("v", "k1", "k2"):
+            slots[i] = np.zeros(n, np.float32)
+    for a in (p, gr, *slots):
+        a[~covered] = 0
+    return p, gr, slots, covered
+
+
+@pytest.mark.parametrize("rule_of", [
+    {"A": "nesterov", "B": "nesterov"}, {"A": "sgd", "B": "sgd"},
+    {"A": "nesterov", "B": "sgd"}, {"A": "nesterov", "B": "adam"}],
+    ids=["nesterov", "sgd", "nesterov+sgd", "nesterov+adam"])
+def test_combined_update_forms_equal_the_reference_and_solo(rule_of):
+    port = pack_domains(plans(4), n_shards=4, chunk_bytes=CHUNK)
+    ref = jax_chunking.pack_domains(jax_plans(4), n_shards=4,
+                                    chunk_bytes=CHUNK)
+    (key,) = port.groups
+    g = port.groups[key]
+    table, aux, runs, union = _bindings(port, key, rule_of, 0)
+    rtable, raux, _, _ = _bindings(ref, key, rule_of, 1)
+    p, gr, slots, covered = _int_inputs(g, union, 1)
+    adam = "adam" in rule_of.values()
+    tp, ts = protocol.make_combined_update(table)(
+        torch.from_numpy(p), torch.from_numpy(gr),
+        tuple(torch.from_numpy(s) for s in slots), *aux)
+    rp, rs = jax_protocol.make_combined_update(rtable)(
+        jnp.asarray(p), jnp.asarray(gr), tuple(jnp.asarray(s)
+                                               for s in slots),
+        *(jnp.asarray(a) for a in raux))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(rp))
+    for a, b in zip(ts, rs):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    # the kernel form, on the whole group and window by window
+    for strips in (1, 2):
+        pk, sk = torch.from_numpy(p.copy()), tuple(
+            torch.from_numpy(s.copy()) for s in slots)
+        out = torch.empty_like(pk)
+        upd = protocol.make_run_update(runs, g)
+        L = g.shard_len // strips
+        for j in range(g.n_shards * strips):
+            sl = slice(j * L, (j + 1) * L)
+            upd(pk[sl], torch.from_numpy(gr[None, sl].copy()).expand(
+                4, -1) * 1.0, tuple(s[sl] for s in sk),
+                p_out=out[sl], at=sl.start)
+        for a, b in ((out, tp),) + tuple(zip(sk, ts)):
+            if adam:
+                assert torch.max(torch.abs(a - b)) <= ADAM_ATOL
+            else:
+                assert torch.equal(a, b)
+        assert torch.equal(out[~torch.from_numpy(covered)],
+                           pk[~torch.from_numpy(covered)])
+        # each tenant's runs equal its solo update on its own flat
+        for b in runs:
+            kern = b.opt.kernel_update(g.chunk_elems, b.coefs)
+            for off, n in b.runs:
+                sl = slice(off, off + n)
+                solo_p, solo_s = kern(
+                    torch.from_numpy(p[sl].copy()),
+                    torch.from_numpy(np.stack([gr[sl]] * 4)),
+                    tuple(torch.from_numpy(slots[i][sl].copy())
+                          for i in b.slot_idx))
+                assert torch.equal(out[sl], solo_p)
+                for i, v in zip(b.slot_idx, solo_s):
+                    assert torch.equal(sk[i][sl], v)
+
+
+def test_table_form_refuses_the_card():
+    upd = protocol.make_combined_update([protocol.RuleBinding(
+        opt=protocol.SGDOptimizer(), slot_idx=(), coefs=(0.1,))])
+    with pytest.raises(ValueError, match="CPU tensors"):
+        upd(torch.zeros(4, device="meta"), torch.zeros(4, device="meta"), ())
+
+
+# --------------------------------- 3. the co-step against the reference
+
+def ref_cases() -> list:
+    out = []
+    for st in ("sharded_ps", "hierarchical"):
+        for win in (1, 2):
+            out.append((f"{st}-win{win}", dict(
+                kind="co", strategy=st, windows=win,
+                rules={"A": "nesterov", "B": "nesterov"}, wire="identity")))
+    out.append(("nesterov+sgd", dict(kind="co", strategy="sharded_ps",
+                                     windows=1, wire="identity",
+                                     rules={"A": "nesterov", "B": "sgd"})))
+    out.append(("nesterov+adam", dict(kind="co", strategy="sharded_ps",
+                                      windows=2, wire="identity",
+                                      rules={"A": "nesterov", "B": "adam"})))
+    out.append(("int8", dict(kind="co", strategy="sharded_ps", windows=2,
+                             wire="int8",
+                             rules={"A": "nesterov", "B": "nesterov"})))
+    out.append(("lifecycle", dict(kind="lifecycle", strategy="sharded_ps",
+                                  windows=2, wire="identity",
+                                  rules={"A": "nesterov", "B": "nesterov"})))
+    return out
+
+
+STEPS = 3
+
+
+def tenant_tc(c, ns) -> dict:
+    return dict(optimizer=c["rules"][ns], lr=COEFS[ns]["lr"],
+                momentum=COEFS[ns]["momentum"], adam_eps=ADAM_EPS,
+                strategy=c["strategy"], pipeline_windows=c["windows"],
+                chunk_size_bytes=CHUNK, wire_format=c["wire"],
+                loss_chunk=T)
+
+
+def n_params(ns) -> int:
+    return sum(t.numel() for _, t in leaf_paths(param_specs(cfg_of(ns))))
+
+
+_REF_SCRIPT = r"""
+import json
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.configs import ARCHS, TrainConfig, reduced
+from repro.core import PHubConnectionManager
+from repro.core.engine import PHubEngine
+
+spec_path, src, dst = sys.argv[1:4]
+spec = json.load(open(spec_path))
+d = np.load(src)
+Auto = jax.sharding.AxisType.Auto
+
+
+def build_loss_fn(self, batch_shapes):
+    # the dot product of the parameters with this worker's push: its
+    # gradient is the push exactly
+    def loss_fn(params, batch):
+        flat = jnp.concatenate([x.reshape(-1)
+                                for x in jax.tree.leaves(params)])
+        loss = jnp.sum(flat * batch["G"][0])
+        return loss, loss
+    return loss_fn
+
+
+PHubEngine.build_loss_fn = build_loss_fn
+out = {}
+
+
+def flat(tree):
+    return np.concatenate([np.asarray(x, np.float32).reshape(-1)
+                           for x in jax.tree.leaves(tree)])
+
+
+def put(tree, a):
+    leaves, treedef = jax.tree.flatten(tree)
+    res, off = [], 0
+    for x in leaves:
+        n = int(np.prod(x.shape))
+        res.append(jax.device_put(jnp.asarray(a[off:off + n].reshape(
+            x.shape)), x.sharding))
+        off += n
+    return jax.tree.unflatten(treedef, res)
+
+
+def dump_opt(prefix, opt):
+    for key, slots in opt.items():
+        for name, v in slots.items():
+            out[f"{prefix}/{key}/{name}"] = np.asarray(v).reshape(1, -1)
+
+
+for name, c in spec["cases"]:
+    if c["strategy"] == "hierarchical":
+        mesh = jax.make_mesh((2, 2, 1), ("pod", "data", "model"),
+                             axis_types=(Auto,) * 3)
+    else:
+        mesh = jax.make_mesh((4, 1), ("data", "model"),
+                             axis_types=(Auto,) * 2)
+    cm = PHubConnectionManager()
+    hs, params, opts, batches = [], {}, {}, {}
+    for ns, dm in spec["d_models"].items():
+        cfg = reduced(ARCHS["llama3.2-1b"], d_model=dm)
+        h = cm.create_service(ns, cfg, TrainConfig(**c["tc"][ns]), mesh)
+        p, o = cm.init_service(h, jax.random.PRNGKey(0))
+        params[ns] = put(p, d[f"{name}/{ns}/p0"])
+        opts[ns] = o
+        batches[ns] = {"tokens": np.zeros((spec["B"], spec["T"]), np.int32),
+                       "labels": np.zeros((spec["B"], spec["T"]), np.int32),
+                       "G": d[f"{name}/{ns}/G"]}
+        hs.append(h)
+    if c["kind"] == "co":
+        cm.attach_services(hs)
+        for _ in range(spec["steps"]):
+            params, _ = cm.co_step(hs, params, batches)
+        dump_opt(f"{name}/opt", cm._co.opt)
+    else:
+        for h in hs:
+            ns = h.namespace
+            for _ in range(2):
+                params[ns], opts[ns], _ = cm.push_pull(h, params[ns],
+                                                       opts[ns], batches[ns])
+        for h in hs:
+            cm.attach_service(h, opt=opts[h.namespace])
+        dump_opt(f"{name}/attached", cm._co.opt)
+        for _ in range(2):
+            params, _ = cm.co_step(hs, params, batches)
+        for h in hs:
+            opts[h.namespace] = cm.detach_service(h)
+        for h in hs:
+            ns = h.namespace
+            for _ in range(2):
+                params[ns], opts[ns], _ = cm.push_pull(h, params[ns],
+                                                       opts[ns], batches[ns])
+            for key, slots in opts[ns].items():
+                for slot, v in slots.items():
+                    out[f"{name}/{ns}/{slot}"] = np.asarray(v).reshape(-1)
+    for ns in params:
+        out[f"{name}/{ns}/p"] = flat(params[ns])
+np.savez(dst, **out)
+"""
+
+
+def ref_inputs(name) -> dict:
+    rng = np.random.default_rng(sum(map(ord, name)))
+    out = {}
+    for ns in D_MODELS:
+        n = n_params(ns)
+        out[f"{name}/{ns}/p0"] = rng.integers(-4, 5, n).astype(np.float32)
+        out[f"{name}/{ns}/G"] = rng.integers(-8, 9, (4, n)).astype(
+            np.float32)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def reference_results(tmp: str) -> tuple:
+    cases = ref_cases()
+    arrays = {}
+    for name, _ in cases:
+        arrays.update(ref_inputs(name))
+    spec, src, dst = (os.path.join(tmp, f) for f in
+                      ("cases.json", "in.npz", "out.npz"))
+    with open(spec, "w") as f:
+        json.dump({"cases": [(n, dict(c, tc={ns: tenant_tc(c, ns)
+                                             for ns in D_MODELS}))
+                             for n, c in cases],
+                   "d_models": D_MODELS, "B": B, "T": T, "steps": STEPS}, f)
+    np.savez(src, **arrays)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", _REF_SCRIPT, spec, src, dst],
+                         env=env, capture_output=True, text=True,
+                         timeout=TIMEOUT)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return dict(np.load(dst)), arrays
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return reference_results(str(tmp_path_factory.mktemp("ref_tenancy")))
+
+
+def push_loss(G: np.ndarray):
+    """The port's counterpart of the reference script's loss: the dot
+    product of the parameters with the push of the worker whose index the
+    batch slice's first token holds."""
+    G = torch.from_numpy(G)
+
+    def loss_fn(model, tokens, labels):
+        w = int(tokens[0, 0])
+        flat = torch.cat([t.reshape(-1)
+                          for _, t in leaf_paths(model.param_tree())])
+        return (flat * G[w]).sum()
+    return lambda: loss_fn
+
+
+def worker_batch(W: int = 4) -> dict:
+    tokens = torch.zeros((B, T), dtype=torch.long)
+    tokens[:, 0] = torch.arange(B) // (B // W)
+    return {"tokens": tokens, "labels": torch.zeros_like(tokens)}
+
+
+def model_from(ns, flat: np.ndarray):
+    tree, off = {}, 0
+    for path, t in leaf_paths(param_specs(cfg_of(ns))):
+        n = t.numel()
+        keys = [k.strip("'") for k in path[1:-1].split("][")]
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = flat[off:off + n].reshape(tuple(t.shape)).copy()
+        off += n
+    return params_from_numpy(cfg_of(ns), tree, device="cpu")
+
+
+def flat_params(model) -> np.ndarray:
+    return np.concatenate([t.detach().numpy().reshape(-1)
+                           for _, t in leaf_paths(model.param_tree())])
+
+
+def port_manager(name, c, arrays):
+    pods = 2 if c["strategy"] == "hierarchical" else 1
+    comm = StackedComm(4, pods)
+    cm = PHubConnectionManager()
+    hs, models = [], {}
+    for ns in D_MODELS:
+        h = cm.create_service(ns, cfg_of(ns), TrainConfig(**tenant_tc(c, ns)),
+                              comm, device="cpu")
+        cm.connect_service(h).build_loss_fn = push_loss(
+            arrays[f"{name}/{ns}/G"])
+        models[ns] = model_from(ns, arrays[f"{name}/{ns}/p0"])
+        hs.append(h)
+    return cm, hs, models
+
+
+@pytest.mark.parametrize("name,case", ref_cases(),
+                         ids=[n for n, _ in ref_cases()])
+def test_co_step_equals_the_reference(reference, name, case):
+    ref, arrays = reference
+    cm, hs, models = port_manager(name, case, arrays)
+    batches = {ns: worker_batch() for ns in D_MODELS}
+    adam = "adam" in case["rules"].values()
+    int8 = case["wire"] == "int8"
+    if case["kind"] == "co":
+        cm.attach_services(hs)
+        g = cm.packed_domain.groups["float32"]
+        assert effective_windows(g, case["windows"]) == case["windows"]
+        for _ in range(STEPS):
+            models, _ = cm.co_step(hs, models, batches)
+        for key, slots in cm._co.opt.items():
+            for slot, v in slots.items():
+                want = ref[f"{name}/opt/{key}/{slot}"].reshape(-1)
+                got = v.numpy().reshape(-1)
+                assert got.shape == want.shape, slot
+                err = np.max(np.abs(got - want))
+                if adam:
+                    assert err <= ADAM_ATOL, slot
+                elif int8:
+                    assert err <= (4 if slot == "wire_ef" else INT8_RTOL) \
+                        * np.max(np.abs(want)), slot
+                else:
+                    np.testing.assert_array_equal(got, want, err_msg=slot)
+    else:
+        opts = {}
+        for h in hs:
+            m, o = models[h.namespace], cm.connect_service(h).init_opt()
+            for _ in range(2):
+                m, o, _ = cm.push_pull(h, m, o, batches[h.namespace])
+            opts[h.namespace] = o
+        for h in hs:
+            cm.attach_service(h, opt=opts[h.namespace])
+        dom = cm.packed_domain
+        want = {key: {slot: ref[f"{name}/attached/{key}/{slot}"]
+                      for slot in slots}
+                for key, slots in cm._co.opt.items()}
+        carried = packed_opt_from_numpy(
+            dom, want, slots=co_slot_specs(
+                {h.namespace: cm.connect_service(h) for h in hs}),
+            device="cpu")
+        mine = packed_opt_to_numpy(dom, cm._co.opt)
+        for key, slots in carried.items():
+            for slot, v in slots.items():
+                assert torch.equal(v, cm._co.opt[key][slot]), slot
+                np.testing.assert_array_equal(mine[key][slot],
+                                              want[key][slot])
+        cm._co.opt = carried         # both packages from the same momentum
+        for _ in range(2):
+            models, _ = cm.co_step(hs, models, batches)
+        for h in hs:
+            opts[h.namespace] = cm.detach_service(h)
+        for h in hs:
+            ns = h.namespace
+            for _ in range(2):
+                models[ns], opts[ns], _ = cm.push_pull(h, models[ns],
+                                                       opts[ns], batches[ns])
+            for slot, v in opts[ns]["float32"].items():
+                np.testing.assert_array_equal(
+                    v.numpy().reshape(-1), ref[f"{name}/{ns}/{slot}"],
+                    err_msg=f"{ns} {slot}")
+    for ns in D_MODELS:
+        got, want = flat_params(models[ns]), ref[f"{name}/{ns}/p"]
+        step = np.max(np.abs(want - arrays[f"{name}/{ns}/p0"]))
+        assert step > 0, ns
+        if adam:
+            assert np.max(np.abs(got - want)) <= ADAM_ATOL, ns
+        elif int8:
+            assert np.max(np.abs(got - want)) <= INT8_RTOL * step, ns
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=ns)
+
+
+# --------------------------------------- 4. inside the port: co == solo
+
+TC = dict(lr=3e-2, momentum=0.9, loss_chunk=16, chunk_size_bytes=CHUNK)
+TC_B = dict(lr=1e-2, momentum=0.8, seed=1)
+
+
+@pytest.fixture(autouse=True)
+def deterministic():
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def data_batch(ns):
+    return SyntheticTokens(cfg_of(ns), B, 16, seed=len(ns) + ord(ns)
+                           ).torch_batch(0, "cpu")
+
+
+def tcs(**kw):
+    a = TrainConfig(**dict(TC, **kw))
+    return {"A": a, "B": dataclasses.replace(a, **TC_B)}
+
+
+def solo_run(ns, tc, comm, steps, dead=None):
+    cm = PHubConnectionManager()
+    h = cm.create_service(ns, cfg_of(ns), tc, comm, device="cpu")
+    if dead is not None:
+        cm.leave(dead)
+    m, o = cm.init_service(h)
+    losses = []
+    for _ in range(steps):
+        m, o, met = cm.push_pull(h, m, o, data_batch(ns))
+        losses.append(float(met["loss"]))
+    return m, o, losses
+
+
+def co_run(tcs_, comm, steps, dead=None, tables=False):
+    cm = PHubConnectionManager()
+    hs, models = [], {}
+    for ns, tc in tcs_.items():
+        h = cm.create_service(ns, cfg_of(ns), tc, comm, device="cpu")
+        models[ns] = cm.init_service(h)[0]
+        hs.append(h)
+    if dead is not None:
+        cm.leave(dead)
+    cm.attach_services(hs)
+    if tables:
+        from repro_torch.core.engine import make_co_train_step
+        step = make_co_train_step(
+            {h.namespace: cm.connect_service(h) for h in hs},
+            cm.packed_domain, cm._step_membership(), tables=True)
+    losses = {ns: [] for ns in tcs_}
+    for _ in range(steps):
+        batches = {ns: data_batch(ns) for ns in tcs_}
+        if tables:
+            models, cm._co.opt, met = step(models, cm._co.opt, batches)
+        else:
+            models, met = cm.co_step(hs, models, batches)
+        for ns in tcs_:
+            losses[ns].append(float(met[ns]["loss"]))
+    return models, losses, cm
+
+
+def same_params(a, b) -> bool:
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(
+        leaf_paths(a.param_tree()), leaf_paths(b.param_tree())))
+
+
+PORT_CASES = [
+    ("sharded_ps-win1", dict(strategy="sharded_ps", pipeline_windows=1), 4,
+     None),
+    ("sharded_ps-win2", dict(strategy="sharded_ps", pipeline_windows=2), 4,
+     None),
+    ("hierarchical-win1", dict(strategy="hierarchical",
+                               pipeline_windows=1), 4, None),
+    ("hierarchical-win2", dict(strategy="hierarchical",
+                               pipeline_windows=2), 4, None),
+    ("3-of-4", dict(strategy="sharded_ps"), 4, 3),
+    ("nesterov+sgd", dict(ruleB="sgd"), 4, None),
+    ("nesterov+adam", dict(ruleB="adam", adam_eps=ADAM_EPS,
+                           pipeline_windows=2), 2, None),
+]
+
+
+@pytest.mark.parametrize("name,kw,W,dead", PORT_CASES,
+                         ids=[c[0] for c in PORT_CASES])
+def test_co_step_equals_each_tenant_alone(name, kw, W, dead):
+    kw = dict(kw)
+    pods = 2 if kw.get("strategy") == "hierarchical" else 1
+    comm = StackedComm(W, pods)
+    rule_b = kw.pop("ruleB", None)
+    both = tcs(**kw)
+    if rule_b:
+        both["B"] = dataclasses.replace(both["B"], optimizer=rule_b)
+    models, losses, cm = co_run(both, comm, 2, dead)
+    for ns, tc in both.items():
+        m, _, solo_losses = solo_run(ns, tc, comm, 2, dead)
+        assert losses[ns] == solo_losses, ns
+        assert same_params(models[ns], m), ns
+    acct = cm.accounting()
+    assert all(acct[ns]["cumulative"]["steps"] == 2 for ns in both)
+
+
+@pytest.mark.parametrize("ruleB", ["nesterov", "sgd"])
+def test_table_form_co_step_equals_the_kernel_form(ruleB):
+    both = tcs(pipeline_windows=2)
+    both["B"] = dataclasses.replace(both["B"], optimizer=ruleB)
+    a, la, _ = co_run(both, StackedComm(4), 2)
+    b, lb, _ = co_run(both, StackedComm(4), 2, tables=True)
+    assert la == lb
+    for ns in both:
+        assert same_params(a[ns], b[ns]), ns
+
+
+def test_lifecycle_equals_six_solo_steps():
+    both = tcs(pipeline_windows=2)
+    comm = StackedComm(4)
+    cm = PHubConnectionManager()
+    hs, models, opts = [], {}, {}
+    for ns, tc in both.items():
+        h = cm.create_service(ns, cfg_of(ns), tc, comm, device="cpu")
+        models[ns], opts[ns] = cm.init_service(h)
+        hs.append(h)
+    for h in hs:
+        for _ in range(2):
+            models[h.namespace], opts[h.namespace], _ = cm.push_pull(
+                h, models[h.namespace], opts[h.namespace],
+                data_batch(h.namespace))
+    for h in hs:
+        cm.attach_service(h, opt=opts.pop(h.namespace))
+    for _ in range(2):
+        models, _ = cm.co_step(hs, models,
+                               {ns: data_batch(ns) for ns in both})
+    for h in hs:
+        opts[h.namespace] = cm.detach_service(h)
+    assert cm.packed_domain is None
+    for h in hs:
+        ns = h.namespace
+        for _ in range(2):
+            models[ns], opts[ns], met = cm.push_pull(h, models[ns],
+                                                     opts[ns], data_batch(ns))
+        m, o, losses = solo_run(ns, both[ns], comm, 6)
+        assert float(met["loss"]) == losses[-1]
+        assert same_params(models[ns], m), ns
+        for slot, v in o["float32"].items():
+            assert torch.equal(opts[ns]["float32"][slot], v), (ns, slot)
+
+
+def test_int8_co_step_in_two_windows_equals_one():
+    out = []
+    for windows in (1, 2):
+        models, losses, cm = co_run(
+            tcs(wire_format="int8", pipeline_windows=windows),
+            StackedComm(4), 2)
+        assert effective_windows(cm.packed_domain.groups["float32"],
+                                 windows) == windows
+        out.append((models, losses, cm._co.opt))
+    assert out[0][1] == out[1][1]
+    for ns in D_MODELS:
+        assert same_params(out[0][0][ns], out[1][0][ns])
+    for slot, v in out[0][2]["float32"].items():
+        assert torch.equal(v, out[1][2]["float32"][slot]), slot
