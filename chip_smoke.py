@@ -282,7 +282,27 @@
    bytes a step).  Then each kernel of the co-step on a tenant run of the
    packed domain (``co_kernel_phase``), bitwise against its plain version
    and timed beside the run's bytes bound.
-15. Prints the kernels line, then the device line last.
+15. PHub's elastic rack resize (``PHubConnectionManager.resize``,
+   ``resize_phase``), full llama3.2-1b services of 4 stacked workers moved
+   to 3 workers and back through the user's entry point, the state moving
+   on the card: (a) Nesterov over the int8 wire in 5 windows (3 take
+   effect at 3 workers), 2 steps, 4 -> 3 -> 4: m and wire_ef bitwise on
+   their live regions after each move, and the round trip plus 2 steps
+   bitwise equal to 4 steps that never resized (losses, the parameters'
+   fingerprint, every slot's full buffer, pad included); (b) Adam over the
+   identity wire, 1 step, 4 -> 3 -> 4: all four slots bitwise on their
+   live regions; (c) phase 14's pair, one solo step each, attached with
+   its momentum, 4 -> 3 -> 4, detached: each tenant's slot bitwise on its
+   live region, ``last_rebalance``'s ``moved_bytes`` equal to the count
+   from the two packed layouts; (d) a snapshot written at 4 workers
+   (Nesterov, full width at 1 layer) restored at 3 and at 2: the slot
+   bitwise on its live region, the parameters' fingerprint equal.  After
+   each, a step at 3 workers (batch 6 x 512: 8 does not split over 3) and
+   one back at 4, launches exact and losses finite.  Each resize's ms (host clock ending
+   in a synchronization), the bytes it must move and their rate against
+   the HBM bound, ``moved_bytes`` and ``moved_fraction``, and the GiB
+   allocated before, at the peak and after.
+16. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 card and refuses to run without one.
@@ -3858,6 +3878,425 @@ def co_kernel_phase(torch, domains: dict, ce: int) -> dict:
     return out
 
 
+# 15. PHub's elastic rack resize (``PHubConnectionManager.resize``,
+# ``resize_phase``): full llama3.2-1b services of 4 stacked workers moved
+# to 3 and back.  A step at 3 workers takes RESIZE_BATCH_W3 sequences (8
+# does not split over 3; 2 a worker, as at 4); (d) cuts depth to
+# RESIZE_CKPT_LAYERS: writing, verifying and reading a snapshot back costs
+# ~12 s a GB (4 layers, 4.05 GB: 12.5 s to write, 16.6-17.7 s a restore,
+# 49 s of the phase), and the full depth is 9.9 GB.
+RESIZE_W, RESIZE_W3, RESIZE_BATCH_W3 = WORKERS, 3, 6
+RESIZE_PADTAIL_STEPS = 4          # (a): 2 steps, the round trip, 2 steps
+RESIZE_CKPT_LAYERS, RESIZE_CKPT_WORLDS = 1, (3, 2)
+
+
+def rs_live(eng, opt) -> dict:
+    """{slot: (R, live_elems)} views of each slot's live region."""
+    return {f"{g.key}/{n}": v.view(-1, g.padded)[:, :g.live_elems]
+            for g in eng.chunk_plan.groups
+            for n, v in opt[g.key].items()}
+
+
+def rs_same(torch, eng, opt, pre: dict) -> bool:
+    now = rs_live(eng, opt)
+    return set(now) == set(pre) and all(torch.equal(now[k], pre[k])
+                                        for k in pre)
+
+
+def rs_solo_bytes(old, new) -> int:
+    """The bytes a solo resize must move: each slot's live region read
+    once and its new buffer (pad included) written once."""
+    out = 0
+    for g_old, g in zip(old.chunk_plan.groups, new.chunk_plan.groups):
+        for spec in new.exchange_slots:
+            rows = math.prod(new.slot_shape(g, spec)) // g.padded
+            item = spec.resolve_dtype(g.dtype).itemsize
+            out += rows * (g.live_elems + g.padded) * item
+    return out
+
+
+def rs_co_bytes(old_dom, new_dom, slots) -> int:
+    """The bytes a packed re-pack must move: each tenant's runs read out of
+    the old domain and written to a flat, the flat read and the new packed
+    buffer (pad included) written, for every slot."""
+    out = 0
+    for key, g in new_dom.groups.items():
+        item = sum(s.resolve_dtype(g.dtype).itemsize for s in slots)
+        tenants = sum(s.padded for s in old_dom.groups[key].slots)
+        out += (3 * tenants + g.padded) * item
+    return out
+
+
+def rs_moved_host(old_dom, new_dom, slots) -> int:
+    """The bytes a re-pack moves, counted from the two layouts: every
+    tenant chunk whose packed position changed drags its parameter and
+    one stripe a slot (``cost_model.rebalance_traffic``'s definition,
+    counted here without the plan)."""
+    out = 0
+    for key, g in old_dom.groups.items():
+        ce = g.chunk_elems
+        item = g.dtype.itemsize + sum(s.resolve_dtype(g.dtype).itemsize
+                                      for s in slots)
+
+        def where(dom, tenant):
+            m = {}
+            for toff, poff, n in dom.groups[key].slot(tenant).runs:
+                for k in range(0, n, ce):
+                    m[toff + k] = poff + k
+            return m
+        for s in g.slots:
+            a, b = where(old_dom, s.tenant), where(new_dom, s.tenant)
+            out += sum(ce for t in a if a[t] != b[t]) * item
+    return out
+
+
+def rs_resize(torch, cm, W: int, states=None):
+    """``cm.resize(StackedComm(W), states)`` between two synchronizations:
+    (result, ms, GiB allocated before, peak GiB, GiB allocated after)."""
+    from repro_torch.core import StackedComm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = cm.resize(StackedComm(W), states=states)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (out, ms, before, torch.cuda.max_memory_allocated() / 2**30,
+            torch.cuda.memory_allocated() / 2**30)
+
+
+def rs_step(torch, fn):
+    """One step ``fn()`` between two synchronizations: (its result, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rs_note(label: str, ms: float, moved: int, before: float, peak: float,
+            after: float, cm) -> str:
+    lr = cm.last_rebalance
+    traffic = lr["co"] or next(iter(lr["solo"].values()))
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    return (f"{label}: {ms:.3f} ms, {moved:,} bytes moved, "
+            f"{moved / (ms / 1e3) / 1e9:.1f} GB/s against the HBM bound "
+            f"{HBM_BYTES_PER_S / 1e9:.0f} GB/s ({bound:.3f} ms, "
+            f"{bound / ms:.1%}); moved_bytes "
+            f"{traffic['moved_bytes']:.0f}, moved_fraction "
+            f"{traffic['moved_fraction']!r}; GiB allocated {before:.2f} "
+            f"before, peak {peak:.2f}, {after:.2f} after; world "
+            f"{lr['world']}, epoch {lr['epoch']}")
+
+
+def rs_int8_expect(S: int, w: int) -> dict:
+    """The int8 wire's launches a step at S shards in w effective windows:
+    S-1 ring encodes and S-2 decodes a window, one of each for the pull,
+    the tail kernel once a window."""
+    return {"quantize_chunks": (S - 1) * w + 1,
+            "dequantize_chunks": (S - 2) * w + 1,
+            "dequant_agg_opt_chunks": w}
+
+
+def resize_solo(torch, label: str, rule: str, wire: str, fields: dict,
+                expect, count, padtail: bool) -> dict:
+    """(a) / (b): one solo service of the full model trained at W=4, moved
+    to 3 and back with its caller-held state; every slot bitwise on the
+    live region after each move.  ``padtail``: the round trip sits between
+    steps 2 and 3 of RESIZE_PADTAIL_STEPS, and the run must equal one that
+    never resized (losses, the parameters' fingerprint, every slot's full
+    buffer, pad included).  Then a step at W=3 and one back at W=4.
+    ``expect(S, windows)``: launches a step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import PHubConnectionManager, StackedComm
+    from repro_torch.core.pipeline import effective_windows
+    from repro_torch.data import SyntheticTokens
+
+    cfg = get_arch(ARCH)
+    tc = path_tc(rule, wire, fields)
+    data = SyntheticTokens(cfg, BATCH, SEQ, seed=tc.seed)
+    data3 = SyntheticTokens(cfg, RESIZE_BATCH_W3, SEQ, seed=tc.seed)
+    before = RESIZE_PADTAIL_STEPS // 2 if padtail else 1
+
+    def service():
+        cm = PHubConnectionManager()
+        h = cm.create_service("job", cfg, tc, StackedComm(RESIZE_W),
+                              device="cuda")
+        return (cm, h) + cm.init_service(h)
+
+    def steps(cm, h, m, o, first, n, tag):
+        eng = cm.connect_service(h)
+        S = eng.comm.n_shards(tc.strategy)
+        w = effective_windows(eng.chunk_plan.groups[0], tc.pipeline_windows)
+        losses, ms = [], []
+        reset_all_launches()
+        for i in range(first, first + n):
+            b = (data if eng.comm.n_workers == RESIZE_W else data3
+                 ).torch_batch(i, "cuda")
+            (m, o, met), t = rs_step(torch, lambda: cm.push_pull(h, m, o, b))
+            losses.append(float(met["loss"]))
+            ms.append(t)
+        launches = all_launches()
+        expect_launches(launches, expect(S, w), n, f"(a-b) {label} {tag}")
+        count(f"resize {label} {tag}", launches)
+        check(all(math.isfinite(x) for x in losses),
+              f"{label} {tag}: losses {losses}")
+        return m, o, losses, ms
+
+    out = {}
+    ref = None
+    if padtail:
+        cm, h, m, o = service()
+        m, o, ref_losses, ref_ms = steps(cm, h, m, o, 0,
+                                         RESIZE_PADTAIL_STEPS,
+                                         "never resized")
+        ref = (ref_losses, fingerprint(torch, m), o)
+        del cm, h, m
+        gc.collect()
+    cm, h, m, o = service()
+    m, o, losses, ms4 = steps(cm, h, m, o, 0, before, "at W=4")
+    old = cm.connect_service(h)
+    pre = {k: v.clone() for k, v in rs_live(old, o).items()}
+    for W in (RESIZE_W3, RESIZE_W):
+        move = f"{label} resize {RESIZE_W + RESIZE_W3 - W}->{W}"
+        res, ms, b, peak, a = rs_resize(torch, cm, W, {"job": (m, o)})
+        m, o = res["job"]
+        new = cm.connect_service(h)
+        moved = rs_solo_bytes(old, new)
+        check(all(v.device.type == new.device.type for d in o.values()
+                  for v in d.values()), f"{label}: a slot left the card")
+        check(rs_same(torch, new, o, pre),
+              f"{label}: a slot's live region changed in the resize to "
+              f"W={W}")
+        check(cm.last_rebalance["solo"]["job"]["moved_bytes"] == 0,
+              f"{label}: a solo resize moved chunks")
+        log(f"15. {rs_note(move, ms, moved, b, peak, a, cm)}; every slot "
+            f"({', '.join(pre)}) bitwise on its live region")
+        out[f"resize ->{W}"] = dict(ms=ms, bytes=moved, peak=peak,
+                                    before=b, after=a)
+        old = new
+    del pre
+    check(cm.membership.epoch == 2 and cm.membership.world == RESIZE_W,
+          f"{label}: membership {cm.membership}")
+    if padtail:
+        ref_losses, ref_print, ref_o = ref
+        m, o, more, ms_more = steps(cm, h, m, o, before,
+                                    RESIZE_PADTAIL_STEPS - before,
+                                    "after the round trip")
+        check(losses + more == ref_losses,
+              f"{label}: losses {losses + more} differ from the run that "
+              f"never resized {ref_losses}")
+        check(same_fingerprint(torch, fingerprint(torch, m), ref_print),
+              f"{label}: the parameters differ from the run that never "
+              f"resized")
+        for key, d in o.items():
+            for n, v in d.items():
+                check(torch.equal(v, ref_o[key][n]),
+                      f"{label}: slot {key}/{n} (full buffer) differs from "
+                      f"the run that never resized")
+        log(f"15. {label} padtail: {before} steps, W={RESIZE_W}->"
+            f"{RESIZE_W3}->{RESIZE_W}, {RESIZE_PADTAIL_STEPS - before} "
+            f"steps: losses {ref_losses}, the parameters' fingerprint and "
+            f"every slot's full buffer (pad included) bitwise equal to the "
+            f"run that never resized; step ms "
+            f"{[round(x, 3) for x in ms4 + ms_more]} against "
+            f"{[round(x, 3) for x in ref_ms]}")
+        del ref_o, ref
+        ms4 = ms4 + ms_more
+    res = rs_resize(torch, cm, RESIZE_W3, {"job": (m, o)})[0]
+    m, o = res["job"]
+    m, o, l3, ms3 = steps(cm, h, m, o, 0, 1, f"at W={RESIZE_W3}")
+    m, o = rs_resize(torch, cm, RESIZE_W, {"job": (m, o)})[0]["job"]
+    m, o, lb, msb = steps(cm, h, m, o, RESIZE_PADTAIL_STEPS, 1,
+                          "back at W=4")
+    log(f"15. {label}: step ms at W={RESIZE_W} {[round(x, 3) for x in ms4]},"
+        f" at W={RESIZE_W3} (batch {RESIZE_BATCH_W3}) {ms3[0]:.3f} "
+        f"({RESIZE_BATCH_W3 * SEQ / (ms3[0] / 1e3):,.0f} tokens/s), back at "
+        f"W={RESIZE_W} {msb[0]:.3f} ({BATCH * SEQ / (msb[0] / 1e3):,.0f} "
+        f"tokens/s); losses {l3} at W={RESIZE_W3}, {lb} back")
+    out.update(step_ms=ms4, step_ms_w3=ms3, step_ms_back=msb)
+    del cm, h, m, o, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def resize_co(torch, count) -> dict:
+    """(c): phase 14's pair (A full, B at CO_B_LAYERS layers, Nesterov),
+    one solo step each, attached with its momentum, moved to 3 workers and
+    back, detached: each tenant's slot bitwise on its live region;
+    ``moved_bytes`` equal to the count from the two layouts; then a
+    co-step at W=3 and one back at W=4."""
+    from repro_torch.core import PHubConnectionManager, StackedComm
+    from repro_torch.core.engine import co_slot_specs
+    from repro_torch.data import SyntheticTokens
+
+    configs = co_configs({"A": ("nesterov", "identity", {}),
+                          "B": ("nesterov", "identity", _CO_B)})
+    cm = PHubConnectionManager()
+    hs, models, opts, data, data3 = [], {}, {}, {}, {}
+    for ns, (cfg, tc) in configs.items():
+        h = cm.create_service(ns, cfg, tc, StackedComm(RESIZE_W),
+                              device="cuda")
+        models[ns], o = cm.init_service(h)
+        data[ns] = SyntheticTokens(cfg, BATCH, SEQ, seed=tc.seed)
+        data3[ns] = SyntheticTokens(cfg, RESIZE_BATCH_W3, SEQ, seed=tc.seed)
+        reset_all_launches()
+        models[ns], opts[ns], _ = cm.push_pull(h, models[ns], o,
+                                               data[ns].torch_batch(0,
+                                                                    "cuda"))
+        expect_launches(all_launches(), {"multi_agg_opt_chunks": 1}, 1,
+                        f"(c) {ns} solo")
+        count(f"resize co {ns} solo step", all_launches())
+        hs.append(h)
+    pre = {h.namespace: {k: v.clone() for k, v in rs_live(
+        cm.connect_service(h), opts[h.namespace]).items()} for h in hs}
+    cm.attach_services(hs, opts)
+    opts = {}
+    out = {}
+    slots = co_slot_specs({h.namespace: cm.connect_service(h) for h in hs})
+    for W in (RESIZE_W3, RESIZE_W):
+        old_dom = cm.packed_domain
+        _, ms, b, peak, a = rs_resize(torch, cm, W)
+        new_dom = cm.packed_domain
+        host = rs_moved_host(old_dom, new_dom, slots)
+        co = cm.last_rebalance["co"]
+        check(co["moved_bytes"] == host and host > 0,
+              f"(c) moved_bytes {co['moved_bytes']}, the layouts' count "
+              f"{host}")
+        moved = rs_co_bytes(old_dom, new_dom, slots)
+        note = rs_note(f"co-scheduled pair resize ->{W}", ms, moved, b,
+                       peak, a, cm)
+        log(f"15. {note}; moved_bytes equal to the layouts' count; packed "
+            f"domain {new_dom.groups['float32'].padded:,}, chunks a shard "
+            f"{new_dom.shard_loads('float32')}")
+        out[f"resize ->{W}"] = dict(ms=ms, bytes=moved, peak=peak,
+                                    before=b, after=a,
+                                    moved_bytes=co["moved_bytes"],
+                                    moved_fraction=co["moved_fraction"])
+    for h in hs:
+        opts[h.namespace] = cm.detach_service(h)
+        check(rs_same(torch, cm.connect_service(h), opts[h.namespace],
+                      pre[h.namespace]),
+              f"(c) tenant {h.namespace}: a slot's live region changed "
+              f"across the resize")
+    del pre
+    cm.attach_services(hs, opts)
+    opts = {}
+    cm.resize(StackedComm(RESIZE_W3))
+    ms = {}
+    for W, src, i in ((RESIZE_W3, data3, 0), (RESIZE_W, data, 1)):
+        if W != RESIZE_W3:
+            cm.resize(StackedComm(W))
+        reset_all_launches()
+        batches = {ns: d.torch_batch(i, "cuda") for ns, d in src.items()}
+        (models, met), ms[W] = rs_step(
+            torch, lambda: cm.co_step(hs, models, batches))
+        launches = all_launches()
+        want = tenant_launches(cm.packed_domain, 1, {
+            "A": "multi_agg_opt_chunks", "B": "multi_agg_opt_chunks"})
+        expect_launches(launches, want, 1, f"(c) co-step at W={W}")
+        count(f"resize co-step at W={W}", launches)
+        losses = {ns: float(v["loss"]) for ns, v in met.items()}
+        check(all(math.isfinite(x) for x in losses.values()),
+              f"(c) co-step at W={W}: losses {losses}")
+        log(f"15. co-scheduled pair: co-step at W={W} "
+            f"(batch {len(batches['A']['tokens'])} each) {ms[W]:.3f} ms, "
+            f"losses {losses}, launches {want}")
+    log("15. co-scheduled pair: each tenant's slot bitwise equal to its "
+        "pre-resize value on the live region after W=4->3->4 and detach")
+    out.update(step_ms_w3=ms[RESIZE_W3], step_ms_back=ms[RESIZE_W])
+    del cm, hs, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def resize_checkpoint(torch, count) -> dict:
+    """(d): a snapshot written at W=4 (Nesterov, RESIZE_CKPT_LAYERS
+    layers) restored at each of RESIZE_CKPT_WORLDS: the slot bitwise on
+    its live region, the parameters' fingerprint equal, a step after
+    finite."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint import (restore_train_state, save_checkpoint,
+                                        snapshot_tree)
+    from repro_torch.configs import get_arch
+    from repro_torch.core import PHubEngine, StackedComm
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.elastic import Membership
+
+    cfg = dataclasses.replace(get_arch(ARCH), n_layers=RESIZE_CKPT_LAYERS)
+    tc = path_tc("nesterov", "identity", {})
+    d = os.path.join(ROOT, "build", "chip_smoke_resize_checkpoints")
+    shutil.rmtree(d, ignore_errors=True)
+    eng = PHubEngine(cfg, tc, StackedComm(RESIZE_W), device="cuda")
+    m, o = eng.init_state()
+    reset_all_launches()
+    m, o, _ = eng.make_train_step()(m, o, SyntheticTokens(
+        cfg, BATCH, SEQ, seed=tc.seed).torch_batch(0, "cuda"))
+    expect_launches(all_launches(), {"multi_agg_opt_chunks": 1}, 1,
+                    "(d) step at W=4")
+    count("resize checkpoint step at W=4", all_launches())
+    pre = {k: v.clone() for k, v in rs_live(eng, o).items()}
+    want = fingerprint(torch, m)
+    _, t_save = rs_step(torch, lambda: save_checkpoint(
+        d, 1, snapshot_tree(m, o), membership=Membership.full(RESIZE_W)))
+    size = sum(os.path.getsize(os.path.join(d, "step_00000001", f))
+               for f in os.listdir(os.path.join(d, "step_00000001")))
+    del m, o, eng
+    gc.collect()
+    out = {"save_ms": t_save, "bytes": size}
+    for W in RESIZE_CKPT_WORLDS:
+        eng = PHubEngine(cfg, tc, StackedComm(W), device="cuda")
+        (step, m, o), ms = rs_step(torch, lambda: restore_train_state(
+            d, eng, membership=Membership.full(W)))
+        check(step == 1 and rs_same(torch, eng, o, pre),
+              f"(d) restore at W={W}: step {step}, or a slot's live region "
+              f"differs from the snapshot's")
+        check(same_fingerprint(torch, fingerprint(torch, m), want),
+              f"(d) restore at W={W}: the parameters differ")
+        batch = SyntheticTokens(cfg, RESIZE_BATCH_W3 if W == 3 else BATCH,
+                                SEQ, seed=tc.seed).torch_batch(1, "cuda")
+        reset_all_launches()
+        (m, o, met), t = rs_step(torch,
+                                 lambda: eng.make_train_step()(m, o, batch))
+        expect_launches(all_launches(), {"multi_agg_opt_chunks": 1}, 1,
+                        f"(d) step at W={W}")
+        count(f"resize checkpoint step at W={W}", all_launches())
+        check(math.isfinite(float(met["loss"])),
+              f"(d) step at W={W}: loss {float(met['loss'])}")
+        log(f"15. checkpoint ({cfg.n_layers} layers, {size:,} bytes on "
+            f"disk, written at W={RESIZE_W} in {t_save:.1f} ms, read warm) "
+            f"restored at W={W} in {ms:.1f} ms: the slot bitwise on its "
+            f"live region, the parameters' fingerprint equal; a step after "
+            f"{t:.3f} ms, loss {float(met['loss'])!r}")
+        out[f"restore W={W}"] = dict(ms=ms, step_ms=t)
+        del m, o, eng
+        gc.collect()
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def resize_phase(torch, count) -> dict:
+    """15. PHub's elastic rack resize (module docstring)."""
+    t_phase = time.perf_counter()
+    out = {}
+    out["a"] = resize_solo(
+        torch, "(a) nesterov int8", "nesterov", "int8",
+        dict(pipeline_windows=WINDOWS_W4), rs_int8_expect, count,
+        padtail=True)
+    out["b"] = resize_solo(
+        torch, "(b) adam", "adam", "identity", {},
+        lambda S, w: {"adam_opt_chunks": 1}, count, padtail=False)
+    out["c"] = resize_co(torch, count)
+    out["d"] = resize_checkpoint(torch, count)
+    log(f"15. the resize phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4038,6 +4477,7 @@ def main() -> None:
     domains = co_phase(torch, runs, bases, count)
     for name, entry in co_kernel_phase(torch, domains, ce).items():
         kernels[name].update(entry)
+    resize_phase(torch, count)
     for k in kernels.values():
         if "tol" in k:            # checked against its tolerance above
             k["verdict"] = "within_tol"

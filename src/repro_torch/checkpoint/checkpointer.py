@@ -29,8 +29,11 @@ into an encoded-wire engine with a zero ``wire_ef``.  Under an encoded
 DCN tier (the hierarchical strategy's ``wire_format_dcn``) ``wire_ef`` is
 each pod's residual, and a snapshot keeps all P rows (pod-major,
 ``PHubEngine.slot_shape``), so a restore continues bitwise; the reference
-saves pod 0's view only.  Restoring at another world size (the rebalance
-plan) is ROADMAP.md queue A item 7b.
+saves pod 0's view only.  A snapshot written at another world size
+restores through the solo rebalance plan (``_resize_rows``,
+``elastic.solo_resize_plan``): every slot's (and a flat store's)
+chunk-granular live region survives bitwise and the pad tail is re-cut
+for the new shard count, as in the reference.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ import torch
 from ..core.chunking import leaf_paths
 from ..core.comm import require_stacked
 from ..core.wire import WIRE_EF_SLOT
+from ..elastic.rebalance import solo_resize_plan
 from ..models import DecoderLM, param_specs
 
 BF16 = "bfloat16"
@@ -116,7 +120,8 @@ def _to_tensor(a: np.ndarray, dtype_name: str | None) -> torch.Tensor:
 
 
 def _array_crc(arr: np.ndarray) -> int:
-    return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
+    """CRC32 of the array's bytes in C order, read in place (no copy)."""
+    return zlib.crc32(np.ascontiguousarray(arr)) & 0xFFFFFFFF
 
 
 def _fsync_path(path: str) -> None:
@@ -214,13 +219,10 @@ def _resolve(directory: str, step: int | None) -> int:
     return step
 
 
-def verify_checkpoint(directory: str, step: int | None = None) -> dict:
-    """Validate one snapshot end to end: manifest present and parseable,
-    archive readable, every manifest key present with the recorded shape,
-    and — when the manifest carries checksums (every durable write does)
-    — a per-array CRC32 match.  Returns the manifest on success; raises
-    ``CheckpointCorruptError`` naming the first failure otherwise."""
-    step = _resolve(directory, step)
+def _read_verified(directory: str, step: int, keep: bool):
+    """``verify_checkpoint``'s checks of snapshot ``step``: (manifest, the
+    arrays it read when ``keep``, every file of the archive), so a
+    verified load reads the archive once."""
     path = _step_dir(directory, step)
     mpath = os.path.join(path, "manifest.json")
     if not os.path.exists(mpath):
@@ -236,6 +238,7 @@ def verify_checkpoint(directory: str, step: int | None = None) -> dict:
             f"{e}") from e
     checksums = manifest.get("checksums", {})
     shapes = manifest.get("shapes", {})
+    arrays = {}
     try:
         with np.load(os.path.join(path, "arrays.npz")) as data:
             files = set(data.files)
@@ -254,6 +257,12 @@ def verify_checkpoint(directory: str, step: int | None = None) -> dict:
                     raise CheckpointCorruptError(
                         f"checkpoint step_{step:08d}: array {key!r} fails "
                         f"CRC32 (bit-flip or partial write)")
+                if keep:
+                    arrays[key] = arr
+                del arr
+            if keep:
+                arrays.update({k: data[k]
+                               for k in sorted(files - set(arrays))})
     except CheckpointCorruptError:
         raise
     except Exception as e:   # BadZipFile, zlib.error, EOFError, OSError...
@@ -261,7 +270,16 @@ def verify_checkpoint(directory: str, step: int | None = None) -> dict:
             f"checkpoint step_{step:08d}: arrays.npz unreadable "
             f"({type(e).__name__}: {e}) — truncated or corrupt "
             f"archive") from e
-    return manifest
+    return manifest, arrays
+
+
+def verify_checkpoint(directory: str, step: int | None = None) -> dict:
+    """Validate one snapshot end to end: manifest present and parseable,
+    archive readable, every manifest key present with the recorded shape,
+    and — when the manifest carries checksums (every durable write does)
+    — a per-array CRC32 match.  Returns the manifest on success; raises
+    ``CheckpointCorruptError`` naming the first failure otherwise."""
+    return _read_verified(directory, _resolve(directory, step), False)[0]
 
 
 def load_manifest(directory: str, step: int | None = None) -> dict:
@@ -276,22 +294,25 @@ def load_manifest(directory: str, step: int | None = None) -> dict:
 def load_checkpoint(directory: str, step: int | None = None, *,
                     verify: bool = True):
     """Load one snapshot as (step, tree of CPU tensors); with ``verify``
-    (default) the read is gated on ``verify_checkpoint``, so a truncated
-    archive or a bit-flipped array raises ``CheckpointCorruptError`` by
-    name."""
+    (default) every array is checked as ``verify_checkpoint`` checks it,
+    in the same read, so a truncated archive or a bit-flipped array
+    raises ``CheckpointCorruptError`` by name."""
     step = _resolve(directory, step)
-    manifest = (verify_checkpoint(directory, step) if verify
-                else load_manifest(directory, step))
+    if verify:
+        manifest, arrays = _read_verified(directory, step, True)
+    else:
+        manifest = load_manifest(directory, step)
+        try:
+            with np.load(os.path.join(_step_dir(directory, step),
+                                      "arrays.npz")) as data:
+                arrays = {k: data[k] for k in data.files}
+        except Exception as e:
+            raise CheckpointCorruptError(
+                f"checkpoint step_{step:08d}: arrays.npz unreadable "
+                f"({type(e).__name__}: {e})") from e
     dtypes = manifest.get("dtypes", {})
-    try:
-        with np.load(os.path.join(_step_dir(directory, step),
-                                  "arrays.npz")) as data:
-            flat = {k: _to_tensor(data[k], dtypes.get(k)) for k in data.files}
-    except Exception as e:
-        raise CheckpointCorruptError(
-            f"checkpoint step_{step:08d}: arrays.npz unreadable "
-            f"({type(e).__name__}: {e})") from e
-    return step, _unflatten(flat)
+    return step, _unflatten({k: _to_tensor(a, dtypes.get(k))
+                             for k, a in arrays.items()})
 
 
 def _check_membership(manifest: dict, membership) -> None:
@@ -326,19 +347,33 @@ def _is_flat_store(params) -> bool:
                and getattr(v, "ndim", 0) == 2 for k, v in params.items())
 
 
+def _resize_rows(engine, key: str, rows: torch.Tensor,
+                 new_flat: int) -> torch.Tensor:
+    """A restore at another world size: one (R, old_padded) buffer of dtype
+    group ``key`` through the solo rebalance plan (the chunk-granular live
+    extent in place, the pad tail re-cut for the new shard count)."""
+    g = {g.key: g for g in engine.chunk_plan.groups}[key]
+    plan = solo_resize_plan(g.dtype, g.chunk_elems, g.live_elems,
+                            rows.shape[1], new_flat)
+    return plan.apply(key, rows)
+
+
 def _params_from(engine, params) -> dict:
     """The snapshot's parameter tree, from a parameter tree or a flat
-    store (read as views), checked against the engine's model (paths,
+    store (read as views; one written at another world size re-cut
+    through ``_resize_rows``), checked against the engine's model (paths,
     shapes, dtypes)."""
     specs = param_specs(engine.cfg)
     if _is_flat_store(params):
         shapes = engine.store_layout.store_shapes()
         got = {k: tuple(v.shape) for k, v in params.items()}
-        if got != shapes:
+        if set(got) != set(shapes) or any(
+                got[k][0] != shapes[k][0] for k in got):
             raise ValueError(
-                f"checkpoint flat store {got}, the engine's {shapes}; "
-                f"restoring at another world size is ROADMAP.md queue A "
-                f"item 7b")
+                f"checkpoint flat store {got}, the engine's {shapes}")
+        params = {k: (v if got[k] == shapes[k] else
+                      _resize_rows(engine, k, v, shapes[k][1]))
+                  for k, v in params.items()}
         params = engine.store_layout.to_tree(params, specs)
     want = dict(leaf_paths(specs))
     got = dict(leaf_paths(params))
@@ -380,12 +415,19 @@ def _opt_from(engine, opt: dict, step: int) -> dict:
                 continue
             t = flat[path]
             consumed.add(path)
-            if t.dtype != dtype or t.numel() != shape[0] * shape[1]:
+            n = shape[0] * shape[1]
+            rows = n // g.padded        # 1, or one a pod (the DCN residual)
+            if t.dtype != dtype or (t.numel() != n and t.numel() % rows):
                 raise ValueError(
                     f"opt slot {path!r}: {t.dtype} {tuple(t.shape)}, the "
-                    f"engine's {dtype} {shape}; restoring at another world "
-                    f"size is ROADMAP.md queue A item 7b")
-            slots[spec.name] = t.reshape(shape).to(engine.device)
+                    f"engine's {dtype} {shape}")
+            t = t.to(engine.device)
+            if t.numel() != n:
+                # written at another world size: the same elements, another
+                # shard cut and pad tail (re-cut on the engine's device)
+                t = _resize_rows(engine, g.key, t.reshape(rows, -1),
+                                 g.padded)
+            slots[spec.name] = t.reshape(shape)
         out[g.key] = slots
     # an encoded-wire snapshot into an identity-wire engine: wire_ef holds
     # one step's untransmitted delta tail and is dropped by design

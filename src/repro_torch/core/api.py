@@ -30,9 +30,16 @@ tenants attach and co-step there, but moving optimizer state into, out
 of or across a packed domain needs every shard and raises (ROADMAP.md
 queue A item 4b).
 
-Left out of the reference's manager: ``resize`` and the elastic
-rebalance (queue A item 7b); ``compile_count`` and the telemetry counters
-(items 9 and 10).
+``resize`` moves the rack to another world size (a new ``StackedComm``):
+every engine is rebuilt on it, the caller-held solo states and the packed
+slots move through the minimal-movement rebalance plan
+(``elastic/rebalance.py``) on the device, and ``last_rebalance`` records
+the migration traffic (``cost_model.rebalance_traffic``).  A process
+group cannot change its world inside a process, so ``resize`` over a
+``ProcessGroupComm`` raises (queue A item 4b).
+
+Left out of the reference's manager: ``compile_count`` and the telemetry
+counters (items 9a and 10).
 """
 from __future__ import annotations
 
@@ -43,7 +50,8 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig, TrainConfig
-from ..elastic import Membership
+from ..elastic import Membership, plan_rebalance
+from ..elastic.rebalance import check_resizable, migrate_engine_state
 from . import cost_model
 from .chunking import TenantPackedDomain, pack_domains
 from .comm import require_stacked
@@ -101,6 +109,7 @@ class PHubConnectionManager:
         # the elastic rack: sized from the first created service's
         # workers; every step cache keys on the live set's program key
         self._membership: Optional[Membership] = None
+        self.last_rebalance: Optional[dict] = None
         self._watchdog = None
         # each domain layout's (step cache, gradient buffers), so that a
         # re-pack back to a layout reuses its steps
@@ -354,6 +363,84 @@ class PHubConnectionManager:
             cum = {"steps": 0, **{k: 0.0 for k in _TRAFFIC_KEYS}}
             cum.update(self._co.traffic.get(ns, {}))
             out[ns] = {**self._co.acct[ns], "cumulative": cum}
+        return out
+
+    # ------------------------------------------------------- rack resizing
+
+    def resize(self, new_comm, states: Optional[dict] = None) -> dict:
+        """Resize the rack: rebuild every service's engine on ``new_comm``
+        (a ``StackedComm`` of another world size) and move the state
+        across the chunk domain's repartition (DESIGN.md §12).
+
+        ``states``: {namespace: (model, opt)}, the caller-held states of
+        solo services to move (a solo tenant's optimizer state lives with
+        its caller); returns the moved {namespace: (model, opt)} (each
+        ``opt`` dict has its slots replaced in place, one at a time:
+        ``elastic.migrate_engine_state``).  Attached tenants' packed slots
+        move inside, through the extract / re-pack that attach and detach
+        use, and the shared domain re-packs at the new shard count.  Every
+        service's cached steps and gradient buffers (and the co-step's)
+        are dropped before anything moves: they belong to the old world.
+        The membership becomes all-live at the new world (epoch + 1, so
+        every step cache re-keys); ``last_rebalance`` records the plan's
+        migration traffic (``cost_model.rebalance_traffic``)."""
+        if not self._services:
+            raise ValueError("no services to resize")
+        for ns in (states or {}):
+            if ns not in self._services:
+                raise ValueError(f"unknown namespace {ns!r} in states")
+            if ns in self._attached:
+                raise ValueError(
+                    f"namespace {ns!r} is attached: its opt slots live in "
+                    f"the packed domain and migrate internally — pass "
+                    f"only solo tenants' states")
+        for svc in self._services.values():
+            require_stacked(svc.engine.comm, "resizing the rack")
+        require_stacked(new_comm, "resizing the rack")
+        # build every new engine before changing anything: a failure here
+        # leaves the old rack as it was (an engine allocates no buffers)
+        rebuilt = {}
+        for ns, svc in self._services.items():
+            new_eng = PHubEngine(svc.engine.cfg, svc.engine.tc, new_comm,
+                                 device=svc.engine.device)
+            check_resizable(svc.engine, new_eng)
+            rebuilt[ns] = (svc.engine, new_eng)
+        # the old world's steps and gradient rows go first
+        for svc in self._services.values():
+            svc.steps.clear()
+            svc.engine.client.release_buffers()
+        if self._co is not None:
+            self._co.gbuf.clear()
+        self._co_memo.clear()
+        flats = self._extract_all()           # packed slots, old domain
+        old_domain = None
+        if self._co is not None:
+            old_domain = self._co.domain
+            self._co.opt = {}                 # the flats are copies
+        out, solo_traffic = {}, {}
+        for ns, (old_eng, new_eng) in rebuilt.items():
+            if states and ns in states:
+                out[ns] = migrate_engine_state(old_eng, new_eng,
+                                               *states[ns])
+                solo_traffic[ns] = cost_model.rebalance_traffic(
+                    plan_rebalance(old_eng.chunk_plan, new_eng.chunk_plan),
+                    new_eng.exchange_slots)
+            self._services[ns].engine = new_eng
+        world = new_comm.n_workers
+        self._membership = (self._membership.resized(world)
+                            if self._membership is not None
+                            else Membership.full(world))
+        self._repack(flats)                   # at the new shard count
+        del flats
+        co_traffic = None
+        if old_domain is not None and self._co is not None:
+            co_traffic = cost_model.rebalance_traffic(
+                plan_rebalance(old_domain, self._co.domain),
+                co_slot_specs({ns: self._services[ns].engine
+                               for ns in self._attached}))
+        self.last_rebalance = {"co": co_traffic, "solo": solo_traffic,
+                               "world": world,
+                               "epoch": self._membership.epoch}
         return out
 
     # ------------------------------------------------------------ internals

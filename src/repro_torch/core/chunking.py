@@ -62,6 +62,14 @@ class GroupPlan:
     def chunks_per_shard(self) -> int:
         return self.shard_len // self.chunk_elems
 
+    @property
+    def live_elems(self) -> int:
+        """The chunk-granular live extent: ``total`` rounded up to whole
+        chunks.  Past it is the rack's pad, which never receives gradient;
+        a resize or a restore at another world size keeps the live extent
+        bitwise and re-cuts the pad."""
+        return -(-self.total // self.chunk_elems) * self.chunk_elems
+
 
 def chunk_spans(n_elems: int, chunk_elems: int) -> tuple:
     """Chunk-granular (start, length) spans tiling a chunk-aligned

@@ -47,7 +47,7 @@ Nesterov tenant's runs; or, on CPU tensors, the reference's table form
 with its ``aux_by_key`` tables).
 
 Left out of the reference's client: telemetry spans and ``compile_count``
-(ROADMAP.md queue A items 9 and 10): the port builds no programs.
+(ROADMAP.md queue A items 9a and 10): the port builds no programs.
 """
 from __future__ import annotations
 

@@ -35,8 +35,9 @@ fast: the rack refuses to commit steps without quorum.
 Emulation caveat: workers are rows of the stacked buffer and their
 number is fixed per engine — "leaving" masks a position's gradient out of
 the aggregation (exact: +0.0 contributions).  A true *resize* (fewer
-workers, state migrated through the rebalance plan) is ROADMAP.md queue A
-item 7b.
+workers, state migrated through the rebalance plan) is
+``PHubConnectionManager.resize``, which rebuilds the engines on a new
+Comm and starts a fresh membership there (``resized``).
 """
 from __future__ import annotations
 

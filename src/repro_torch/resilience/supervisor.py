@@ -26,7 +26,7 @@ The supervisor is host-side and slow-path: the per-step cost on a clean
 rack is one (world,)-vector host sync.  The norm threshold rides as a step
 input (``HealthTracker.norm_hi``), so adapting it builds no new step.
 The reference's metrics-registry counters and tracer spans are not ported
-(ROADMAP.md queue A item 9); ``events``, ``incidents``,
+(ROADMAP.md queue A item 9a); ``events``, ``incidents``,
 ``incident_history`` and ``event_kinds`` are the record.
 """
 from __future__ import annotations

@@ -19,7 +19,7 @@ instead.  PyTorch returns before the card finishes, so with a deadline
 set the watchdog waits for the card (``torch.cuda.synchronize``) before
 it reads the clock; without one it adds no sync.  The reference's
 telemetry counters and events are not ported (ROADMAP.md queue A item
-9).
+9a).
 """
 from __future__ import annotations
 

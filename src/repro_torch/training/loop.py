@@ -2,7 +2,7 @@
 steps, an elastic membership per step, periodic checkpoints, or the
 self-healing ``TrainSupervisor``.  Over a process group every rank runs
 the loop and rank 0 logs.  The reference's telemetry hooks (tracer spans,
-the metrics registry) are ROADMAP.md queue A item 9."""
+the metrics registry) are ROADMAP.md queue A item 9a."""
 from __future__ import annotations
 
 import time

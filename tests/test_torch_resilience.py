@@ -356,8 +356,19 @@ def test_restore_train_state_in_place_bitwise(tmp_path):
     save_checkpoint(d, 6, {"params": model.param_tree(), "opt": o8})
     _, _, o1 = restore_train_state(d, eng, step=6)
     assert list(o1["float32"]) == ["m", "v", "k1", "k2"]
-    with pytest.raises(ValueError, match="world size"):
-        restore_train_state(d, _engine(W=4), step=5)
+    # another world size restores through the solo rebalance plan: the
+    # live region bitwise, a re-cut pad tail zero
+    e4 = _engine(W=4)
+    _, _, o4 = restore_train_state(d, e4, step=5)
+    (g4,) = e4.chunk_plan.groups
+    (g2,) = eng.chunk_plan.groups
+    for n, t in opt["float32"].items():
+        got = o4["float32"][n].reshape(-1)
+        assert got.shape == (g4.padded,)
+        assert torch.equal(got[:g4.live_elems],
+                           t.reshape(-1)[:g4.live_elems])
+        if g4.padded != g2.padded:
+            assert not got[g4.live_elems:].any()
 
 
 # ----------------------------------------------------- loop and launcher
