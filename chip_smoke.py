@@ -302,7 +302,32 @@
    in a synchronization), the bytes it must move and their rate against
    the HBM bound, ``moved_bytes`` and ``moved_fraction``, and the GiB
    allocated before, at the peak and after.
-16. Prints the kernels line, then the device line last.
+16. PHub's characterization (``characterization_phase``), full
+   llama3.2-1b: (a) the ZeroComputeEngine
+   (``PHubEngine.make_zero_compute_step``, the exchange alone) at 4
+   stacked workers (1 warm + 10 timed steps), at 1 worker (1 + 5) and at 4
+   over the int8 wire in 5 windows (1 + 5): after every step the
+   parameters and every slot bitwise equal to ``exchange_stage`` run by
+   hand on rows filled with p * 1e-4, launches exact; ms a step, the push
+   and pull bytes a second, and for the identity paths the step's bytes
+   bound at 3.35 TB/s beside the rule's kernel alone; (b) the calibration
+   probes (``tuning/calibrate.py``) on ``StackedComm(4)`` at
+   ``CARD_PROBE_ELEMS`` a row, solved from the card's base topology: the
+   constants, residuals and tolerance beside the card's name and power
+   limit, the record saved to a temporary directory; (c)
+   ``launch/train.py --telemetry --calibrate --workers 4`` (3 steps: the
+   attribution table and the agreement band; "OUTSIDE TOLERANCE" is a
+   finding, not a failure), its artifacts read back by ``launch/trace.py``
+   (the records must validate), then ``--telemetry --supervise`` over the
+   calibration the first run saved (the supervisor's spans, B5); (d) the
+   same 2 steps at W=4 over the identity wire and over int8 in 5 windows
+   with telemetry off, on, on, off: the first off and on runs' losses,
+   fingerprints and every slot bitwise equal, every run's losses and
+   launches equal, the step-time overhead as the median on-step over the
+   median off-step (a finding); (e) ``launch/serve.py`` (llama3.2-1b, B 8,
+   prompt 2048, 32 tokens) with telemetry off and on: greedy tokens equal,
+   launches exact, the span totals and the decode-dispatch histogram.
+17. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 card and refuses to run without one.
@@ -4297,6 +4322,384 @@ def resize_phase(torch, count) -> dict:
     return out
 
 
+# ------------------------------------------------- 16. characterization
+
+TEL_STEPS = 2                    # (d): steps a telemetry on/off run
+TEL_MODES = ("off", "on", "on", "off")     # (d): interleaved runs
+# (a): (label, workers, TrainConfig fields, warm steps, timed steps,
+# launches a step)
+ZC_PATHS = (
+    ("W=4", WORKERS, {}, 1, 10, {"multi_agg_opt_chunks": 1}),
+    ("W=1", 1, {}, 1, 5, {"agg_opt_chunks": 1}),
+    (f"int8 W=4 in {WINDOWS_W4} windows", WORKERS,
+     dict(wire_format="int8", pipeline_windows=WINDOWS_W4), 1, 5,
+     INT8_W4_WINDOWS),
+)
+
+
+def zc_bytes(W: int, n: int) -> int:
+    """The bytes one identity zero-compute step must move over an n-element
+    f32 domain: the parameters flattened (read, write), W rows filled with
+    p * 1e-4 (p read and a row written each), the rule's kernel (W rows, p
+    and m read, p' and m' written) and p' written back into the leaves."""
+    return 4 * n * (2 + 2 * W + (W + 4) + 2)
+
+
+def zero_compute_path(torch, label: str, W: int, fields: dict, warm: int,
+                      timed: int, expect: dict, kernels: dict) -> dict:
+    """16 (a): ``make_zero_compute_step`` on the full model, each step
+    held bitwise against ``exchange_stage`` run by hand on rows filled with
+    p * 1e-4 from the same state; the timed steps between two
+    synchronizations."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import PHubEngine, StackedComm
+    tc = path_tc("nesterov", fields.get("wire_format", "identity"),
+                 {k: v for k, v in fields.items() if k != "wire_format"})
+    engine = PHubEngine(get_arch(ARCH), tc, StackedComm(W), device="cuda")
+    (group,) = engine.chunk_plan.groups
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = engine.init_state()
+    step = engine.make_zero_compute_step()
+    ms, launches = [], {}
+    for i in range(warm + timed):
+        with torch.no_grad():
+            flat0 = engine.client.flatten(model.param_tree())
+            opt0 = {k: {n: t.clone() for n, t in d.items()}
+                    for k, d in opt.items()}
+            rows = engine.grad_buffers()
+            for k, v in flat0.items():
+                for w in range(W):
+                    rows[k][w].copy_(v).mul_(1e-4)
+        want_p, want_opt = engine.exchange_stage(rows, flat0, opt0)
+        del flat0, opt0
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        model, opt = step(model, opt)
+        torch.cuda.synchronize()
+        t = (time.perf_counter() - t0) * 1e3
+        got = all_launches()
+        expect_launches(got, expect, 1, f"zero-compute {label} step {i}")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        got_p = engine.client.flatten(model.param_tree())
+        same = all(torch.equal(got_p[k], want_p[k]) for k in got_p) and all(
+            torch.equal(opt[k][n], want_opt[k][n])
+            for k in opt for n in opt[k])
+        check(same, f"zero-compute {label} step {i}: p or a slot differs "
+                    f"from exchange_stage by hand")
+        del got_p, want_p, want_opt
+        if i >= warm:
+            ms.append(t)
+    model_bytes = group.padded * 4
+    med = statistics.median(ms)
+    note = ""
+    if "wire_format" not in fields:
+        b = zc_bytes(W, group.padded)
+        bound = b / HBM_BYTES_PER_S * 1e3
+        kname = "multi_agg_opt_chunks" if W > 1 else "agg_opt_chunks"
+        note = (f"; bytes {b / 1e9:.2f} GB, bound {bound:.3f} ms at 3.35 "
+                f"TB/s ({bound / med:.1%} of it reached); the rule's kernel "
+                f"alone ({kname}, kernel phase) "
+                f"{kernels[kname]['ms']:.3f} ms, bound "
+                f"{kernels[kname]['bound_ms']:.3f} ms")
+    log(f"16 (a) zero-compute {label}: {group.padded:,} elements "
+        f"({model_bytes / 1e9:.2f} GB a row), {warm} warm + {timed} timed "
+        f"steps, p and every slot bitwise equal to exchange_stage by hand "
+        f"after each; ms a step {[round(x, 3) for x in ms]} (median "
+        f"{med:.3f}); push+pull {2 * W * model_bytes / 1e9:.2f} GB a step, "
+        f"{2 * W * model_bytes / (med / 1e3) / 1e9:.1f} GB/s PS throughput"
+        + note + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB (the by-hand check's copies included); launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    del model, opt, engine, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "launches": launches}
+
+
+def calibration_probe_phase(torch, smi: str) -> tuple:
+    """16 (b): the three probe flavors on StackedComm(4) at
+    CARD_PROBE_ELEMS a row, solved from the card's base topology; then
+    the probes once more, back to back, for the spread between two
+    calibrations of one card."""
+    import tempfile
+
+    from repro_torch.core import StackedComm
+    from repro_torch.tuning import (CARD_PROBE_ELEMS, card_base_topology,
+                                    run_probe_programs, save_calibration,
+                                    solve_topology)
+    comm = StackedComm(WORKERS)
+    reset_all_launches()
+    probe = run_probe_programs(comm, elems=CARD_PROBE_ELEMS, device="cuda")
+    launches = all_launches()
+    # 2 warm + 5 timed push_pulls a flavor: ring and allreduce one
+    # multi_agg_opt_chunks each, int8 the one-window int8 step
+    expect_launches(launches, {"multi_agg_opt_chunks": 2, **{
+        k: v for k, v in INT8_W4.items()}}, 7, "16 (b) calibration probes")
+    out = solve_topology(probe, card_base_topology(comm))
+    out["card"] = smi
+    reset_all_launches()
+    again = solve_topology(run_probe_programs(
+        comm, elems=CARD_PROBE_ELEMS, device="cuda"),
+        card_base_topology(comm))
+    check(all_launches() == launches, "16 (b): the second calibration "
+                                      "launched other kernels")
+    with tempfile.TemporaryDirectory() as d:
+        path = save_calibration(out, os.path.join(d, "calibration_4w.json"))
+        saved = json.load(open(path))
+    check(saved["base"]["lat_ici"] == saved["base"]["lat_dcn"] == 0.0,
+          "the calibration record's base latencies are not 0")
+    c = out["constants"]
+    log(f"16 (b) calibration on {smi}: {probe['devices']} stacked workers, "
+        f"{probe['elems']:,} f32 a row ({probe['elems'] * 4 / 2**30:.2f} "
+        f"GiB); probe medians "
+        + ", ".join(f"{fl} {f['us'] / 1e3:.3f} ms (reps "
+                    f"{[round(x / 1e3, 3) for x in f['us_reps']]})"
+                    for fl, f in probe["flavors"].items())
+        + f"; solved bw_ici {c['bw_ici']:.6g} B/s, allreduce_factor "
+        f"{c['allreduce_factor']:.6g}, bw_codec {c['bw_codec']:.6g} B/s "
+        f"(lat_ici = lat_dcn = 0, the base's bandwidths 3.35e12); "
+        f"residuals "
+        + ", ".join(f"{fl} {r['rel_err']:.4f}"
+                    for fl, r in out["residuals"].items())
+        + f"; tolerance {out['tolerance']}; calibrated again back to back: "
+        + ", ".join(f"{k} {v:.6g} ({v / c[k] - 1:+.2%})"
+                    for k, v in again["constants"].items())
+        + f", probe medians "
+        + ", ".join(f"{fl} {f['us'] / 1e3:.3f} ms"
+                    for fl, f in again["probe"]["flavors"].items()))
+    return out, launches
+
+
+def telemetry_launcher_phase(torch, count) -> None:
+    """16 (c): ``launch/train.py --telemetry --calibrate --workers 4`` on
+    the full model, 3 steps; the port's trace reader on its artifacts;
+    then ``--supervise`` over the calibration it saved."""
+    import tempfile
+
+    from repro_torch import telemetry
+    from repro_torch.launch import trace
+    from repro_torch.launch.train import main as train_main
+    base = ["--arch", ARCH, "--workers", str(WORKERS), "--steps", "3",
+            "--batch", str(BATCH), "--seq", str(SEQ), "--log-every", "1",
+            "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as d:
+        for label, extra, want in (
+                ("--telemetry --calibrate", ["--calibrate"],
+                 # calibration 14 + 7 x INT8_W4, zero-compute 1 + 3, the
+                 # step probe 1 + 3, 3 training steps
+                 {"multi_agg_opt_chunks": 14 + 4 + 4 + 3,
+                  **{k: 7 * v for k, v in INT8_W4.items()}}),
+                ("--telemetry --supervise", ["--supervise"],
+                 {"multi_agg_opt_chunks": 4 + 4 + 3, "health_chunks": 3})):
+            reset_all_launches()
+            t0 = time.perf_counter()
+            losses = train_main(base + ["--telemetry", "--telemetry-out", d]
+                                + extra)
+            took = time.perf_counter() - t0
+            launches = all_launches()
+            check(not telemetry.enabled(),
+                  f"16 (c) {label}: telemetry still on after main")
+            check(len(losses) == 3 and all(math.isfinite(x)
+                                           for x in losses),
+                  f"16 (c) {label}: losses {losses}")
+            expect_launches(launches, want, 1, f"16 (c) {label}")
+            count(f"launch/train.py {label}", launches)
+            records, meta = trace.load_trace(os.path.join(d, "trace.json"))
+            issues = trace.validate(records)
+            check(issues == [], f"16 (c) {label}: trace malformed {issues}")
+            log(f"16 (c) {label}: {took:.1f} s, losses {losses}; the "
+                f"trace's breakdown:\n" + trace.render_breakdown(records,
+                                                                 meta))
+            att = meta["attribution"]
+            ag = trace.check_model(records, meta)
+            check(ag.get("checked", False),
+                  f"16 (c) {label}: model check impossible: {ag}")
+            verdict = ("ok" if ag["ok"] else "OUTSIDE TOLERANCE (a "
+                       "finding, not a failure)")
+            log(f"16 (c) {label}: calibrated {att['calibrated']}, topology "
+                f"{att['topology']}; --check-model: measured "
+                f"{ag['measured_s'] * 1e3:.3f} ms vs predicted "
+                f"{ag['predicted_s'] * 1e3:.3f} ms, ratio {ag['ratio']:.4f} "
+                f"in [{ag['band'][0]:.4f}, {ag['band'][1]:.4f}] -> "
+                f"{verdict}")
+            names = {r.name for r in records}
+            if "--supervise" in extra:
+                check({"digest", "sync", "dispatch"} <= names
+                      and all(r.args.get("supervised") for r in records
+                              if r.name == "dispatch"),
+                      f"16 (c) {label}: supervisor spans missing: {names}")
+            lines = [json.loads(x) for x in open(os.path.join(
+                d, "metrics.jsonl"))]
+            log(f"16 (c) {label}: {len(records)} spans ({sorted(names)}), "
+                f"{len(lines)} metric lines; report.txt:\n"
+                + open(os.path.join(d, "report.txt")).read())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def telemetry_run(torch, fields: dict, on: bool, keep: bool) -> dict:
+    """One fit of TEL_STEPS steps at W=4 from the seed, telemetry on or
+    off: losses, step ms, fingerprints, launches (and the slots, if
+    ``keep``)."""
+    from repro_torch import telemetry
+    from repro_torch.configs import get_arch
+    from repro_torch.core import PHubEngine, StackedComm
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.training import TrainState, fit
+    wire = fields.get("wire_format", "identity")
+    tc = path_tc("nesterov", wire,
+                 {k: v for k, v in fields.items() if k != "wire_format"})
+    cfg = get_arch(ARCH)
+    engine = PHubEngine(cfg, tc, StackedComm(WORKERS), device="cuda")
+    state = TrainState(*engine.init_state())
+    data = SyntheticTokens(cfg, BATCH, SEQ, seed=tc.seed)
+    step_ms, prints, marks = [], [], []
+
+    def on_step(st, metrics):
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - marks[-1]) * 1e3)
+        prints.append(fingerprint(torch, st.params))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    if on:
+        telemetry.enable(seed=tc.seed)
+    try:
+        reset_all_launches()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        state = fit(engine, state, data, steps=TEL_STEPS, log_every=0,
+                    hooks=[on_step])
+        launches = all_launches()
+    finally:
+        tracer = telemetry.disable()[0]
+    out = {"losses": list(state.losses), "ms": step_ms, "prints": prints,
+           "launches": launches, "spans": len(tracer.records)}
+    if keep:
+        out["opt"] = {k: {n: t.clone() for n, t in d.items()}
+                      for k, d in state.opt.items()}
+    del state, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def telemetry_pair(torch, label: str, fields: dict, expect: dict,
+                   count) -> None:
+    """16 (d): the same TEL_STEPS steps with telemetry off and on, in the
+    order TEL_MODES: the first off and on runs' losses, fingerprints and
+    every slot bitwise equal, every run's losses and launches equal; the
+    overhead is the median on-step over the median off-step."""
+    runs = [telemetry_run(torch, fields, mode == "on", i < 2)
+            for i, mode in enumerate(TEL_MODES[:2])]
+    off, on = runs
+    check(all(torch.equal(on["opt"][k][n], off["opt"][k][n])
+              for k in off["opt"] for n in off["opt"][k]),
+          f"16 (d) {label}: a slot differs between telemetry on and off")
+    del off["opt"], on["opt"]          # the slots' copies, before the rest
+    runs += [telemetry_run(torch, fields, mode == "on", False)
+             for mode in TEL_MODES[2:]]
+    check(off["spans"] == 0 and on["spans"] > 0,
+          f"16 (d) {label}: spans off {off['spans']}, on {on['spans']}")
+    for r in runs:
+        check(r["losses"] == off["losses"] and r["launches"] ==
+              off["launches"], f"16 (d) {label}: losses or launches differ "
+                               f"between telemetry on and off")
+    expect_launches(off["launches"], expect, TEL_STEPS, f"16 (d) {label}")
+    for i in range(TEL_STEPS):
+        check(same_fingerprint(torch, on["prints"][i], off["prints"][i]),
+              f"16 (d) {label}: parameters differ after step {i}")
+    ms = {m: [x for r, mm in zip(runs, TEL_MODES) if mm == m for x in r["ms"]]
+          for m in ("off", "on")}
+    med = {m: statistics.median(v) for m, v in ms.items()}
+    log(f"16 (d) telemetry on vs off, {label}: losses {off['losses']}, the "
+        f"fingerprint after each step and every slot bitwise equal, "
+        f"launches equal ({', '.join(f'{k} {v}' for k, v in off['launches'].items() if v)}); "
+        f"{on['spans']} spans a traced run; step ms off "
+        f"{[round(x, 3) for x in ms['off']]}, on "
+        f"{[round(x, 3) for x in ms['on']]} (runs {'/'.join(TEL_MODES)}); "
+        f"median off {med['off']:.3f}, on {med['on']:.3f}: overhead "
+        f"{med['on'] / med['off'] - 1:+.4%} (a finding, not a gate)")
+    for i, (mode, r) in enumerate(zip(TEL_MODES, runs)):
+        count(f"telemetry {mode} (run {i}) {label}", r["launches"])
+
+
+def telemetry_serve_phase(torch, count) -> None:
+    """16 (e): ``launch/serve.py`` on the full llama3.2-1b (B 8, prompt
+    2048, 32 tokens) with telemetry off and on: greedy tokens equal,
+    launches exact and equal; the span totals and the decode-dispatch
+    histogram."""
+    import tempfile
+
+    from repro_torch import telemetry
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import trace
+    from repro_torch.launch.serve import main as serve_main
+    arch, batch, prompt, steps = SERVE_PATHS[0]
+    L = get_arch(arch).n_layers
+    want = {"swa_attention_kernel": L,
+            "decode_attention_kernel": L * (steps - 1)}
+    args = ["--arch", arch, "--batch", str(batch), "--prompt-len",
+            str(prompt), "--decode-steps", str(steps), "--device", "cuda"]
+    toks = {}
+    with tempfile.TemporaryDirectory() as d:
+        for mode, extra in (("off", []),
+                            ("on", ["--telemetry", "--telemetry-out", d])):
+            reset_all_launches()
+            toks[mode] = serve_main(args + extra)
+            launches = all_launches()
+            check(not telemetry.enabled(), "16 (e): telemetry still on")
+            expect_launches(launches, want, 1, f"16 (e) serve {mode}")
+            count(f"launch/serve.py telemetry {mode}", launches)
+        records, meta = trace.load_trace(os.path.join(d,
+                                                      "serve_trace.json"))
+        check(trace.validate(records) == [], "16 (e): trace malformed")
+        totals = {}
+        for r in records:
+            if r.depth == 0:
+                totals[r.name] = totals.get(r.name, 0.0) + r.dur
+        hist = {}
+        for line in open(os.path.join(d, "serve_metrics.jsonl")):
+            x = json.loads(line)
+            hist.setdefault(x["labels"]["phase"], []).append(x["value"])
+    check(bool((toks["on"] == toks["off"]).all()),
+          "16 (e): greedy tokens differ with telemetry on")
+    dd = hist["decode_dispatch"]
+    log(f"16 (e) serve {arch} B {batch} prompt {prompt}, {steps} tokens: "
+        f"greedy tokens equal with telemetry on and off, launches exact; "
+        f"span totals "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in totals.items())
+        + f"; serve.latency: prefill {hist['prefill'][0] * 1e3:.3f} ms, "
+        f"decode_dispatch count {len(dd)} mean "
+        f"{statistics.mean(dd) * 1e3:.3f} ms median "
+        f"{statistics.median(dd) * 1e3:.3f} min {min(dd) * 1e3:.3f} max "
+        f"{max(dd) * 1e3:.3f}, decode_total "
+        f"{hist['decode_total'][0] * 1e3:.3f} ms")
+
+
+def characterization_phase(torch, count, kernels: dict, smi: str) -> None:
+    """16. PHub's characterization (module docstring)."""
+    t_phase = time.perf_counter()
+    for label, W, fields, warm, timed, expect in ZC_PATHS:
+        run = zero_compute_path(torch, label, W, fields, warm, timed,
+                                expect, kernels)
+        count(f"zero-compute {label}", run["launches"])
+    _, launches = calibration_probe_phase(torch, smi)
+    for run in (0, 1):
+        count(f"calibration probes (run {run})", launches)
+    telemetry_launcher_phase(torch, count)
+    telemetry_pair(torch, "W=4", {}, {"multi_agg_opt_chunks": 1}, count)
+    telemetry_pair(torch, f"int8 W=4 in {WINDOWS_W4} windows",
+                   dict(wire_format="int8", pipeline_windows=WINDOWS_W4),
+                   INT8_W4_WINDOWS, count)
+    telemetry_serve_phase(torch, count)
+    log(f"16. the characterization phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4478,6 +4881,7 @@ def main() -> None:
     for name, entry in co_kernel_phase(torch, domains, ce).items():
         kernels[name].update(entry)
     resize_phase(torch, count)
+    characterization_phase(torch, count, kernels, smi.splitlines()[0])
     for k in kernels.values():
         if "tol" in k:            # checked against its tolerance above
             k["verdict"] = "within_tol"

@@ -38,8 +38,16 @@ the migration traffic (``cost_model.rebalance_traffic``).  A process
 group cannot change its world inside a process, so ``resize`` over a
 ``ProcessGroupComm`` raises (queue A item 4b).
 
-Left out of the reference's manager: ``compile_count`` and the telemetry
-counters (items 9a and 10).
+Telemetry (``telemetry/``, the reference's instruments): ``push_pull``
+runs under the span ``exchange/push_pull`` (``ns``) and ``co_step`` under
+``exchange/co_step`` (``tenants``); each adds its tenants' bytes a step to
+the counter ``exchange.bytes`` by tenant and basis (``raw``, and ``wire``
+as encoded: ``cost_model.tenant_step_traffic``); every membership
+transition emits a ``membership`` event and sets the ``membership.epoch``
+gauge (``demote`` counts ``membership.demotions``); ``resize`` adds the
+plan's bytes to ``rebalance.moved_bytes`` and emits a ``rebalance`` event.
+Left out of the reference's manager: ``compile_count`` (ROADMAP.md queue
+A item 10).
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ import torch
 from ..configs.base import ModelConfig, TrainConfig
 from ..elastic import Membership, plan_rebalance
 from ..elastic.rebalance import check_resizable, migrate_engine_state
+from ..telemetry import get_registry, get_tracer
 from . import cost_model
 from .chunking import TenantPackedDomain, pack_domains
 from .comm import require_stacked
@@ -111,6 +120,9 @@ class PHubConnectionManager:
         self._membership: Optional[Membership] = None
         self.last_rebalance: Optional[dict] = None
         self._watchdog = None
+        # a solo tenant's raw and wire bytes a step, for the telemetry
+        # counters; computed once per namespace and engine
+        self._traffic_cache: dict[str, dict] = {}
         # each domain layout's (step cache, gradient buffers), so that a
         # re-pack back to a layout reuses its steps
         self._co_memo: dict = {}
@@ -137,30 +149,44 @@ class PHubConnectionManager:
                              "count) or set_membership explicitly")
         return self._membership
 
+    def _note_membership(self, kind: str, rank: int = None) -> None:
+        """The telemetry record of a live-set change: a ``membership``
+        event and the ``membership.epoch`` gauge."""
+        reg = get_registry()
+        reg.event("membership", kind=kind, rank=rank,
+                  epoch=self._membership.epoch)
+        reg.gauge("membership.epoch").set(float(self._membership.epoch))
+
     def join(self, rank: int) -> Membership:
         """Worker ``rank`` (re)joined the rack."""
         self._membership = self._require_membership().join(rank)
+        self._note_membership("join", rank)
         return self._membership
 
     def leave(self, rank: int) -> Membership:
         """Worker ``rank`` left: its pushes are excluded from every later
         step until it joins back."""
         self._membership = self._require_membership().leave(rank)
+        self._note_membership("leave", rank)
         return self._membership
 
     def mark_slow(self, rank: int, factor: float) -> Membership:
         """Worker ``rank`` straggles at ``factor`` x: stop waiting for it
         (k-of-n partial aggregation)."""
         self._membership = self._require_membership().mark_slow(rank, factor)
+        self._note_membership("mark_slow", rank)
         return self._membership
 
     def mark_recovered(self, rank: int) -> Membership:
         self._membership = self._require_membership().mark_recovered(rank)
+        self._note_membership("mark_recovered", rank)
         return self._membership
 
     def demote(self, rank: int) -> Membership:
         """Escalate worker ``rank`` one notch (live -> slow -> dead)."""
         self._membership = self._require_membership().demote(rank)
+        get_registry().counter("membership.demotions").inc(rank=rank)
+        self._note_membership("demote", rank)
         return self._membership
 
     # ------------------------------------------------------- resilience
@@ -243,13 +269,42 @@ class PHubConnectionManager:
         if key not in svc.steps:
             svc.steps[key] = svc.engine.make_train_step(
                 membership=self._step_membership())
-        return self._dispatch(svc.steps[key], model, opt, batch)
+        with get_tracer().span("exchange/push_pull", ns=handle.namespace):
+            out = self._dispatch(svc.steps[key], model, opt, batch)
+        reg = get_registry()
+        if reg.enabled:
+            t = self._solo_step_traffic(svc, handle.namespace)
+            reg.counter("exchange.bytes").inc(
+                t["push_bytes"] + t["pull_bytes"],
+                tenant=handle.namespace, basis="raw")
+            reg.counter("exchange.bytes").inc(
+                t["wire_push_bytes"] + t["wire_pull_bytes"],
+                tenant=handle.namespace, basis="wire")
+        return out
+
+    def _solo_step_traffic(self, svc: _Service, ns: str) -> dict:
+        """A solo tenant's raw and wire bytes a step: the figures the
+        co-scheduled accounting carries (``cost_model``), cached per
+        namespace (a resize clears the cache)."""
+        t = self._traffic_cache.get(ns)
+        if t is None:
+            eng = svc.engine
+            groups = eng.chunk_plan.groups
+            padded = sum(g.padded * g.dtype.itemsize for g in groups)
+            wire_b = cost_model.wire_bytes_for_groups(
+                [(g.padded, g.dtype, g.chunk_elems) for g in groups],
+                eng.wire)
+            t = cost_model.tenant_step_traffic(
+                eng.tc.strategy, padded, eng.comm.n_workers, wire_b)
+            self._traffic_cache[ns] = t
+        return t
 
     def destroy_service(self, handle: ServiceHandle) -> None:
         self._auth(handle)
         if handle.namespace in self._attached:
             self.detach_service(handle)     # reclaims its chunk ranges
         del self._services[handle.namespace]
+        self._traffic_cache.pop(handle.namespace, None)
         if not self._services:
             # an empty rack has no workers; the next service sizes a fresh
             # membership from its own Comm
@@ -341,14 +396,24 @@ class PHubConnectionManager:
             co.steps[key] = make_co_train_step(
                 {ns: self._services[ns].engine for ns in self._attached},
                 co.domain, self._step_membership(), gbuf=co.gbuf)
-        models, co.opt, metrics = self._dispatch(co.steps[key], models,
-                                                 co.opt, batches)
+        with get_tracer().span("exchange/co_step",
+                               tenants=len(self._attached)):
+            models, co.opt, metrics = self._dispatch(co.steps[key], models,
+                                                     co.opt, batches)
+        reg = get_registry()
         for ns in self._attached:
             t = co.traffic.setdefault(
                 ns, {"steps": 0, **{k: 0.0 for k in _TRAFFIC_KEYS}})
+            per = co.acct[ns]["per_step"]
             t["steps"] += 1
             for k in _TRAFFIC_KEYS:
-                t[k] += co.acct[ns]["per_step"][k]
+                t[k] += per[k]
+            reg.counter("exchange.bytes").inc(
+                per["push_bytes"] + per["pull_bytes"], tenant=ns,
+                basis="raw")
+            reg.counter("exchange.bytes").inc(
+                per["wire_push_bytes"] + per["wire_pull_bytes"], tenant=ns,
+                basis="wire")
         return models, metrics
 
     def accounting(self) -> dict:
@@ -405,7 +470,8 @@ class PHubConnectionManager:
                                  device=svc.engine.device)
             check_resizable(svc.engine, new_eng)
             rebuilt[ns] = (svc.engine, new_eng)
-        # the old world's steps and gradient rows go first
+        # the old world's steps, gradient rows and byte figures go first
+        self._traffic_cache.clear()
         for svc in self._services.values():
             svc.steps.clear()
             svc.engine.client.release_buffers()
@@ -441,6 +507,13 @@ class PHubConnectionManager:
         self.last_rebalance = {"co": co_traffic, "solo": solo_traffic,
                                "world": world,
                                "epoch": self._membership.epoch}
+        moved = ((co_traffic or {}).get("moved_bytes", 0.0)
+                 + sum(t["moved_bytes"] for t in solo_traffic.values()))
+        reg = get_registry()
+        reg.counter("rebalance.moved_bytes").inc(moved)
+        reg.event("rebalance", world=world, epoch=self._membership.epoch,
+                  moved_bytes=moved)
+        self._note_membership("resize")
         return out
 
     # ------------------------------------------------------------ internals

@@ -46,8 +46,12 @@ update per group (``update_by_key``: the kernel form
 Nesterov tenant's runs; or, on CPU tensors, the reference's table form
 with its ``aux_by_key`` tables).
 
-Left out of the reference's client: telemetry spans and ``compile_count``
-(ROADMAP.md queue A items 9a and 10): the port builds no programs.
+Telemetry (``telemetry/``): ``push_pull`` and ``push_pull_flat`` run
+under the ``exchange/push_pull`` span, and every step function the client
+and its engine hand out (``dispatched``) under ``engine/dispatch``, the
+reference's spans; with telemetry off both are no-ops.  Left out of the
+reference's client: ``compile_count`` (ROADMAP.md queue A item 10): the
+port builds no programs.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ import torch
 from ..kernels.agg_opt.ref import worker_mean
 from ..optim.protocol import make_sharded_optimizer
 from . import chunking
+from ..telemetry import get_tracer
 from .comm import require_stacked
 from .exchange import check_strategy, check_wire
 from .pipeline import (check_pipeline, run_chunk_ready_exchange,
@@ -78,6 +83,16 @@ def nest(named) -> dict:
             node = node.setdefault(k, {})
         node[leaf] = t
     return tree
+
+
+def dispatched(fn):
+    """``fn`` with every call under the ``engine/dispatch`` span, as the
+    reference's compiled step wrapper: a host-side span around the call's
+    enqueue, no synchronization."""
+    def call(*args, **kwargs):
+        with get_tracer().span("engine/dispatch"):
+            return fn(*args, **kwargs)
+    return call
 
 
 def module_tree(module: torch.nn.Module) -> dict:
@@ -473,9 +488,11 @@ class PHubClient:
         return self._dispatch(self._exchange, gstore, dict(pstore), opt)
 
     def _dispatch(self, fn, *args):
-        if self.watchdog is not None:
-            return self.watchdog.run(fn, *args)
-        return fn(*args)
+        fn = dispatched(fn)
+        with get_tracer().span("exchange/push_pull"):
+            if self.watchdog is not None:
+                return self.watchdog.run(fn, *args)
+            return fn(*args)
 
     def _push_pull_tree(self, grads: dict, params: dict, opt: dict):
         gbuf = self.grad_buffers()

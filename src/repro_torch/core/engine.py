@@ -117,6 +117,13 @@ reference has no backward for it).  Serving (``make_prefill_step``,
 ``make_serve_step``) runs the model's prefill and decode forwards on one
 card, for every ported family; the launcher builds the engine with
 ``StackedComm(1)``.
+
+The ZeroComputeEngine (``make_zero_compute_step``, §4.4) is the train
+step with the forward and backward replaced by the reference's synthetic
+push ``p * 1e-4``: the exchange alone, PHub's throughput probe
+(``launch/train.py --telemetry``, ``tuning/calibrate.py``).  Every step
+function the engine hands out runs under the ``engine/dispatch``
+telemetry span (``client.dispatched``).
 """
 from __future__ import annotations
 
@@ -130,7 +137,7 @@ from ..models import DecoderLM, chunked_cross_entropy, param_specs
 from ..optim.protocol import RuleBinding, make_combined_update, \
     make_run_update, union_slots
 from . import chunking
-from .client import PHubClient
+from .client import PHubClient, dispatched
 from .comm import require_stacked
 from .exchange import check_strategy
 from .pipeline import check_pipeline
@@ -418,7 +425,45 @@ class PHubEngine:
             self._write_params(model, new_p)
             return model, new_opt, metrics
 
-        return step
+        return dispatched(step)
+
+    def make_zero_compute_step(self, membership=None):
+        """ZeroComputeEngine (§4.4): the exchange of a train step with the
+        forward and backward replaced by a synthetic push, the reference's
+        ``p * 1e-4`` in every live worker's row: pure PS throughput.
+        ``step(model, opt) -> (model, opt')``; one call is one exchange
+        step over this engine's whole chunk domain, through
+        ``exchange_stage`` (every strategy, wire and window count of the
+        tree-state step), the model updated in place as the train step
+        updates it.  ``membership``: an elastic ``Membership`` whose
+        excluded workers' rows are zeroed, the mean divided by the live
+        count.  Flat residency raises, as in the reference (its step
+        covers the tree-state chunk strategies)."""
+        if self.tc.flat_residency:
+            raise ValueError("zero-compute step covers the tree-state chunk "
+                             "strategies")
+        local = self.comm.local_workers()
+        mask, live = self.client.elastic_mask(membership)
+        n_live = None if mask is None else self.client.live_divisor(live)
+        gbuf = self.grad_buffers()
+        # the constant in each group's dtype, as the reference's
+        # ``x * 1e-4`` takes it (a Python float is weakly typed in JAX)
+        scale = {g.key: float(torch.tensor(1e-4, dtype=g.dtype))
+                 for g in self.chunk_plan.groups}
+
+        def step(model: DecoderLM, opt: dict):
+            flats_p = self._flat_params(model)
+            with torch.no_grad():
+                for key, rows in gbuf.items():
+                    for w in range(local):
+                        torch.mul(flats_p[key], scale[key], out=rows[w])
+            if mask is not None:
+                self.client.mask_rows(gbuf, mask)
+            new_p, new_opt = self.exchange_stage(gbuf, flats_p, opt, n_live)
+            self._write_params(model, new_p)
+            return model, new_opt
+
+        return dispatched(step)
 
     # ------------------------------------------------------------ serve step
 
@@ -439,7 +484,7 @@ class PHubEngine:
                                  f"step was made for {seq_len}")
             x, cache = model.prefill(tokens, max_new_tokens=max_new_tokens)
             return self._last_logits(model, x), cache
-        return prefill_step
+        return dispatched(prefill_step)
 
     def make_serve_step(self):
         """``serve_step(model, cache, tokens (B, 1)) -> (logits (B, V) f32,
@@ -448,7 +493,7 @@ class PHubEngine:
         def serve_step(model: DecoderLM, cache: dict, tokens: torch.Tensor):
             x = model.decode(tokens, cache)
             return self._last_logits(model, x), cache
-        return serve_step
+        return dispatched(serve_step)
 
 
 # ---------------------------------------------------- co-scheduled exchange
@@ -651,4 +696,4 @@ def make_co_train_step(tenants: dict, domain, membership=None, *,
                             flat[poff:poff + n])
         return models, new_opt, metrics
 
-    return step
+    return dispatched(step)

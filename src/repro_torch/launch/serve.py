@@ -5,12 +5,21 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --batch 8 --prompt-len 2048 --decode-steps 32
   ... --reduced --device cpu      # small same-family model on the CPU
+  ... --telemetry --telemetry-out out   # spans + latency histogram
 
 The prompts are ``SyntheticTokens(cfg, batch, prompt_len, seed=7)``'s
 first batch and the weights are drawn from seed 0, as the reference's.
 The prefill's logits give the first token; each of the ``decode_steps - 1``
 decode steps gives one more.  The decode chain is queued without a host
 sync and synchronized once at its end.
+
+With ``--telemetry`` the run is traced (``telemetry/``, the reference's
+spans and histogram): the span ``prefill`` (ending in the prefill's
+sync), one ``decode/step`` a decode step (the host's enqueue: no sync is
+added) and the histogram ``serve.latency`` by ``phase`` (``prefill``,
+``decode_dispatch`` a step, ``decode_total``); ``serve_trace.json`` and
+``serve_metrics.jsonl`` go to ``--telemetry-out``.  The launcher restores
+the null telemetry pair before it returns.
 """
 from __future__ import annotations
 
@@ -26,8 +35,12 @@ def generate(engine, model, prompts, decode_steps: int, *,
     token is drawn from softmax(logits / temperature) with ``generator``.
     Returns ``tokens`` (B, decode_steps) int32 on the device, the first
     and last steps' logits (B, V) f32, and the prefill's and the decode
-    chain's seconds, each ending in a device sync on a card."""
+    chain's seconds, each ending in a device sync on a card.  Traced under
+    the installed telemetry pair (module docstring)."""
     import torch
+
+    from .. import telemetry
+    tracer, registry = telemetry.get_tracer(), telemetry.get_registry()
     dev = prompts.device
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else (lambda: None)
@@ -45,19 +58,29 @@ def generate(engine, model, prompts, decode_steps: int, *,
 
     sync()
     t0 = time.perf_counter()
-    logits, cache = prefill_step(model, prompts)
-    sync()
+    with tracer.span("prefill", batch=prompts.shape[0],
+                     prompt_len=prompts.shape[1]):
+        logits, cache = prefill_step(model, prompts)
+        sync()
     t_prefill = time.perf_counter() - t0
+    registry.histogram("serve.latency").observe(t_prefill, phase="prefill")
     first = logits
     tok = pick(logits)
     out = [tok]
     t0 = time.perf_counter()
-    for _ in range(decode_steps - 1):
-        logits, cache = serve_step(model, cache, tok)
-        tok = pick(logits)
+    for i in range(decode_steps - 1):
+        td = time.perf_counter()
+        # the step's enqueue: the chain syncs once, at its end
+        with tracer.span("decode/step", i=i):
+            logits, cache = serve_step(model, cache, tok)
+            tok = pick(logits)
+        registry.histogram("serve.latency").observe(
+            time.perf_counter() - td, phase="decode_dispatch")
         out.append(tok)
     sync()
     t_decode = time.perf_counter() - t0
+    registry.histogram("serve.latency").observe(t_decode,
+                                                phase="decode_total")
     return {"tokens": torch.cat(out, dim=1).to(torch.int32),
             "first_logits": first, "last_logits": logits,
             "prefill_s": t_prefill, "decode_s": t_decode}
@@ -79,10 +102,29 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the sampling generator")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="trace the prefill and decode spans and the "
+                         "serving-latency histogram; artifacts under "
+                         "--telemetry-out")
+    ap.add_argument("--telemetry-out", default="results/telemetry")
     args = ap.parse_args(argv)
 
+    from .. import telemetry
+    if not args.telemetry:
+        return _serve(args)
+    telemetry.enable(seed=args.seed, meta={
+        "argv": list(argv) if argv is not None else [], "arch": args.arch,
+        "mode": "serve"})
+    try:
+        return _serve(args)
+    finally:
+        telemetry.disable()
+
+
+def _serve(args):
     import torch
 
+    from .. import telemetry
     from ..configs import TrainConfig, get_arch, reduced
     from ..core import PHubEngine, StackedComm
     from ..data import SyntheticTokens
@@ -122,6 +164,23 @@ def main(argv=None):
               f" GiB")
     print(f"[serve] sample generations (first 10 tokens): "
           f"{gen_tokens[:, :10].tolist()}")
+    if telemetry.enabled():
+        import os
+        tracer, registry = telemetry.get_tracer(), telemetry.get_registry()
+        tracer.meta["card"] = where
+        os.makedirs(args.telemetry_out, exist_ok=True)
+        tracer.write(os.path.join(args.telemetry_out, "serve_trace.json"))
+        registry.dump_jsonl(
+            os.path.join(args.telemetry_out, "serve_metrics.jsonl"))
+        st = registry.histogram("serve.latency").summary(
+            phase="decode_dispatch")
+        if st["count"]:
+            print(f"[serve] decode dispatch: mean "
+                  f"{st['sum'] / st['count'] * 1e3:.3f} ms (min "
+                  f"{st['min'] * 1e3:.3f}, max {st['max'] * 1e3:.3f}) over "
+                  f"{st['count']} steps")
+        print(f"[telemetry] artifacts: {args.telemetry_out}/"
+              f"{{serve_trace.json, serve_metrics.jsonl}}")
     return gen_tokens
 
 

@@ -24,6 +24,25 @@ Usage:
                                     # PHub's rack deployment, int8 DCN tier
   ... --tenants 2 --workers 2       # N jobs co-scheduled on one packed
                                     # rack domain (lr x (i+1), seed i)
+  ... --workers 4 --telemetry --calibrate --telemetry-out out
+                                    # spans, metrics, the probes and the
+                                    # attribution table (below)
+
+``--telemetry`` (stacked workers only) traces the run (``telemetry/``):
+before the loop it times two probes on copies of the model and the
+optimizer state, the zero-compute step (``probe/exchange``: the exchange
+alone, paper §4.4) and one full train step (``probe/step``), each rep
+ending in a device synchronization; it prints the attribution table
+(``telemetry/attribution.py``) and writes ``trace.json``,
+``metrics.jsonl`` and ``report.txt`` under ``--telemetry-out``.
+``--calibrate`` (implies ``--telemetry``) first solves the cost model's
+constants on this card (``tuning/calibrate.py``, ``CARD_PROBE_ELEMS`` a
+worker row), anchors their level to the zero-compute probe and saves
+``calibration_{W}w.json`` there; without it the table's model comes from
+such a file of this card, if one is there, and otherwise the table keeps
+the measured exchange as one row.  The training run's own state and
+losses are the same with the flags on or off, and the launcher restores
+the null telemetry pair before it returns.
 
 Values the port does not implement (fsdp_stream, another architecture, a
 batch that does not split over the workers) raise.
@@ -31,6 +50,7 @@ batch that does not split over the workers) raise.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 # a collective of --nproc that takes longer is a hung group
@@ -144,11 +164,27 @@ def main(argv=None):
     ap.add_argument("--tenants", type=int, default=1,
                     help="co-schedule N jobs of this config (job i at lr x "
                          "(i+1), seed i) onto one shared rack chunk domain")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="per-phase step tracing + metrics registry: runs "
+                         "the two probes, prints the attribution table and "
+                         "writes trace.json / metrics.jsonl / report.txt")
+    ap.add_argument("--telemetry-out", default="results/telemetry",
+                    help="artifact directory for --telemetry")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="solve the cost model's constants (bw_ici, "
+                         "allreduce_factor, bw_codec) on this card from "
+                         "probe steps before attribution (implies "
+                         "--telemetry)")
     args = ap.parse_args(argv)
     args.supervise, args.elastic = resolve_mode_flags(
         args.supervise, args.elastic, args.chaos, args.chaos_faults)
+    args.telemetry = args.telemetry or args.calibrate
+    args.argv = list(argv) if argv is not None else None
     check_tenants(args)
     if args.nproc > 1 or args.backend is not None:
+        if args.telemetry:
+            raise SystemExit("--telemetry traces this process: run it with "
+                             "stacked workers (--workers), not --nproc")
         if args.workers != 1:
             raise SystemExit("--nproc runs one worker a process; drop "
                              "--workers (the stacked Comm)")
@@ -159,8 +195,14 @@ def main(argv=None):
                            threads=1 if args.device == "cpu" else None,
                            pods=args.pods)
         return results[0]
+    from .. import telemetry
     from ..core import StackedComm
-    return _train(StackedComm(args.workers, args.pods), args.device, args)
+    try:
+        return _train(StackedComm(args.workers, args.pods), args.device,
+                      args)
+    finally:
+        if args.telemetry:
+            telemetry.disable()
 
 
 def _train(comm, device, args):
@@ -183,8 +225,12 @@ def _train(comm, device, args):
                      pipeline_windows=args.windows,
                      overlap_backward=args.overlap,
                      loss_chunk=min(1024, args.seq))
+    if args.telemetry:
+        _enable_telemetry(cfg, tc, comm, device, args)
     if args.tenants > 1:
-        return _train_multitenant(comm, device, cfg, tc, args, say)
+        losses = _train_multitenant(comm, device, cfg, tc, args, say)
+        _finish_telemetry(args)
+        return losses
     engine = PHubEngine(cfg, tc, comm, device=device)
     params, opt = engine.init_state()
     data = SyntheticTokens(cfg, args.batch, args.seq, seed=tc.seed)
@@ -199,10 +245,14 @@ def _train(comm, device, args):
         f"windows={tc.pipeline_windows} "
         f"(effective {windows}) overlap={tc.overlap_backward} "
         f"device={engine.device}")
+    probe = (_run_probes(engine, params, opt, data, args)
+             if args.telemetry else None)
     state = TrainState(params=params, opt=opt)
     del opt
     if args.supervise:
-        return _train_supervised(engine, state, data, args)
+        losses = _train_supervised(engine, state, data, args)
+        _finish_telemetry(args, probe)
+        return losses
     membership_fn = (_membership_fn(args, comm.n_workers, say)
                      if args.elastic else None)
     state = fit(engine, state, data, steps=args.steps,
@@ -211,7 +261,205 @@ def _train(comm, device, args):
                 checkpoint_every=args.checkpoint_every)
     losses = state.losses
     say(f"[train] done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+    _finish_telemetry(args, probe)
     return losses
+
+
+def _device_name(device) -> str:
+    import torch
+    device = torch.device(device)
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def _enable_telemetry(cfg, tc, comm, device, args) -> None:
+    """Install the telemetry pair, seeded from the run's seed, with the
+    run's identity in the trace's metadata."""
+    import platform
+    import sys
+
+    import torch
+
+    from .. import telemetry
+    telemetry.enable(seed=tc.seed, meta={
+        "argv": args.argv if args.argv is not None else sys.argv[1:],
+        "torch": torch.__version__, "python": platform.python_version(),
+        "card": _device_name(device), "devices": comm.n_workers,
+        "pods": comm.pods, "arch": cfg.arch_id, "strategy": tc.strategy,
+        "windows": tc.pipeline_windows, "wire": tc.wire_format,
+        "tenants": args.tenants})
+
+
+def _run_probes(engine, model, opt, data, args, reps: int = 3) -> dict:
+    """The two probes (the reference's ``_run_probes``): the zero-compute
+    step (paper §4.4: the step *is* the exchange, so it measures pure PS
+    throughput) and one full train step, each warmed once and timed
+    ``reps`` times, every rep ending in a device synchronization, on
+    copies of ``model`` and ``opt`` (the run's own state is untouched);
+    medians.  The split is joined against the cost model's decomposition
+    into the bottleneck table.  With ``--calibrate`` the model's constants
+    are first solved on this card and then anchored to the zero-compute
+    probe; without it they come from a saved calibration of this card in
+    ``--telemetry-out``, or the table has no model."""
+    import copy
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from .. import telemetry
+    from ..tuning.calibrate import (CARD_PROBE_ELEMS, MIN_TOLERANCE,
+                                    card_base_topology, load_calibration,
+                                    run_probe_programs, save_calibration,
+                                    solve_topology)
+
+    tracer = telemetry.get_tracer()
+    dev = engine.device
+    card = _device_name(dev)
+    W = engine.comm.n_workers
+    path = os.path.join(args.telemetry_out, f"calibration_{W}w.json")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def copies():
+        return copy.deepcopy(model), {k: {n: t.clone() for n, t in d.items()}
+                                      for k, d in opt.items()}
+
+    calib = None
+    if args.calibrate:
+        probe = run_probe_programs(engine.comm, elems=CARD_PROBE_ELEMS,
+                                   device=dev)
+        calib = solve_topology(probe, card_base_topology(engine.comm))
+        calib["card"] = card
+        topo, tol = calib["topology"], calib["tolerance"]
+        c = calib["constants"]
+        print(f"[telemetry] calibrated on {card} ({probe['devices']} "
+              f"stacked workers, {probe['elems']:,} elements a row): "
+              f"bw_ici={c['bw_ici']:.4g} allreduce_factor="
+              f"{c['allreduce_factor']:.3f} bw_codec={c['bw_codec']:.4g} "
+              f"tol={tol:.3f} (lat_ici = lat_dcn = 0)")
+    else:
+        topo, tol = load_calibration(path, card=card)
+        if topo is None:
+            tol = MIN_TOLERANCE
+            print(f"[telemetry] no calibration of {card} at {path}: the "
+                  f"table keeps the measured exchange as one row "
+                  f"(--calibrate solves one)")
+
+    exchange_s = None
+    try:
+        zstep = engine.make_zero_compute_step()
+    except ValueError:
+        zstep = None                 # flat residency: no zero-compute step
+    if zstep is not None:
+        m, o = copies()
+        m, o = zstep(m, o)
+        sync()                       # warm
+        for r in range(reps):
+            with tracer.span("probe/exchange", rep=r):
+                m, o = zstep(m, o)
+                sync()
+        del m, o
+        exchange_s = statistics.median(
+            rec.dur for rec in tracer.records if rec.name == "probe/exchange")
+
+    if calib is not None:
+        # anchor the level to the engine's own zero-compute probe (paper
+        # §4.4): the probe programs fix the decomposition (all-reduce
+        # against the ring, the codec's share), this fixes the level the
+        # engine's exchange reaches
+        pred0 = telemetry.predicted_phases(engine, topo)
+        if exchange_s and pred0["comm_s"] > 0:
+            s = exchange_s / pred0["comm_s"]
+            topo = dataclasses.replace(
+                topo, bw_ici=topo.ici_bandwidth / s,
+                bw_dcn=topo.dcn_bandwidth / s,
+                bw_codec=(topo.bw_codec / s if topo.bw_codec else None))
+            calib["topology"] = topo
+            calib["anchor_scale"] = s
+            calib["constants"] = {
+                "bw_ici": topo.bw_ici, "bw_codec": topo.bw_codec,
+                "allreduce_factor": topo.allreduce_factor}
+            print(f"[telemetry] anchored to the zero-compute probe (scale "
+                  f"{s:.4g}x): bw_ici={topo.bw_ici:.4g} "
+                  f"bw_codec={topo.bw_codec:.4g}")
+        print(f"[telemetry] calibration -> {save_calibration(calib, path)}")
+
+    step_fn = engine.make_train_step()
+    m, o = copies()
+    batch = data.torch_batch(0, dev)
+    m, o, _ = step_fn(m, o, batch)
+    sync()                           # warm
+    for r in range(reps):
+        with tracer.span("probe/step", rep=r):
+            m, o, _ = step_fn(m, o, batch)
+            sync()
+    del m, o
+    step_s = statistics.median(
+        rec.dur for rec in tracer.records if rec.name == "probe/step")
+
+    predicted = (telemetry.predicted_phases(engine, topo)
+                 if topo is not None else None)
+    rows = telemetry.attribute_step(step_s, exchange_s, predicted)
+    agreement = telemetry.model_agreement(exchange_s, predicted, tol)
+    table = telemetry.format_table(
+        rows, step_s, title=f"[telemetry] where did the step go on {card}")
+    print(table)
+    if agreement["checked"]:
+        lo, hi = agreement["band"]
+        print(f"[telemetry] exchange vs model: measured "
+              f"{agreement['measured_s'] * 1e3:.3f} ms vs predicted "
+              f"{agreement['predicted_s'] * 1e3:.3f} ms (ratio "
+              f"{agreement['ratio']:.3f}, band [{lo:.3f}, {hi:.3f}]"
+              + ("" if agreement["ok"] else " — OUTSIDE TOLERANCE") + ")")
+    # in the trace's metadata, so launch/trace.py --check-model can check
+    # the agreement again from the artifact alone
+    tracer.meta["attribution"] = {
+        "step_s": step_s, "exchange_s": exchange_s, "rel_tol": tol,
+        "predicted": predicted, "agreement": agreement, "rows": rows,
+        "topology": dataclasses.asdict(topo) if topo is not None else None,
+        "calibrated": calib is not None}
+    return {"rows": rows, "table": table, "agreement": agreement,
+            "step_s": step_s, "exchange_s": exchange_s}
+
+
+def _finish_telemetry(args, probe=None) -> None:
+    """Write the run's telemetry artifacts (trace.json, metrics.jsonl,
+    report.txt) under --telemetry-out; nothing when telemetry is off."""
+    from .. import telemetry
+    if not telemetry.enabled():
+        return
+    tracer, registry = telemetry.get_tracer(), telemetry.get_registry()
+    out = args.telemetry_out
+    os.makedirs(out, exist_ok=True)
+    tracer.write(os.path.join(out, "trace.json"))
+    registry.dump_jsonl(os.path.join(out, "metrics.jsonl"))
+    lines = [f"telemetry report  trace_id={tracer.trace_id} "
+             f"seed={tracer.seed}"]
+    totals = telemetry.phase_totals(
+        [r for r in tracer.records if r.step >= 0])
+    n_steps = len(tracer.step_totals())
+    if n_steps:
+        lines.append(f"  {n_steps} steps; per-phase mean over the run:")
+        for ph, s in sorted(totals.items(), key=lambda kv: -kv[1]):
+            lines.append(f"    {ph:<18} {s / n_steps * 1e3:>10.3f} ms/step")
+    if probe:
+        lines.append(probe["table"])
+        ag = probe["agreement"]
+        if ag.get("checked"):
+            lines.append(f"  model agreement: ratio {ag['ratio']:.3f} "
+                         f"in [{ag['band'][0]:.3f}, {ag['band'][1]:.3f}] "
+                         f"-> {'ok' if ag['ok'] else 'OUTSIDE TOLERANCE'}")
+    ev = registry.events()
+    lines.append(f"  {len(ev)} structured events; instruments: "
+                 f"{', '.join(sorted(registry.snapshot())) or '(none)'}")
+    with open(os.path.join(out, "report.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    print(f"[telemetry] artifacts: {out}/{{trace.json, metrics.jsonl, "
+          f"report.txt}}  (read with: python -m repro_torch.launch.trace "
+          f"{out}/trace.json)")
 
 
 def _train_multitenant(comm, device, cfg, tc, args, say=print):
@@ -243,16 +491,24 @@ def _train_multitenant(comm, device, cfg, tc, args, say=print):
         + ", ".join(f"{k}: {g.padded:,} ({g.n_shards} shards of "
                     f"{g.chunks_per_shard} chunks; chunks a shard "
                     f"{dom.shard_loads(k)})" for k, g in dom.groups.items()))
+    from .. import telemetry
     sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
             else (lambda: None))
+    tracer, registry = telemetry.get_tracer(), telemetry.get_registry()
     losses = {h.namespace: [] for h in handles}
     sync()
     t0 = time.perf_counter()
     for step in range(args.steps):
-        batches = {ns: d.torch_batch(step, device) for ns, d in data.items()}
-        models, metrics = cm.co_step(handles, models, batches)
-        for ns, m in metrics.items():
-            losses[ns].append(float(m["loss"]))
+        registry.current_step = step
+        with tracer.step(step, tenants=args.tenants):
+            with tracer.span("data"):
+                batches = {ns: d.torch_batch(step, device)
+                           for ns, d in data.items()}
+            # co_step runs under exchange/co_step, a child of this step
+            models, metrics = cm.co_step(handles, models, batches)
+            with tracer.span("sync"):
+                for ns, m in metrics.items():
+                    losses[ns].append(float(m["loss"]))
         if args.log_every and step % args.log_every == 0:
             say(f"[train] step {step:4d} " + " ".join(
                 f"{ns}={losses[ns][-1]:.4f}" for ns in losses))

@@ -25,9 +25,14 @@ One object owns the whole self-healing loop around a ``PHubEngine``:
 The supervisor is host-side and slow-path: the per-step cost on a clean
 rack is one (world,)-vector host sync.  The norm threshold rides as a step
 input (``HealthTracker.norm_hi``), so adapting it builds no new step.
-The reference's metrics-registry counters and tracer spans are not ported
-(ROADMAP.md queue A item 9a); ``events``, ``incidents``,
-``incident_history`` and ``event_kinds`` are the record.
+Every incident is recorded three ways: the ``events`` tuples, the
+structured ``incidents`` (``incident_history``, ``event_kinds``) and,
+with telemetry on, the ``supervisor.incidents`` counter and a
+``supervisor.<kind>`` registry event; ``supervisor.demotions`` and
+``supervisor.rollbacks`` count the containment steps.  A step runs under
+the spans ``dispatch`` (``supervised``; ``reentry`` after a stall),
+``sync`` (the health read), ``digest`` and, inside it, ``checkpoint`` or
+``rollback``: the reference's.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from ..checkpoint import (latest_step, restore_latest_valid,
 from ..core.comm import require_stacked
 from ..elastic import Membership
 from ..elastic.chaos import GRAD_FAULTS, STALL, corrupt_checkpoint
+from ..telemetry import get_registry, get_tracer
 from .sanity import HealthTracker, SanityConfig
 from .watchdog import (ExchangeTimeout, ExchangeWatchdog, WatchdogConfig,
                        WatchdogExhausted)
@@ -97,11 +103,17 @@ class TrainSupervisor:
     # ------------------------------------------------------------- events
 
     def _event(self, step: int, kind: str, detail: str, **payload) -> None:
-        """Record one incident twice: the (step, kind, detail) tuple and
-        the structured incident record (``incident_history``)."""
+        """Record one incident three ways: the (step, kind, detail) tuple,
+        the structured incident record (``incident_history``) and a
+        metrics-registry event (with the ``supervisor.incidents``
+        counter)."""
         self.events.append((step, kind, detail))
         self.incidents.append({"step": step, "kind": kind,
                                "detail": detail, **payload})
+        reg = get_registry()
+        reg.counter("supervisor.incidents").inc(kind=kind)
+        reg.event("supervisor." + kind, step=step, detail=detail,
+                  **payload)
         if self.log_fn is not None:
             self.log_fn(f"[supervisor] step {step}: {kind} — {detail}")
 
@@ -142,11 +154,13 @@ class TrainSupervisor:
         Mutates ``state`` (params/opt/step/losses) and returns the host
         metrics; ``state.step`` moves backward on rollback."""
         i = state.step
+        tracer = get_tracer()
         self._apply_io_faults(i)
         health = self.health_inputs(i)
         try:
-            new_p, new_o, metrics = self.watchdog.run(
-                self.step_fn(), state.params, state.opt, batch, health)
+            with tracer.span("dispatch", supervised=True):
+                new_p, new_o, metrics = self.watchdog.run(
+                    self.step_fn(), state.params, state.opt, batch, health)
         except WatchdogExhausted as e:
             # injected faults fire pre-dispatch, so state is untouched:
             # demote the implicated worker and re-enter through k-of-n
@@ -160,16 +174,19 @@ class TrainSupervisor:
                     self._event(i, "faults_flushed",
                                 f"worker {e.worker}: {dropped} queued",
                                 worker=e.worker, dropped=dropped)
-            new_p, new_o, metrics = self.watchdog.run(
-                self.step_fn(), state.params, state.opt, batch, health)
+            with tracer.span("dispatch", supervised=True, reentry=True):
+                new_p, new_o, metrics = self.watchdog.run(
+                    self.step_fn(), state.params, state.opt, batch, health)
         state.params, state.opt = new_p, new_o
         state.step = i + 1
-        host = {"loss": float(metrics["loss"]),
-                "ok_mask": metrics["ok_mask"].cpu().numpy(),
-                "grad_norms": metrics["grad_norms"].cpu().numpy(),
-                "n_live": float(metrics["n_live"])}
+        with tracer.span("sync"):
+            host = {"loss": float(metrics["loss"]),
+                    "ok_mask": metrics["ok_mask"].cpu().numpy(),
+                    "grad_norms": metrics["grad_norms"].cpu().numpy(),
+                    "n_live": float(metrics["n_live"])}
         state.losses.append(host["loss"])
-        self._digest(i, state, host)
+        with tracer.span("digest"):
+            self._digest(i, state, host)
         return host
 
     def _apply_io_faults(self, step: int) -> None:
@@ -220,10 +237,11 @@ class TrainSupervisor:
             self.rollback(step, state, why)
         elif (self.cfg.checkpoint_dir and self.cfg.checkpoint_every
                 and state.step % self.cfg.checkpoint_every == 0):
-            save_checkpoint(self.cfg.checkpoint_dir, state.step,
-                            snapshot_tree(state.params, state.opt),
-                            membership=self.membership,
-                            keep_k=self.cfg.keep_k)
+            with get_tracer().span("checkpoint"):
+                save_checkpoint(self.cfg.checkpoint_dir, state.step,
+                                snapshot_tree(state.params, state.opt),
+                                membership=self.membership,
+                                keep_k=self.cfg.keep_k)
             self._event(step, "checkpoint", f"step {state.step} "
                         f"(keep_k={self.cfg.keep_k})",
                         saved_step=state.step)
@@ -240,6 +258,7 @@ class TrainSupervisor:
             self._event(step, "demote_blocked", f"worker {rank}: {e}")
             return
         self.tracker.reset_rank(rank)
+        get_registry().counter("supervisor.demotions").inc(rank=rank)
         self._event(step, "demote",
                     f"worker {rank} → "
                     f"{self.membership.workers[rank].status} ({reason}); "
@@ -270,15 +289,17 @@ class TrainSupervisor:
                 f"{self.rollbacks} rollbacks — giving up")
         self.rollbacks += 1
         t0 = time.time()
-        s, model, opt, skipped = restore_latest_valid(
-            self.cfg.checkpoint_dir, self.engine, membership=None,
-            model=state.params)
-        state.params, state.opt, state.step = model, opt, s
+        with get_tracer().span("rollback"):
+            s, model, opt, skipped = restore_latest_valid(
+                self.cfg.checkpoint_dir, self.engine, membership=None,
+                model=state.params)
+            state.params, state.opt, state.step = model, opt, s
         self.last_rollback_s = time.time() - t0
         del state.losses[s:]
         self.tracker.reset_history()
         self.tracker.reset_offenses()
         self._dead_streak = 0
+        get_registry().counter("supervisor.rollbacks").inc()
         self._event(step, "rollback",
                     f"{reason} → restored step {s} in "
                     f"{self.last_rollback_s:.2f}s"

@@ -17,9 +17,10 @@ rather than retried: re-running a committed step would apply the update
 twice.  A production transport would cancel the in-flight collective
 instead.  PyTorch returns before the card finishes, so with a deadline
 set the watchdog waits for the card (``torch.cuda.synchronize``) before
-it reads the clock; without one it adds no sync.  The reference's
-telemetry counters and events are not ported (ROADMAP.md queue A item
-9a).
+it reads the clock; without one it adds no sync.  With telemetry on,
+each retry counts ``watchdog.retries`` and emits a ``watchdog.retry``
+event, an overrun ``watchdog.overruns`` / ``watchdog.overrun`` and a spent
+budget ``watchdog.exhausted`` (counter and event), as the reference's.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+from ..telemetry import get_registry
 
 
 class ExchangeTimeout(RuntimeError):
@@ -113,6 +116,7 @@ class ExchangeWatchdog:
 
     def run(self, fn, *args, **kwargs):
         cfg = self.cfg
+        reg = get_registry()
         delays = []
         delay = cfg.backoff_base_s
         for attempt in range(cfg.retries + 1):
@@ -128,18 +132,27 @@ class ExchangeWatchdog:
                         # committed-but-slow: record, don't re-dispatch
                         # (updated in place; see module docstring)
                         self.overruns.append((elapsed, cfg.deadline_s))
+                        reg.counter("watchdog.overruns").inc()
+                        reg.event("watchdog.overrun", elapsed_s=elapsed,
+                                  deadline_s=cfg.deadline_s)
                 self.last_delays = tuple(delays)
                 return out
             except (ExchangeTimeout, TransientExchangeError) as e:
                 worker = getattr(e, "worker", None)
                 if attempt == cfg.retries:
                     self.last_delays = tuple(delays)
+                    reg.counter("watchdog.exhausted").inc()
+                    reg.event("watchdog.exhausted", worker=worker,
+                              attempts=cfg.retries + 1, error=str(e))
                     raise WatchdogExhausted(
                         f"exchange failed {cfg.retries + 1} attempts "
                         f"(last: {e})", worker=worker) from e
                 self.total_retries += 1
                 d = delay * (1.0 + cfg.jitter * self._rng.random())
                 delays.append(d)
+                reg.counter("watchdog.retries").inc()
+                reg.event("watchdog.retry", worker=worker,
+                          attempt=attempt + 1, backoff_s=d, error=str(e))
                 if d > 0:
                     time.sleep(d)
                 delay = min(delay * 2.0, cfg.backoff_cap_s)

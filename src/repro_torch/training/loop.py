@@ -1,8 +1,12 @@
 """Training loop over a PHubEngine (``repro/training/loop.py``): plain
 steps, an elastic membership per step, periodic checkpoints, or the
 self-healing ``TrainSupervisor``.  Over a process group every rank runs
-the loop and rank 0 logs.  The reference's telemetry hooks (tracer spans,
-the metrics registry) are ROADMAP.md queue A item 9a."""
+the loop and rank 0 logs.  With telemetry on (``telemetry.enable``), each
+step runs under the reference's spans: ``step`` over ``data``,
+``dispatch``, ``sync`` (where the loop reads the loss, and only there)
+and ``checkpoint``; the supervised loop's ``step(supervised=True)`` over
+``data`` and the supervisor's own spans.  The spans add no
+synchronization."""
 from __future__ import annotations
 
 import time
@@ -11,6 +15,7 @@ from typing import Callable, Optional
 
 from ..checkpoint import save_checkpoint, snapshot_tree
 from ..core.comm import require_stacked
+from ..telemetry import get_registry, get_tracer
 
 
 @dataclass
@@ -65,36 +70,47 @@ def fit(engine, state: TrainState, data, *, steps: int,
     t0 = time.perf_counter()
     tokens = 0
     last = state.step + steps - 1
+    tracer, registry = get_tracer(), get_registry()
     for i in range(state.step, state.step + steps):
-        if membership_fn is not None:
-            # called exactly once per step (a stateful provider must not
-            # see a step twice); the checkpoint below reuses this value
-            membership = membership_fn(i)
-            key = (None if membership is None or membership.all_live
-                   else membership.program_key())
-            if key not in step_cache:
-                step_cache[key] = engine.make_train_step(
-                    membership=membership)
-            step_fn = step_cache[key]
-        batch = data.torch_batch(i, engine.device)
-        state.params, state.opt, metrics = step_fn(state.params, state.opt,
-                                                   batch)
-        state.step = i + 1
-        tokens += batch["tokens"].numel()
-        should_log = bool(log_every) and (i % log_every == 0 or i == last)
-        if hooks or should_log or i == last:
-            loss = float(metrics["loss"])                 # host sync
-            state.losses.append(loss)
-            for h in hooks or ():
-                h(state, metrics)
-            if should_log:
-                log_fn(f"[fit] step {i:5d} loss {loss:.4f} "
-                       f"({tokens / (time.perf_counter() - t0):,.0f} tok/s)")
-        if (checkpoint_dir and checkpoint_every
-                and state.step % checkpoint_every == 0):
-            save_checkpoint(checkpoint_dir, state.step,
-                            snapshot_tree(state.params, state.opt),
-                            membership=membership)
+        registry.current_step = i
+        with tracer.step(i):
+            if membership_fn is not None:
+                # called exactly once per step (a stateful provider must
+                # not see a step twice); the checkpoint reuses this value
+                membership = membership_fn(i)
+                key = (None if membership is None or membership.all_live
+                       else membership.program_key())
+                if key not in step_cache:
+                    step_cache[key] = engine.make_train_step(
+                        membership=membership)
+                step_fn = step_cache[key]
+            with tracer.span("data"):
+                batch = data.torch_batch(i, engine.device)
+            # the step's enqueue only: the card finishes it under the
+            # next sync
+            with tracer.span("dispatch"):
+                state.params, state.opt, metrics = step_fn(
+                    state.params, state.opt, batch)
+            state.step = i + 1
+            tokens += batch["tokens"].numel()
+            should_log = bool(log_every) and (i % log_every == 0
+                                              or i == last)
+            if hooks or should_log or i == last:
+                with tracer.span("sync"):
+                    loss = float(metrics["loss"])         # host sync
+                state.losses.append(loss)
+                for h in hooks or ():
+                    h(state, metrics)
+                if should_log:
+                    log_fn(f"[fit] step {i:5d} loss {loss:.4f} "
+                           f"({tokens / (time.perf_counter() - t0):,.0f}"
+                           f" tok/s)")
+            if (checkpoint_dir and checkpoint_every
+                    and state.step % checkpoint_every == 0):
+                with tracer.span("checkpoint"):
+                    save_checkpoint(checkpoint_dir, state.step,
+                                    snapshot_tree(state.params, state.opt),
+                                    membership=membership)
     return state
 
 
@@ -114,6 +130,7 @@ def _fit_supervised(engine, state: TrainState, data, *, steps: int,
     tokens = 0
     budget = steps * (supervisor.cfg.max_rollbacks + 2) + 16
     iters = 0
+    tracer, registry = get_tracer(), get_registry()
     while state.step < end:
         iters += 1
         if iters > budget:
@@ -122,8 +139,11 @@ def _fit_supervised(engine, state: TrainState, data, *, steps: int,
                 f"({budget} iterations for {steps} steps) — the "
                 f"supervisor is rolling back without making progress")
         i = state.step
-        batch = data.torch_batch(i, engine.device)
-        host = supervisor.run_step(state, batch)
+        registry.current_step = i
+        with tracer.step(i, supervised=True):
+            with tracer.span("data"):
+                batch = data.torch_batch(i, engine.device)
+            host = supervisor.run_step(state, batch)
         tokens += batch["tokens"].numel()
         for h in hooks or ():
             h(state, host)

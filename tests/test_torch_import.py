@@ -42,7 +42,10 @@ def test_port_imports_no_jax_and_no_repro():
                  "kernels.swa_attn.ops", "kernels.decode_attn.ops",
                  "kernels.rwkv_scan.ops", "models.rwkv", "launch.serve",
                  "core.client", "optim.api", "optim.sgd", "optim.adam",
-                 "core.api", "core.partition", "core.cost_model"):
+                 "core.api", "core.partition", "core.cost_model",
+                 "telemetry.tracer", "telemetry.metrics",
+                 "telemetry.attribution", "tuning.calibrate",
+                 "launch.trace"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 
