@@ -327,7 +327,33 @@
    median off-step (a finding); (e) ``launch/serve.py`` (llama3.2-1b, B 8,
    prompt 2048, 32 tokens) with telemetry off and on: greedy tokens equal,
    launches exact, the span totals and the decode-dispatch histogram.
-17. Prints the kernels line, then the device line last.
+17. The other model families (``families_phase``): (a) B9 and B10 at
+   each new (nh/kv, hd), within their tolerances, timed beside their bound
+   and SDPA: hymba-1.5b 25/5 hd 64 (window 1024 and its global layers'
+   0, B 8, prompt 2048, 32 tokens), musicgen-medium 24/24 hd 64 and
+   internvl2-2b 16/8 hd 128 (B 8, a prefix of 256 and a prompt of 512, 8
+   tokens), grok-1-314b 48/8 and arctic-480b 56/8 hd 128 (B 8, prompt
+   2048, 16 tokens); (b) agg_opt_chunks over grok-1-314b's one-layer W=1
+   row (6.5G bf16 elements), bitwise on a strip at its start and one at
+   its far end; (c) reduced card-vs-CPU checks of the five at f32
+   activations (the experts at capacity factor 0.5, so every layer drops;
+   hymba at 4 layers, windows [0, 64, 64, 0], and with 10/2 heads): one
+   2-worker Nesterov step and a prefill plus 4 decode steps, within the
+   earlier phases' bounds, each run twice on the card and bitwise equal;
+   (d) full-width training through ``fit``: hymba-1.5b full size at 4
+   stacked workers (Nesterov 2 steps, Adam 1), grok-1-314b at 1 layer
+   W=1 flat (2 steps), arctic-480b at 1 layer with its experts cut to 32,
+   W=2 flat (2), internvl2-2b and musicgen-medium at 4 layers W=4 with a
+   seed-drawn prefix (1 each), batch 8 x 512, launches exact; (e) serving
+   through ``launch.serve.generate``, each twice (greedy, the same bits):
+   hymba-1.5b (B 8, prompt 2048, 32 tokens), grok-1-314b and
+   arctic-480b with all 128 experts at 1 layer (B 8, prompt 2048, 16),
+   the frontends at 4 layers after their prefix (B 8, prompt 512, 8).  A
+   bf16 model's norm scales, still all ones, may keep every bit (their
+   updates fall under half an ulp); every other leaf must change.
+   Where a hymba step and a grok step spend their time is
+   ``scripts/torch_step_profile.py``'s work, not this script's.
+18. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 card and refuses to run without one.
@@ -382,6 +408,8 @@ ADAM_REF_EPS = 1e-3              # card-vs-CPU Adam step (docstring, 3.)
 SPAN = 1 << 26                   # elements per span of the Adam/SGD checks
 NORM_RTOL = 1e-5                 # card vs CPU grad_norms (f32 sums' order)
 POISONED = 1                     # the worker the gated phases poison
+# the models' RMS-norm scales (initialised to ones)
+NORM_SCALES = ("ln1", "ln2", "ln_x", "ln_attn", "ln_ssm", "final_norm")
 # serving: (arch, batch, prompt, decode tokens); the kernels' tolerances
 SERVE_PATHS = (("llama3.2-1b", 8, 2048, 32), ("h2o-danube-3-4b", 2, 4608, 16))
 SWA_RTOL = 2e-5                  # f32: within 2e-5 * max(1, max|want|)
@@ -1546,7 +1574,7 @@ def wire_reference_phase(torch, wire_name: str) -> None:
     for w in range(WORKERS):
         sl = slice(w * bw, (w + 1) * bw)
         grads = torch.autograd.grad(loss_fn(model_c, batch["tokens"][sl],
-                                            batch["labels"][sl]), leaves)
+                                            batch["labels"][sl])[0], leaves)
         (G[w],) = flatten_leaves(eng_cpu.chunk_plan,
                                  dict(zip(paths, grads))).values()
     acc = ring_rows(G, 1)
@@ -1589,12 +1617,12 @@ def wire_reference_phase(torch, wire_name: str) -> None:
 
 
 def bit_sum(torch, t) -> int:
-    """The int64 sum of an f32 tensor's bit patterns: any one changed
-    element changes it (an untied embedding's rows of tokens the batch
-    does not hold keep their values, so a prefix is no test)."""
+    """The int64 sum of an f32 (or bf16) tensor's bit patterns: any one
+    changed element changes it (an untied embedding's rows of tokens the
+    batch does not hold keep their values, so a prefix is no test)."""
+    ity = torch.int16 if t.element_size() == 2 else torch.int32
     with torch.no_grad():
-        return int(t.detach().reshape(-1).view(torch.int32).sum(
-            dtype=torch.int64))
+        return int(t.detach().reshape(-1).view(ity).sum(dtype=torch.int64))
 
 
 def fingerprint(torch, model) -> list:
@@ -1634,9 +1662,13 @@ def main_path(torch, workers: int, steps: int, expect: dict,
               faults=None, pipeline=None, arch: str = ARCH,
               layers: int = 0, dead: int | None = None, comm=None,
               time_exchange: bool = False, pods: int = 1,
-              want_windows: int | None = None) -> dict:
+              want_windows: int | None = None,
+              cfg_fields: dict | None = None) -> dict:
     """PHubEngine + fit on the full ``arch`` (full width; ``layers``, if
-    given, cuts its depth) under ``optimizer`` over ``wire``; ``expect``
+    given, cuts its depth; ``cfg_fields`` replaces more of its fields,
+    such as the expert count) under ``optimizer`` over ``wire``; a
+    frontend architecture's batches carry its prefix of seed-drawn
+    embeddings (``data.PrefixedTokens``); ``expect``
     holds each kernel's launches per step and group (every other count
     must stay 0).  ``faults``: a FaultSchedule; the run then goes through
     fit(supervisor=TrainSupervisor) with injection on and demote_after 2,
@@ -1657,7 +1689,7 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     from repro_torch.configs import get_arch
     from repro_torch.core import PHubEngine, StackedComm
     from repro_torch.core.chunking import leaf_paths
-    from repro_torch.data import SyntheticTokens
+    from repro_torch.data import PrefixedTokens, SyntheticTokens
     from repro_torch.resilience import (SanityConfig, SupervisorConfig,
                                         TrainSupervisor)
     from repro_torch.training import TrainState, fit
@@ -1668,6 +1700,8 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     cfg = get_arch(arch)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
+    if cfg_fields:
+        cfg = dataclasses.replace(cfg, **cfg_fields)
     from repro_torch.core.pipeline import effective_windows
     tc = path_tc(optimizer, wire, pipeline or {})
     engine = PHubEngine(cfg, tc, comm or StackedComm(workers, pods),
@@ -1720,7 +1754,8 @@ def main_path(torch, workers: int, steps: int, expect: dict,
                     for g in groups))
     before = {p: bit_sum(torch, t) for p, t in leaf_paths(model.param_tree())}
     init_print = fingerprint(torch, model)
-    data = SyntheticTokens(cfg, BATCH, SEQ, seed=tc.seed)
+    data = (PrefixedTokens if cfg.frontend else SyntheticTokens)(
+        cfg, BATCH, SEQ, seed=tc.seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     marks = [time.perf_counter()]
@@ -1791,8 +1826,20 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     check(all(math.isfinite(x) for x in state.losses),
           f"non-finite loss {state.losses}")
     check(len(state.losses) == steps, f"{len(state.losses)} losses")
-    for p, t in leaf_paths(model.param_tree()):
-        check(bit_sum(torch, t) != before[p], f"parameter {p} did not change")
+    # every leaf moves; in bf16 an update under half an ulp of the value
+    # rounds away (a norm scale at 1.0 moves by 2^-8 or not at all), so
+    # there a norm scale still all ones may keep every bit, and no other
+    # leaf (the router, the SSM's a_log and dt_bias included)
+    kept = [p for p, t in leaf_paths(model.param_tree())
+            if bit_sum(torch, t) == before[p]]
+    if cfg.param_dtype == "bfloat16":
+        tree = dict(leaf_paths(model.param_tree()))
+        scales = [p for p in kept if p.rsplit("[", 1)[-1].strip("]'")
+                  in NORM_SCALES and bool((tree[p] == 1).all())]
+        log(f"{where}bf16 norm scales still all ones that kept every bit: "
+            f"{scales}")
+        kept = [p for p in kept if p not in scales]
+    check(not kept, f"parameters {kept} did not change")
     for name, count in launches.items():
         want = expect.get(name, 0) * steps * len(groups)
         check(count == want, f"{where}{name} launched {count} times on "
@@ -2388,19 +2435,164 @@ def ring_positions(torch, B: int, C: int, n_seen: int):
     return p.expand(B, C).contiguous()
 
 
+def swa_plain(q, k, v, window):
+    """swa_attention's plain version in the model layout."""
+    from repro_torch.kernels.swa_attn import swa_attention_ref
+    return swa_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2),
+                             window=window).transpose(1, 2)
+
+
+def dec_plain(q, k, v, pos, qp, window):
+    """decode_attention's plain version in the model layout."""
+    from repro_torch.kernels.decode_attn import decode_attention_ref
+    B, _, nh, hd = q.shape
+    kv = k.shape[2]
+    return decode_attention_ref(q.reshape(B, kv, nh // kv, hd), k, v,
+                                pos, qp.reshape(B, 1),
+                                window=window).reshape(B, 1, nh, hd)
+
+
+def attention_at(torch, randn, arch: str, B: int, T: int, steps: int,
+                 nh: int, kv: int, hd: int, w: int, C: int
+                 ) -> tuple[dict, dict]:
+    """swa_attention_kernel on a prefill of T tokens and
+    decode_attention_kernel on the cache of C slots at the last of
+    ``steps`` tokens, at (nh, kv, hd, window w): each within its tolerance
+    of its plain version, timed beside its bound and SDPA.  Returns the
+    two kernels-line entries."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import decode_attention
+    from repro_torch.kernels.decode_attn.ops import split_len
+    from repro_torch.kernels.swa_attn import swa_attention
+    from repro_torch.kernels.swa_attn.ops import occupancy
+    # --- prefill: f32 q/k/v as the path computes them
+    q, k, v = randn(B, T, nh, hd), randn(B, T, kv, hd), randn(B, T, kv, hd)
+    got = swa_attention(q, k, v, window=w)
+    want = swa_plain(q, k, v, w)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = SWA_RTOL * max(1.0, float(want.abs().max()))
+    del got, want
+    check(err <= tol, f"swa_attention_kernel at {arch}'s shape: max_abs "
+                      f"{err:.3e} > tol {tol:.3e}")
+    ms = median_ms(torch, lambda: swa_attention(q, k, v, window=w), 10)
+    plain_ms = median_ms(torch, lambda: swa_plain(q, k, v, w), 10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if w:
+        p = torch.arange(T, device="cuda")
+        mask = (p[None, :] <= p[:, None]) & (p[None, :] > p[:, None] - w)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        label = "SDPA, f32, boolean window mask, enable_gqa"
+    else:
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        label = "SDPA, f32, is_causal, enable_gqa"
+    library_ms = median_ms(torch, sdpa, 10)
+    pairs = allowed_pairs(T, w)
+    flops = 4.0 * hd * pairs * B * nh
+    n_bytes = 4 * (2 * B * T * nh * hd + 2 * B * T * kv * hd)
+    simt_ms, _ = attention_bound(flops, n_bytes)
+    bound_ms, bound_by = attention_bound(flops, n_bytes,
+                                         flops_per_s=TF32_FLOPS_PER_S / 3)
+    blocks = occupancy(hd)
+    log(f"swa_attention_kernel {arch}: q ({B}, {T}, {nh}, {hd}) f32, "
+        f"k/v {kv} heads, window {w}: max_abs {err:.3e} (tol "
+        f"{tol:.3e}); kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} "
+        f"TFLOP/s f32-equivalent, {3 * flops / ms / 1e9:.2f} TFLOP/s "
+        f"TF32), bound {bound_ms:.3f} ms (3xTF32 {bound_by}, "
+        f"{flops / 1e12:.3f} TFLOP of {pairs:,} pairs a head; "
+        f"{100 * bound_ms / ms:.1f}% of it), f32 SIMT bound "
+        f"{simt_ms:.3f} ms ({100 * simt_ms / ms:.1f}%), {blocks} "
+        f"block(s) of 8 warps a SM, plain {plain_ms:.3f} ms, library "
+        f"{library_ms:.3f} ms ({label})")
+    e = {"max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by,
+         "bound_f32_simt_ms": simt_ms, "blocks_per_sm": blocks,
+         "library_ms": library_ms, "library": label,
+         "shape": f"B {B} T {T} nh {nh} kv {kv} hd {hd} window {w} f32"}
+    swa_e = e
+    del q, k, v, qt, kt, vt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- decode: the cache at the last decode step of the path
+    n_seen = T + steps - 1
+    q = randn(B, 1, nh, hd)
+    k = randn(B, C, kv, hd, dtype=torch.bfloat16)
+    v = randn(B, C, kv, hd, dtype=torch.bfloat16)
+    pos = ring_positions(torch, B, C, n_seen)
+    qp = torch.full((B,), n_seen - 1, dtype=torch.int32, device="cuda")
+    got = decode_attention(q, k, v, pos, qp, window=w)
+    want = dec_plain(q, k, v, pos, qp, w)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= DECODE_TOL, f"decode_attention_kernel at {arch}'s "
+                             f"shape: max_abs {err:.3e}")
+    check(torch.equal(decode_attention(q, k, v, pos, qp, window=w), got),
+          f"decode_attention_kernel at {arch}'s shape: two calls differ")
+    L = split_len(B, C, kv)
+    n_split = -(-C // L)
+    kernel = lambda: decode_attention(q, k, v, pos, qp,  # noqa: E731
+                                      window=w)
+    ms = graph_ms(torch, kernel, 10)
+    wrapper_us = host_us(torch, kernel)
+    plain_ms = graph_ms(torch, lambda: dec_plain(q, k, v, pos, qp, w),
+                        10)
+    valid = (pos >= 0) & (pos <= qp[:, None])
+    if w:
+        valid &= pos > qp[:, None] - w
+    n_valid = int(valid.sum())
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.float().transpose(1, 2).contiguous() for t in (k, v))
+    mask = valid[:, None, None, :]
+    library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)
+    label = ("SDPA, f32 q on the cache converted to f32 beforehand, "
+             "boolean position mask, enable_gqa")
+    # k/v of the attended slots only (a hybrid's window layer reads the
+    # window of a ring sized for its global layers), positions of all
+    n_bytes = 2 * n_valid * kv * hd * 2 + 4 * B * C + 2 * 4 * B * nh * hd
+    flops = 4.0 * hd * n_valid * nh     # each slot, every query head
+    bound_ms, bound_by = attention_bound(flops, n_bytes)
+    log(f"decode_attention_kernel {arch}: q ({B}, 1, {nh}, {hd}) f32, "
+        f"cache ({B}, {C}, {kv}, {hd}) bf16, {n_valid:,} of {B * C:,} "
+        f"slots attended, window {w}: max_abs {err:.3e} (tol "
+        f"{DECODE_TOL:.0e}), two calls bitwise equal; kernel "
+        f"{ms:.4f} ms ({n_bytes / ms / 1e6:.1f} GB/s; {n_split} splits "
+        f"of {L} slots, {n_split * kv * B} blocks on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} "
+        f"SMs; {100 * bound_ms / ms:.1f}% of the bound; the wrapper "
+        f"{wrapper_us:.1f} us of host time a call), bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.2f} MB), plain "
+        f"{plain_ms:.3f} ms, library {library_ms:.4f} ms ({label}); "
+        f"kernel, plain and library timed as CUDA graphs of 20 calls")
+    e = {"max_abs_err": err, "tol": DECODE_TOL, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": library_ms,
+         "library": label, "splits": n_split, "split_slots": L,
+         "timing": "CUDA graph of 20 calls, median of 10 replays",
+         "wrapper_host_us": wrapper_us,
+         "shape": f"B {B} C {C} nh {nh} kv {kv} hd {hd} window {w}, "
+                  f"bf16 cache, f32 q"}
+    dec_e = e
+    del q, k, v, pos, qt, kt, vt, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+    return swa_e, dec_e
+
+
 def attention_kernel_phase(torch) -> dict:
     """swa_attention_kernel and decode_attention_kernel at the serving
     paths' shapes against their plain versions, within a tolerance; times
     of kernel, plain version, bound and SDPA; the small edge cases.
     Returns the kernels-line entries (llama's shape at the top, danube's
     under "danube")."""
-    import torch.nn.functional as F
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.decode_attn import (decode_attention,
-                                                 decode_attention_ref)
+    from repro_torch.kernels.decode_attn import decode_attention
     from repro_torch.kernels.decode_attn.ops import split_len
-    from repro_torch.kernels.swa_attn import swa_attention, swa_attention_ref
-    from repro_torch.kernels.swa_attn.ops import occupancy
+    from repro_torch.kernels.swa_attn import swa_attention
     from repro_torch.models import cache_capacity
 
     gen = torch.Generator(device="cuda")
@@ -2408,18 +2600,6 @@ def attention_kernel_phase(torch) -> dict:
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
-
-    def swa_plain(q, k, v, window):
-        return swa_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2),
-                                 window=window).transpose(1, 2)
-
-    def dec_plain(q, k, v, pos, qp, window):
-        B, _, nh, hd = q.shape
-        kv = k.shape[2]
-        return decode_attention_ref(q.reshape(B, kv, nh // kv, hd), k, v,
-                                    pos, qp.reshape(B, 1),
-                                    window=window).reshape(B, 1, nh, hd)
 
     out = {name: {"name": name, "route": "cuda", "source": src,
                   "replaces": REPLACES[name], "launches": 0}
@@ -2433,126 +2613,15 @@ def attention_kernel_phase(torch) -> dict:
         "67 TFLOP/s f32")
     for arch, B, T, steps in SERVE_PATHS:
         cfg = get_arch(arch)
-        nh, kv, hd, w = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.sliding_window
-        # --- prefill: f32 q/k/v as the path computes them
-        q, k, v = randn(B, T, nh, hd), randn(B, T, kv, hd), randn(B, T, kv, hd)
-        got = swa_attention(q, k, v, window=w)
-        want = swa_plain(q, k, v, w)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        tol = SWA_RTOL * max(1.0, float(want.abs().max()))
-        del got, want
-        check(err <= tol, f"swa_attention_kernel at {arch}'s shape: max_abs "
-                          f"{err:.3e} > tol {tol:.3e}")
-        ms = median_ms(torch, lambda: swa_attention(q, k, v, window=w), 10)
-        plain_ms = median_ms(torch, lambda: swa_plain(q, k, v, w), 10)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if w:
-            p = torch.arange(T, device="cuda")
-            mask = (p[None, :] <= p[:, None]) & (p[None, :] > p[:, None] - w)
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)
-            label = "SDPA, f32, boolean window mask, enable_gqa"
-        else:
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-            label = "SDPA, f32, is_causal, enable_gqa"
-        library_ms = median_ms(torch, sdpa, 10)
-        pairs = allowed_pairs(T, w)
-        flops = 4.0 * hd * pairs * B * nh
-        n_bytes = 4 * (2 * B * T * nh * hd + 2 * B * T * kv * hd)
-        simt_ms, _ = attention_bound(flops, n_bytes)
-        bound_ms, bound_by = attention_bound(flops, n_bytes,
-                                             flops_per_s=TF32_FLOPS_PER_S / 3)
-        blocks = occupancy(hd)
-        log(f"swa_attention_kernel {arch}: q ({B}, {T}, {nh}, {hd}) f32, "
-            f"k/v {kv} heads, window {w}: max_abs {err:.3e} (tol "
-            f"{tol:.3e}); kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} "
-            f"TFLOP/s f32-equivalent, {3 * flops / ms / 1e9:.2f} TFLOP/s "
-            f"TF32), bound {bound_ms:.3f} ms (3xTF32 {bound_by}, "
-            f"{flops / 1e12:.3f} TFLOP of {pairs:,} pairs a head; "
-            f"{100 * bound_ms / ms:.1f}% of it), f32 SIMT bound "
-            f"{simt_ms:.3f} ms ({100 * simt_ms / ms:.1f}%), {blocks} "
-            f"block(s) of 8 warps a SM, plain {plain_ms:.3f} ms, library "
-            f"{library_ms:.3f} ms ({label})")
-        e = {"max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by,
-             "bound_f32_simt_ms": simt_ms, "blocks_per_sm": blocks,
-             "library_ms": library_ms, "library": label,
-             "shape": f"B {B} T {T} nh {nh} kv {kv} hd {hd} window {w} f32"}
+        swa_e, dec_e = attention_at(
+            torch, randn, arch, B, T, steps, cfg.n_heads, cfg.n_kv_heads,
+            cfg.hd, cfg.sliding_window, cache_capacity(cfg, T + steps))
         if arch == SERVE_PATHS[0][0]:
-            out["swa_attention_kernel"].update(e)
+            out["swa_attention_kernel"].update(swa_e)
+            out["decode_attention_kernel"].update(dec_e)
         else:
-            out["swa_attention_kernel"]["danube"] = e
-        del q, k, v, qt, kt, vt
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # --- decode: the cache at the last decode step of the path
-        n_seen = T + steps - 1
-        C = cache_capacity(cfg, T + steps)
-        q = randn(B, 1, nh, hd)
-        k = randn(B, C, kv, hd, dtype=torch.bfloat16)
-        v = randn(B, C, kv, hd, dtype=torch.bfloat16)
-        pos = ring_positions(torch, B, C, n_seen)
-        qp = torch.full((B,), n_seen - 1, dtype=torch.int32, device="cuda")
-        got = decode_attention(q, k, v, pos, qp, window=w)
-        want = dec_plain(q, k, v, pos, qp, w)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(err <= DECODE_TOL, f"decode_attention_kernel at {arch}'s "
-                                 f"shape: max_abs {err:.3e}")
-        check(torch.equal(decode_attention(q, k, v, pos, qp, window=w), got),
-              f"decode_attention_kernel at {arch}'s shape: two calls differ")
-        L = split_len(B, C, kv)
-        n_split = -(-C // L)
-        kernel = lambda: decode_attention(q, k, v, pos, qp,  # noqa: E731
-                                          window=w)
-        ms = graph_ms(torch, kernel, 10)
-        wrapper_us = host_us(torch, kernel)
-        plain_ms = graph_ms(torch, lambda: dec_plain(q, k, v, pos, qp, w),
-                            10)
-        valid = (pos >= 0) & (pos <= qp[:, None])
-        if w:
-            valid &= pos > qp[:, None] - w
-        n_valid = int(valid.sum())
-        qt = q.transpose(1, 2).contiguous()
-        kt, vt = (t.float().transpose(1, 2).contiguous() for t in (k, v))
-        mask = valid[:, None, None, :]
-        library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)
-        label = ("SDPA, f32 q on the cache converted to f32 beforehand, "
-                 "boolean position mask, enable_gqa")
-        n_bytes = 2 * B * C * kv * hd * 2 + 4 * B * C + 2 * 4 * B * nh * hd
-        flops = 4.0 * hd * n_valid * nh     # each slot, every query head
-        bound_ms, bound_by = attention_bound(flops, n_bytes)
-        log(f"decode_attention_kernel {arch}: q ({B}, 1, {nh}, {hd}) f32, "
-            f"cache ({B}, {C}, {kv}, {hd}) bf16, {n_valid:,} of {B * C:,} "
-            f"slots attended, window {w}: max_abs {err:.3e} (tol "
-            f"{DECODE_TOL:.0e}), two calls bitwise equal; kernel "
-            f"{ms:.4f} ms ({n_bytes / ms / 1e6:.1f} GB/s; {n_split} splits "
-            f"of {L} slots, {n_split * kv * B} blocks on "
-            f"{torch.cuda.get_device_properties(0).multi_processor_count} "
-            f"SMs; {100 * bound_ms / ms:.1f}% of the bound; the wrapper "
-            f"{wrapper_us:.1f} us of host time a call), bound "
-            f"{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.2f} MB), plain "
-            f"{plain_ms:.3f} ms, library {library_ms:.4f} ms ({label}); "
-            f"kernel, plain and library timed as CUDA graphs of 20 calls")
-        e = {"max_abs_err": err, "tol": DECODE_TOL, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": library_ms,
-             "library": label, "splits": n_split, "split_slots": L,
-             "timing": "CUDA graph of 20 calls, median of 10 replays",
-             "wrapper_host_us": wrapper_us,
-             "shape": f"B {B} C {C} nh {nh} kv {kv} hd {hd} window {w}, "
-                      f"bf16 cache, f32 q"}
-        if arch == SERVE_PATHS[0][0]:
-            out["decode_attention_kernel"].update(e)
-        else:
-            out["decode_attention_kernel"]["danube"] = e
-        del q, k, v, pos, qt, kt, vt, mask
-        gc.collect()
-        torch.cuda.empty_cache()
+            out["swa_attention_kernel"]["danube"] = swa_e
+            out["decode_attention_kernel"]["danube"] = dec_e
 
     # edge cases, small: (T, nh, kv, hd, window, dtype); T not a multiple
     # of the 128-row q tile or the 64-key tile, window 1, hd 32 / 64 / 120 /
@@ -2900,27 +2969,39 @@ def serve_reference_phase(torch, arch: str, prompt: int, steps: int = 4
               f"reduced {arch} serving launches {launches}")
 
 
-def serve_path(torch, arch: str, batch: int, prompt: int, steps: int
-               ) -> dict:
-    """The serving main path at full width and depth through
-    launch.serve.generate: greedy, ``steps`` tokens (the prefill's and
-    ``steps - 1`` decode steps).  Checks finite logits, exact launches
-    (L in the prefill, L a decode step, every other kernel 0) and that a
+def serve_path(torch, arch: str, batch: int, prompt: int, steps: int,
+               layers: int = 0) -> dict:
+    """The serving main path at full width (and depth, unless ``layers``
+    cuts it) through launch.serve.generate: greedy, ``steps`` tokens (the
+    prefill's and ``steps - 1`` decode steps); a frontend architecture's
+    prompt follows its prefix of seed-drawn embeddings
+    (``data.frontend_embeds``).  Checks finite logits, exact launches (L
+    in the prefill, L a decode step, every other kernel 0) and that a
     second greedy run gives the same tokens and logits.  Returns the first
     run's launch counts."""
+    import dataclasses
+
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.core import PHubEngine, StackedComm
-    from repro_torch.data import SyntheticTokens
+    from repro_torch.data import SyntheticTokens, frontend_embeds
     from repro_torch.launch.serve import generate
     from repro_torch.models import cache_capacity
 
     cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     engine = PHubEngine(cfg, TrainConfig(), StackedComm(1), device="cuda")
     model = engine.init_model(seed=0)
     prompts = torch.from_numpy(SyntheticTokens(cfg, batch, prompt, seed=7)
                                .batch_at(0)["tokens"]).to("cuda",
                                                           torch.int64)
-    C = cache_capacity(cfg, prompt + steps)
+    extra, F = None, 0
+    if cfg.frontend:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(7)
+        extra = frontend_embeds(cfg, batch, generator=gen, device="cuda")
+        F = cfg.frontend_tokens
+    C = cache_capacity(cfg, F + prompt + steps)
     if cfg.attn_free:
         n_tree = sum(p.numel() for p in model.parameters())
         state = (cfg.n_layers * batch * cfg.n_heads * cfg.hd ** 2 * 4
@@ -2933,6 +3014,7 @@ def serve_path(torch, arch: str, batch: int, prompt: int, steps: int
                          "evicts)" if prompt >= C else ""))
     log(f"serve {arch}: {cfg.n_params():,} params, {cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, window {cfg.sliding_window}; batch {batch}, "
+        f"{f'a prefix of {F} frontend embeddings, ' if F else ''}"
         f"prompt {prompt}, {steps} greedy tokens ({steps - 1} decode steps), "
         f"{cache_note}")
     runs = []
@@ -2940,12 +3022,13 @@ def serve_path(torch, arch: str, batch: int, prompt: int, steps: int
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_all_launches()
-        res = generate(engine, model, prompts, steps, greedy=True)
+        res = generate(engine, model, prompts, steps, greedy=True,
+                       extra_embeds=extra)
         launches = all_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
         n_dec = steps - 1
         log(f"  run {run}: prefill {res['prefill_s'] * 1e3:.1f} ms "
-            f"({batch * prompt / res['prefill_s']:,.0f} tok/s); decode "
+            f"({batch * (F + prompt) / res['prefill_s']:,.0f} tok/s); decode "
             f"{n_dec} steps in {res['decode_s'] * 1e3:.1f} ms "
             f"({res['decode_s'] * 1e3 / n_dec:.2f} ms/step, "
             f"{batch * n_dec / res['decode_s']:,.0f} tok/s); peak "
@@ -4700,6 +4783,300 @@ def characterization_phase(torch, count, kernels: dict, smi: str) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# 17. the other model families (module docstring): the kernels at the new
+# shapes (arch, window, batch, tokens before decode, decode tokens), the
+# frontends' prefix ahead of a 512-token prompt
+HYMBA, GROK, ARCTIC = "hymba-1.5b", "grok-1-314b", "arctic-480b"
+FRONTENDS = ("internvl2-2b", "musicgen-medium")
+FRONTEND_PROMPT, FRONTEND_LAYERS, FRONTEND_TOKENS = 512, 4, 8
+FAMILY_SHAPES = (
+    (HYMBA, 1024, 8, 2048, 32), (f"{HYMBA} global", 0, 8, 2048, 32),
+    ("musicgen-medium", 0, 8, 256 + FRONTEND_PROMPT, FRONTEND_TOKENS),
+    ("internvl2-2b", 0, 8, 256 + FRONTEND_PROMPT, FRONTEND_TOKENS),
+    (GROK, 0, 8, 2048, 16), (ARCTIC, 0, 8, 2048, 16))
+MOE_LAYERS = 1                   # grok and arctic: full width, one layer
+ARCTIC_TRAIN_EXPERTS = 32        # arctic training: 128 experts do not fit
+B1_STRIP = 1 << 24               # elements of each strip B1 is held on
+FAMILY_REF_SEQ = 64              # reduced card-vs-CPU checks: tokens
+FAMILY_REF_PROMPT = 40           #   and the serving prompt
+
+
+def family_cfg(arch: str, heads=None):
+    """The reduced config of a card-vs-CPU check at f32 activations (the
+    two devices' results then differ by summation order only, so a
+    router's choice cannot flip on a bf16 rounding): the experts at
+    capacity factor 0.5 (every layer drops assignments), the hybrid at 4
+    layers with windows [0, 64, 64, 0] and, with ``heads`` (nh, kv), at
+    d_model 320 with hymba's 5 query heads a KV head."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    cfg = get_arch(arch)
+    if cfg.family == "hybrid":
+        d = 320 if heads else 256
+        cfg = dataclasses.replace(reduced(cfg, layers=4, d_model=d),
+                                  global_layer_every=3)
+        if heads:
+            cfg = dataclasses.replace(cfg, n_heads=heads[0],
+                                      n_kv_heads=heads[1],
+                                      head_dim=d // heads[0])
+    else:
+        cfg = reduced(cfg)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=0.5)
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def family_reference_phase(torch, label: str, cfg) -> None:
+    """A reduced config: one 2-worker Nesterov step and a prefill plus 4
+    teacher-forced decode steps on the card (kernels) and on the CPU
+    (plain versions) from one parameter tree and one batch (a frontend's
+    prefix drawn on the CPU and copied), within the bounds of the earlier
+    phases (``reference_phase``, ``serve_reference_phase``); the card's
+    step and serving run twice and must give the same bits (the experts'
+    scatter and gather included)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import PHubEngine, StackedComm
+    from repro_torch.core.chunking import leaf_paths
+    from repro_torch.data import PrefixedTokens, SyntheticTokens
+    from repro_torch.models import DecoderLM
+
+    W, L = 2, cfg.n_layers
+    tc = TrainConfig(loss_chunk=64)
+    eng_c = PHubEngine(cfg, tc, StackedComm(W), device="cpu")
+    eng_g = PHubEngine(cfg, tc, StackedComm(W), device="cuda")
+    model_c, opt_c = eng_c.init_state()
+    init = tree_to(model_c.param_tree(), "cpu")
+    data = (PrefixedTokens if cfg.frontend else SyntheticTokens)(
+        cfg, BATCH, FAMILY_REF_SEQ, seed=0)
+    batch_c = data.torch_batch(0, "cpu")
+    batch_g = {k: v.to("cuda") for k, v in batch_c.items()}
+    reset_all_launches()
+    runs = []
+    for _ in range(2):
+        model_g = DecoderLM(cfg, device="cuda", params=tree_to(init, "cuda"))
+        _, opt_g, met_g = eng_g.make_train_step()(model_g, eng_g.init_opt(),
+                                                  batch_g)
+        runs.append((model_g, opt_g, met_g))
+    expect_launches(all_launches(), {"multi_agg_opt_chunks": 2}, 1,
+                    f"reduced {label} step, twice")
+    _, opt_c, met_c = eng_c.make_train_step()(model_c, opt_c, batch_c)
+    (ma, oa, mea), (mb, ob, meb) = runs
+    same = torch.equal(mea["loss"], meb["loss"]) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            leaf_paths(ma.param_tree()), leaf_paths(mb.param_tree())))
+    same &= all(torch.equal(oa[k][n], ob[k][n]) for k in oa for n in oa[k])
+    dloss = abs(float(met_c["loss"]) - float(mea["loss"]))
+    dparam = max(float((a.detach().cpu() - b.detach()).abs().max())
+                 for (_, a), (_, b) in zip(leaf_paths(ma.param_tree()),
+                                           leaf_paths(model_c.param_tree())))
+    dmom = max(float((oa[k]["m"].cpu() - opt_c[k]["m"]).abs().max())
+               for k in oa)
+    log(f"reduced {label} (d_model {cfg.d_model}, {L} layers, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, f32 activations"
+        f"{f', {cfg.n_experts} experts top-{cfg.top_k} at capacity factor {cfg.capacity_factor}' if cfg.n_experts else ''}"
+        f"{f', a prefix of {cfg.frontend_tokens}' if cfg.frontend else ''}"
+        f"), {W} workers, 1 Nesterov step, card vs CPU: loss "
+        f"{float(mea['loss']):.6f} |dloss| {dloss:.3e}, max |dparam| "
+        f"{dparam:.3e}, max |dm| {dmom:.3e}; two card runs bitwise equal "
+        f"(loss, parameters, slots): {same}")
+    check(same, f"reduced {label}: two card steps differ")
+    check(dloss <= 1e-3 and dparam <= 1e-4 and dmom <= 1e-2,
+          f"reduced {label}: card step differs from the CPU step: loss "
+          f"{dloss}, params {dparam}, momentum {dmom}")
+    del runs, ma, mb, oa, ob, opt_c
+
+    # serving: prefill (after the prefix) + teacher-forced decode steps
+    steps, prompt = 4, FAMILY_REF_PROMPT
+    tok = torch.from_numpy(SyntheticTokens(cfg, 2, prompt + steps, seed=7)
+                           .batch_at(0)["tokens"]).long()
+    extra = (PrefixedTokens(cfg, 2, prompt, seed=7).torch_batch(
+        0, "cpu")["extra_embeds"] if cfg.frontend else None)
+
+    def serve(engine, model, device):
+        logits, cache = engine.make_prefill_step(prompt, steps)(
+            model, tok[:, :prompt].to(device),
+            None if extra is None else extra.to(device))
+        out = [logits.cpu()]
+        step = engine.make_serve_step()
+        for i in range(steps):
+            logits, cache = step(model, cache,
+                                 tok[:, prompt + i:prompt + i + 1].to(device))
+            out.append(logits.cpu())
+        return out, cache
+
+    eng_c1 = PHubEngine(cfg, tc, StackedComm(1), device="cpu")
+    eng_g1 = PHubEngine(cfg, tc, StackedComm(1), device="cuda")
+    model_c = DecoderLM(cfg, device="cpu", params=tree_to(init, "cpu"))
+    model_g = DecoderLM(cfg, device="cuda", params=tree_to(init, "cuda"))
+    want, cache_c = serve(eng_c1, model_c, "cpu")
+    reset_all_launches()
+    got, cache_g = serve(eng_g1, model_g, "cuda")
+    again, _ = serve(eng_g1, model_g, "cuda")
+    expect_launches(all_launches(), {"swa_attention_kernel": 2 * L,
+                                     "decode_attention_kernel":
+                                         2 * L * steps}, 1,
+                    f"reduced {label} serving, twice")
+    rels = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    same_pos = torch.equal(cache_g["pos"].cpu(), cache_c["pos"])
+    note = ""
+    if "ssm_S" in cache_g:
+        s_rel = float((cache_g["ssm_S"].cpu() - cache_c["ssm_S"]).abs().max()
+                      / cache_c["ssm_S"].abs().max())
+        note = (f", ssm_S {cache_g['ssm_S'].dtype} card vs CPU "
+                f"{s_rel:.3e}")
+        check(cache_g["ssm_S"].dtype == torch.float32 and s_rel <= SERVE_TOL,
+              f"reduced {label}: ssm_S {s_rel}")
+    log(f"  reduced {label} serving (prompt {prompt}"
+        f"{f' after a prefix of {cfg.frontend_tokens}' if cfg.frontend else ''}"
+        f", {steps} decode steps), card vs CPU: max |dlogits| / max |logits| "
+        f"prefill {rels[0]:.3e}, decode "
+        f"{', '.join(f'{r:.3e}' for r in rels[1:])}; cache pos equal "
+        f"{same_pos}{note}; two card runs bitwise equal: {same}")
+    check(max(rels) <= SERVE_TOL and same_pos and same,
+          f"reduced {label} serving: {rels}, pos {same_pos}, bitwise {same}")
+
+
+def family_attention_phase(torch, kernels: dict) -> None:
+    """B9 and B10 at the new families' shapes (FAMILY_SHAPES), each within
+    its tolerance, timed beside its bound and SDPA; the entries go under
+    the kernels' ``families``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import cache_capacity
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    for label, w, B, T, steps in FAMILY_SHAPES:
+        cfg = get_arch(label.split()[0])
+        swa_e, dec_e = attention_at(
+            torch, randn, label, B, T, steps, cfg.n_heads, cfg.n_kv_heads,
+            cfg.hd, w, cache_capacity(cfg, T + steps))
+        for name, e in (("swa_attention_kernel", swa_e),
+                        ("decode_attention_kernel", dec_e)):
+            kernels[name].setdefault("families", {})[label] = e
+
+
+def family_b1_phase(torch, kernels: dict) -> None:
+    """agg_opt_chunks on grok-1-314b's one-layer W=1 domain, the row the
+    grok training path updates (bf16, the largest any kernel sees): p, g,
+    m drawn on the card, p' into a given buffer and m in place, held
+    bitwise against the plain version on a strip at the row's start and
+    one at its far end (offsets past 2^32 elements), timed beside the
+    row's bytes bound (the plain version on a strip: the whole row's
+    temporaries would not fit beside it)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import PHubEngine, StackedComm
+    from repro_torch.kernels.agg_opt import agg_opt_ref, fused_agg_opt
+
+    cfg = dataclasses.replace(get_arch(GROK), n_layers=MOE_LAYERS)
+    tc = path_tc("nesterov", "identity", dict(flat_residency=True))
+    (group,) = PHubEngine(cfg, tc, StackedComm(1),
+                          device="cuda").chunk_plan.groups
+    n, ce, dt = group.padded, group.chunk_elems, group.dtype
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    log(f"agg_opt_chunks on grok-1-314b's row: {n:,} {dt} elements "
+        f"({group.n_chunks:,} chunks of {ce}), {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated before")
+    p = torch.empty(n, dtype=dt, device="cuda").normal_(0, 0.02,
+                                                        generator=gen)
+    g = torch.empty(n, dtype=dt, device="cuda").normal_(0, 1e-3,
+                                                        generator=gen)
+    m = torch.empty(n, dtype=dt, device="cuda").normal_(0, 1e-3,
+                                                        generator=gen)
+    p_out = torch.empty_like(p)
+    strips = ((0, B1_STRIP), (n - B1_STRIP, n))
+    m0 = [m[lo:hi].clone() for lo, hi in strips]
+    fused_agg_opt(p, g, m, lr=tc.lr, momentum=tc.momentum, chunk_elems=ce,
+                  p_out=p_out)
+    torch.cuda.synchronize()
+    worst = 0
+    for (lo, hi), mm in zip(strips, m0):
+        want = agg_opt_ref(p[lo:hi], g[lo:hi], mm, lr=tc.lr,
+                           momentum=tc.momentum)
+        err, ulp = compare(torch, (p_out[lo:hi], m[lo:hi]), want)
+        worst = max(worst, ulp)
+        log(f"  strip [{lo:,}, {hi:,}): max_abs {err:.3e} max_ulp {ulp}")
+    check(worst == 0, f"agg_opt_chunks on grok's row differs from its "
+                      f"plain version (max_ulp {worst})")
+    ms = median_ms(torch, lambda: fused_agg_opt(
+        p, g, m, lr=tc.lr, momentum=tc.momentum, chunk_elems=ce,
+        p_out=p_out), reps=5, warmup=1)
+    lo, hi = strips[1]
+    plain_strip_ms = median_ms(torch, lambda: agg_opt_ref(
+        p[lo:hi], g[lo:hi], m[lo:hi], lr=tc.lr, momentum=tc.momentum), 5)
+    n_bytes = 5 * p.element_size()
+    bound_ms, bound_by = bound(n, n_bytes, 7)
+    log(f"agg_opt_chunks on grok-1-314b's row: kernel {ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}, {n * n_bytes / 1e9:.2f} GB; "
+        f"{100 * bound_ms / ms:.1f}% of it); plain version on a strip of "
+        f"{B1_STRIP:,} {plain_strip_ms:.3f} ms ({plain_strip_ms * n / B1_STRIP:.1f} ms "
+        f"scaled to the row)")
+    kernels["agg_opt_chunks"]["grok_row"] = {
+        "elements": n, "dtype": str(dt), "max_ulp": worst, "ms": ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "plain_strip_ms": plain_strip_ms, "plain_strip": B1_STRIP}
+    del p, g, m, p_out, m0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def families_phase(torch, count, kernels: dict) -> None:
+    """17. The other model families (module docstring)."""
+    t_phase = time.perf_counter()
+    family_attention_phase(torch, kernels)
+    family_b1_phase(torch, kernels)
+    for arch in (GROK, ARCTIC, HYMBA) + FRONTENDS:
+        family_reference_phase(torch, arch, family_cfg(arch))
+    family_reference_phase(torch, f"{HYMBA} heads 10/2",
+                           family_cfg(HYMBA, heads=(10, 2)))
+    t_ref = time.perf_counter()
+
+    flat = dict(flat_residency=True)
+    nesterov = {"multi_agg_opt_chunks": 1}
+    # (label, workers, steps, rule, launches a step, arch, pipeline,
+    # layers, config fields)
+    train = (
+        ("W=4", WORKERS, 2, "nesterov", nesterov, HYMBA, None, 0, None),
+        ("W=4", WORKERS, 1, "adam", {"adam_opt_chunks": 1}, HYMBA, None, 0,
+         None),
+        (f"W=1 flat, {MOE_LAYERS} layer", 1, 2, "nesterov",
+         {"agg_opt_chunks": 1}, GROK, flat, MOE_LAYERS, None),
+        (f"W=2 flat, {MOE_LAYERS} layer, {ARCTIC_TRAIN_EXPERTS} experts", 2,
+         2, "nesterov", nesterov, ARCTIC, flat, MOE_LAYERS,
+         dict(n_experts=ARCTIC_TRAIN_EXPERTS)),
+    ) + tuple((f"W=4, {FRONTEND_LAYERS} layers", WORKERS, 1, "nesterov",
+               nesterov, a, None, FRONTEND_LAYERS, None) for a in FRONTENDS)
+    for label, W, steps, rule, expect, arch, pipe, layers, fields in train:
+        run = main_path(torch, W, steps, expect, rule, pipeline=pipe,
+                        arch=arch, layers=layers, cfg_fields=fields)
+        count(f"{arch} {rule} {label}", run["launches"])
+        log(f"{arch} {rule} {label}: losses {run['losses']}, step ms "
+            f"{[round(x, 3) for x in run['step_ms']]}, tokens/s "
+            f"{[round(BATCH * SEQ / (x / 1e3)) for x in run['step_ms']]}, "
+            f"peak GiB {[round(x, 3) for x in run['peak_gib']]}")
+    t_train = time.perf_counter()
+    serve = ((HYMBA, 8, 2048, 32, 0), (GROK, 8, 2048, 16, MOE_LAYERS),
+             (ARCTIC, 8, 2048, 16, MOE_LAYERS)) + tuple(
+        (a, 8, FRONTEND_PROMPT, FRONTEND_TOKENS, FRONTEND_LAYERS)
+        for a in FRONTENDS)
+    for arch, batch, prompt, steps, layers in serve:
+        count(f"serve {arch}", serve_path(torch, arch, batch, prompt, steps,
+                                          layers=layers))
+    log(f"17. the families phase took {time.perf_counter() - t_phase:.1f} s "
+        f"(kernels and reduced checks {t_ref - t_phase:.1f}, training "
+        f"{t_train - t_ref:.1f}, serving "
+        f"{time.perf_counter() - t_train:.1f})")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4882,6 +5259,7 @@ def main() -> None:
         kernels[name].update(entry)
     resize_phase(torch, count)
     characterization_phase(torch, count, kernels, smi.splitlines()[0])
+    families_phase(torch, count, kernels)
     for k in kernels.values():
         if "tol" in k:            # checked against its tolerance above
             k["verdict"] = "within_tol"

@@ -4,12 +4,12 @@
     python3 scripts/torch_step_profile.py [--workers 4] [--batch 8] [--seq 512]
         [--optimizer nesterov|adam|sgd] [--lr LR]
         [--wire-format identity|bf16|f16|int8] [--sanity [--poison W]]
-        [--windows N] [--flat] [--overlap] [--arch llama3.2-1b | rwkv6-3b]
-    python3 scripts/torch_step_profile.py --serve [--arch llama3.2-1b |
-        h2o-danube-3-4b | rwkv6-3b] [--batch 8] [--seq 2048]
+        [--windows N] [--flat] [--overlap] [--arch ARCH] [--layers L]
+    python3 scripts/torch_step_profile.py --serve [--arch ARCH]
+        [--layers L] [--batch 8] [--seq 2048]
 
-Runs the port's main path (full ``--arch``, llama3.2-1b by default,
-sharded_ps, W workers stacked on one card, Nesterov at the TrainConfig
+Runs the port's main path (full ``--arch``, llama3.2-1b by default, any
+of the ten; ``--layers`` cuts its depth, never its width; sharded_ps, W workers stacked on one card, Nesterov at the TrainConfig
 defaults over the identity wire unless another rule or wire is asked for; ``--sanity``: the sanity-gated
 step, worker ``--poison`` NaN-injected if given; ``--windows``,
 ``--flat``, ``--overlap``: the gradient processing pipeline's
@@ -29,8 +29,12 @@ CUDA runtime calls in the profiled step.  For the attention-free family
 layer's shape for one worker, forward and forward + backward, CUDA events)
 and scales it to the step's layers, workers and the remat's second
 forward: the scan's share, which the kernel classes cannot separate from
-the projections' matmuls and elementwise kernels.  Needs a CUDA card;
-imports no JAX.
+the projections' matmuls and elementwise kernels.  For the hybrid
+(hymba-1.5b) it times the SSM branch alone the same way (host time and
+launches, scaled to the step, against the timed step's wall), and for
+the MoE family (grok-1-314b, arctic-480b) it profiles one expert layer's
+forward + backward, the expert products against the dispatch.  Needs a
+CUDA card; imports no JAX.
 
 ``--serve``: the serving path instead (``--arch``, full width and depth,
 a greedy batch of ``--batch`` prompts of ``--seq`` tokens): one prefill
@@ -58,7 +62,8 @@ CLASSES = (                      # first match wins
                        "adam_opt_kernel")),   # dequant_agg_opt_kernel too
     ("wire codec", ("quantize_kernel",)),     # and dequantize_kernel
     ("health scan", ("health_kernel",)),
-    ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "sm90_")),
+    ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "sm90_",
+                         "nvjet")),
     ("reduction", ("reduce",)),
     ("index / gather / scatter", ("index", "gather", "scatter", "embedding")),
     ("copy / fill", ("copy", "memcpy", "memset", "fill", "cat")),
@@ -159,16 +164,27 @@ def cache_desc(cache: dict) -> str:
     return f"state cache {n / 1e6:.1f} MB"
 
 
+def arch_config(args):
+    """``--arch`` at full width, its depth cut to ``--layers`` if given."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
+
+
 def serve_profile(args) -> None:
     """One prefill and one decode step of the serving path, profiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.configs import TrainConfig
     from repro_torch.core import PHubEngine, StackedComm
     from repro_torch.data import SyntheticTokens
 
-    cfg = get_arch(args.arch)
+    cfg = arch_config(args)
     engine = PHubEngine(cfg, TrainConfig(), StackedComm(1), device="cuda")
     model = engine.init_model(seed=0)
     prompts = torch.from_numpy(SyntheticTokens(cfg, args.batch, args.seq,
@@ -246,6 +262,8 @@ def main(argv=None) -> None:
                          "--batch x --seq and one decode step")
     ap.add_argument("--arch", default="llama3.2-1b",
                     help="the architecture (full width and depth)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: all)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -254,7 +272,7 @@ def main(argv=None) -> None:
         raise SystemExit("torch_step_profile: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.configs import TrainConfig
     from repro_torch.core import PHubEngine, StackedComm
     from repro_torch.data import SyntheticTokens
 
@@ -265,7 +283,7 @@ def main(argv=None) -> None:
     if args.serve:
         serve_profile(args)
         return
-    cfg = get_arch(args.arch)
+    cfg = arch_config(args)
     tc = TrainConfig(loss_chunk=min(1024, args.seq),
                      optimizer=args.optimizer, wire_format=args.wire_format,
                      pipeline_windows=args.windows,
@@ -337,10 +355,124 @@ def main(argv=None) -> None:
     print("host time of CUDA runtime calls in the profiled step:")
     for name, (ms, n) in sorted(runtime.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"  {ms:10.2f} ms  {n:5d} calls  {name}")
-    if cfg.attn_free:
+    if cfg.attn_free or cfg.family == "hybrid" or cfg.n_experts:
         del model, opt, metrics, step, engine
         torch.cuda.empty_cache()
+    if cfg.attn_free:
         scan_share(cfg, args, torch)
+    if cfg.family == "hybrid":
+        ssm_share(cfg, args, step_ms, torch)
+    if cfg.n_experts:
+        moe_share(cfg, args, torch)
+
+
+def host_ms(fn, torch, reps: int = 3) -> float:
+    """Median host ms of ``fn`` between two synchronizations, after one
+    warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def profiled(fn, torch) -> dict:
+    """{kernel: [device ms, launches]} of one ``fn`` call."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_split(prof, torch)[0]
+
+
+def ssm_share(cfg, args, step_ms: float, torch) -> None:
+    """The hybrid's SSM branch alone (``models/ssm.py``) at one worker's
+    shape of the step from the zero state: forward, and forward +
+    backward, timed on the host and profiled for launches, scaled to the
+    step (under remat a step runs the forward twice and the backward once
+    a layer and worker) and set against the timed step's wall."""
+    from repro_torch.models import ssm_branch
+    d, H, hd, N = cfg.d_model, cfg.n_heads, cfg.hd, cfg.ssm_state
+    B = args.batch // args.workers
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def w(*shape):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * shape[0] ** -0.5).requires_grad_()
+    p = {"w_in": w(d, H * hd), "w_gate": w(d, H * hd), "w_dt": w(d, H),
+         "dt_bias": torch.zeros(H, device="cuda", requires_grad=True),
+         "a_log": torch.log(torch.linspace(1.0, 16.0, H, device="cuda"))
+         .requires_grad_(),
+         "w_B": w(d, N), "w_C": w(d, N), "w_out": w(H * hd, d)}
+    x = torch.randn(B, args.seq, d, device="cuda", generator=gen).to(
+        getattr(torch, cfg.dtype)).requires_grad_()
+    S0 = torch.zeros(B, H, N, hd, device="cuda", dtype=x.dtype)
+
+    def fwd():                      # the graph is built, then dropped
+        ssm_branch(p, x, cfg, S0)
+
+    def fwd_bwd():
+        y, _ = ssm_branch(p, x, cfg, S0)
+        torch.autograd.grad(y.float().sum(), [x, *p.values()])
+
+    f_ms, fb_ms = host_ms(fwd, torch), host_ms(fwd_bwd, torch)
+    kf, kfb = profiled(fwd, torch), profiled(fwd_bwd, torch)
+    n_f, n_fb = (sum(v[1] for v in k.values()) for k in (kf, kfb))
+    dev_f, dev_fb = (sum(v[0] for v in k.values()) for k in (kf, kfb))
+    per_step = cfg.n_layers * args.workers
+    ssm_ms = per_step * (f_ms + fb_ms)
+    print(f"SSM branch alone (ssm_branch, one layer, B {B} T {args.seq} "
+          f"{cfg.dtype}): forward {f_ms:.2f} ms on the host ({n_f} "
+          f"launches, {dev_f:.2f} ms of device time), forward + backward "
+          f"{fb_ms:.2f} ms ({n_fb} launches, {dev_fb:.2f} ms device); x "
+          f"{cfg.n_layers} layers x {args.workers} workers, the forward "
+          f"twice under remat: ~{per_step * (n_f + n_fb):,} launches, "
+          f"~{ssm_ms:.0f} ms of host time, {ssm_ms / step_ms:.1%} of the "
+          f"{step_ms:.0f} ms timed step")
+
+
+def moe_share(cfg, args, torch) -> None:
+    """One ``moe_mlp`` forward + backward at one worker's tokens of the
+    step, profiled: the expert products (cuBLAS) against the routing,
+    scatter, gather and the rest."""
+    from repro_torch.models import moe_mlp
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    S = args.batch // args.workers * args.seq
+    dt = getattr(torch, cfg.param_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+
+    def w(*shape):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * shape[-2] ** -0.5).to(dt).requires_grad_()
+    ws = [w(d, E), w(E, d, ff), w(E, d, ff), w(E, ff, d)]
+    x = torch.randn(S, d, device="cuda", generator=gen).to(
+        getattr(torch, cfg.dtype)).requires_grad_()
+
+    def fwd_bwd():
+        y, aux = moe_mlp(x, *ws, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor)
+        torch.autograd.grad(y.float().sum() + aux, [x, *ws])
+
+    ms = host_ms(fwd_bwd, torch)
+    k = profiled(fwd_bwd, torch)
+    prod = {n: v for n, v in k.items() if classify(n) == "matmul (cuBLAS)"}
+    rest = {n: v for n, v in k.items() if n not in prod}
+    p_ms, r_ms = (sum(v[0] for v in g.values()) for g in (prod, rest))
+    p_n, r_n = (sum(v[1] for v in g.values()) for g in (prod, rest))
+    top = sorted(((v[0], n) for n, v in rest.items()), reverse=True)[:4]
+    print(f"expert layer alone (moe_mlp, {S} tokens, {E} experts top-"
+          f"{cfg.top_k}, d {d}, d_ff {ff}), forward + backward: {ms:.2f} ms "
+          f"on the host; device {p_ms + r_ms:.2f} ms: expert products "
+          f"{p_ms:.2f} ms ({p_n} launches, {p_ms / (p_ms + r_ms):.1%}), "
+          f"routing/scatter/gather and the rest {r_ms:.2f} ms ({r_n} "
+          f"launches); the largest of those: "
+          + "; ".join(f"{n[:60]} {t:.2f} ms" for t, n in top))
 
 
 def scan_share(cfg, args, torch) -> None:

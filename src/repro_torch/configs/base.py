@@ -96,6 +96,14 @@ class ModelConfig:
             per_layer = attn + mlp + 2 * d
         return emb + L * per_layer + d
 
+    def n_active_params(self) -> int:
+        """Parameters touched per token (MoE: top-k of the experts)."""
+        if not self.n_experts:
+            return self.n_params()
+        d, ff, L = self.d_model, self.d_ff, self.n_layers
+        dense_total = self.n_params() - L * self.n_experts * 3 * d * ff
+        return dense_total + L * self.top_k * 3 * d * ff
+
 
 @dataclass(frozen=True)
 class TrainConfig:

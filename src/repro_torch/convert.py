@@ -15,8 +15,8 @@ co-scheduler's packed optimizer state of a ``TenantPackedDomain`` across
 its domain, the port's stacked ``(S, state_len)`` over the same layout),
 so both packages can start a co-scheduled step from the same momentum.
 ``cache_from_numpy`` takes the reference's decode cache (``init_cache`` /
-``prefill``'s ``cache``: a KV ring, or the ssm family's state) and
-returns the port's, ``next`` as a host int.
+``prefill``'s ``cache``: a KV ring, a hybrid's with its SSM state, or the
+ssm family's state) and returns the port's, ``next`` as a host int.
 bfloat16 arrays (numpy's ``ml_dtypes`` extension type) are carried bit for
 bit.  Nothing here imports JAX.
 """
@@ -27,7 +27,7 @@ import torch
 
 from .configs.base import ModelConfig
 from .core.chunking import ChunkPlan, leaf_paths
-from .models import DecoderLM, init_cache, param_specs
+from .models import DecoderLM, init_cache, param_specs, ssm_state_dtype
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -121,13 +121,16 @@ def cache_from_numpy(cfg: ModelConfig, cache: dict, *,
     """The reference's decode cache (numpy ``k``/``v`` (L, B, C, kv, hd),
     ``pos`` (L, B, C) int32, ``next`` a scalar; for the ssm family ``S``
     (L, B, H, hd, hd), ``x_prev_att`` and ``x_prev_ffn`` (L, B, 1, d),
-    ``next``) -> the port's dict, every array in its own dtype (bf16 bit for
-    bit) and ``next`` a host int."""
+    ``next``; a hybrid's also ``ssm_S`` (L, B, H, N, hd)) -> the port's
+    dict, every array in its own dtype (bf16 bit for bit) but a hybrid's
+    ``ssm_S``, which is held in ``ssm_state_dtype`` (the values the
+    reference's carry, ``models/model.py``), and ``next`` a host int."""
     if cfg.family == "ssm":
         names = ("S", "x_prev_att", "x_prev_ffn")
         want = init_cache(cfg, np.shape(cache["S"])[1], 0, device="meta")
     else:
-        names = ("k", "v", "pos")
+        names = ("k", "v", "pos") + (("ssm_S",) if cfg.family == "hybrid"
+                                     else ())
         k = np.asarray(cache["k"])
         want = init_cache(cfg, k.shape[1], k.shape[2], device="meta")
     out = {}
@@ -137,6 +140,8 @@ def cache_from_numpy(cfg: ModelConfig, cache: dict, *,
             raise ValueError(f"cache {name}: shape {a.shape} is not "
                              f"{tuple(want[name].shape)}")
         out[name] = _tensor(a, device)
+    if "ssm_S" in out:
+        out["ssm_S"] = out["ssm_S"].to(ssm_state_dtype(cfg))
     if "pos" in out and out["pos"].dtype != torch.int32:
         raise TypeError(f"cache pos is {out['pos'].dtype}, not int32")
     out["next"] = int(np.asarray(cache["next"]))

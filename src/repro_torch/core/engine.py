@@ -233,13 +233,28 @@ class PHubEngine:
     # ------------------------------------------------------------ train step
 
     def build_loss_fn(self):
-        """Per-worker loss: forward + chunked cross-entropy."""
-        tc = self.tc
+        """Per-worker loss ``loss_fn(model, tokens, labels[, extra_embeds])
+        -> (total, loss)`` (the reference's ``build_loss_fn``): forward +
+        chunked cross-entropy ``loss``; with ``extra_embeds`` (B, F, d) the
+        labels get a -1 (masked) prefix of length F; ``total`` adds
+        ``router_aux_weight`` times the experts' load-balance loss (with
+        no experts it is ``loss``).  The gradient is ``total``'s, the
+        step's reported loss ``loss``."""
+        cfg, tc = self.cfg, self.tc
 
-        def loss_fn(model: DecoderLM, tokens, labels):
-            x = model(tokens, remat=tc.remat)
-            return chunked_cross_entropy(x, model.lm_head_weight(), labels,
+        def loss_fn(model: DecoderLM, tokens, labels, extra_embeds=None):
+            out = model(tokens, extra_embeds=extra_embeds, remat=tc.remat,
+                        with_aux=bool(cfg.n_experts))
+            x, aux = out if cfg.n_experts else (out, None)
+            if extra_embeds is not None:
+                prefix = labels.new_full(
+                    (labels.shape[0], extra_embeds.shape[1]), -1)
+                labels = torch.cat([prefix, labels], dim=1)
+            loss = chunked_cross_entropy(x, model.lm_head_weight(), labels,
                                          chunk=tc.loss_chunk)
+            if not cfg.n_experts:
+                return loss, loss
+            return loss + cfg.router_aux_weight * aux, loss
         return loss_fn
 
     def update_fn(self, group):
@@ -386,8 +401,7 @@ class PHubEngine:
         gbuf = self.grad_buffers()
 
         def step(model: DecoderLM, opt: dict, batch: dict, health=None):
-            tokens, labels = batch["tokens"], batch["labels"]
-            B = tokens.shape[0]
+            B = batch["tokens"].shape[0]
             if B % W:
                 raise ValueError(f"global batch {B} does not split over "
                                  f"{W} workers")
@@ -396,8 +410,8 @@ class PHubEngine:
             losses = []
             for w in range(local - 1 if chunk_ready else local):
                 sl = slice((first + w) * bw, (first + w + 1) * bw)
-                loss = loss_fn(model, tokens[sl], labels[sl])
-                grads = torch.autograd.grad(loss, leaves)
+                total, loss = worker_loss(loss_fn, model, batch, sl)
+                grads = torch.autograd.grad(total, leaves)
                 chunking.flatten_leaves(cp, dict(zip(paths, grads)),
                                         out={k: v[w] for k, v in gbuf.items()})
                 del grads
@@ -414,8 +428,8 @@ class PHubEngine:
             ready = None
             if chunk_ready:
                 sl = slice((W - 1) * bw, W * bw)
-                loss = loss_fn(model, tokens[sl], labels[sl])
-                ready = self._chunk_ready_backward(loss, paths, leaves, gbuf,
+                total, loss = worker_loss(loss_fn, model, batch, sl)
+                ready = self._chunk_ready_backward(total, paths, leaves, gbuf,
                                                    flats_p, opt, n_live)
                 losses.append(loss.detach())
             metrics["loss"] = self.comm.gather_small(
@@ -475,14 +489,17 @@ class PHubEngine:
             return x[:, -1].float() @ model.lm_head_weight().float()
 
     def make_prefill_step(self, seq_len: int, max_new_tokens: int = 0):
-        """``prefill_step(model, tokens (B, seq_len)) -> (logits (B, V)
-        f32, cache)``: the prompt through ``DecoderLM.prefill`` into a ring
-        cache with room for ``max_new_tokens`` more."""
-        def prefill_step(model: DecoderLM, tokens: torch.Tensor):
+        """``prefill_step(model, tokens (B, seq_len), extra_embeds=None) ->
+        (logits (B, V) f32, cache)``: the prompt, after the frontend's
+        ``extra_embeds`` (B, F, d) when given, through ``DecoderLM.prefill``
+        into a ring cache with room for ``max_new_tokens`` more."""
+        def prefill_step(model: DecoderLM, tokens: torch.Tensor,
+                         extra_embeds=None):
             if tokens.shape[1] != seq_len:
                 raise ValueError(f"prompt of {tokens.shape[1]} tokens, the "
                                  f"step was made for {seq_len}")
-            x, cache = model.prefill(tokens, max_new_tokens=max_new_tokens)
+            x, cache = model.prefill(tokens, extra_embeds=extra_embeds,
+                                     max_new_tokens=max_new_tokens)
             return self._last_logits(model, x), cache
         return dispatched(prefill_step)
 
@@ -494,6 +511,15 @@ class PHubEngine:
             x = model.decode(tokens, cache)
             return self._last_logits(model, x), cache
         return dispatched(serve_step)
+
+
+def worker_loss(loss_fn, model: DecoderLM, batch: dict, sl: slice):
+    """(total, loss) of one worker's slice ``sl`` of ``batch``: its
+    tokens, labels and, when the batch has them, frontend embeddings
+    through ``loss_fn``."""
+    extra = batch.get("extra_embeds")
+    return loss_fn(model, batch["tokens"][sl], batch["labels"][sl],
+                   *(() if extra is None else (extra[sl],)))
 
 
 # ---------------------------------------------------- co-scheduled exchange
@@ -657,8 +683,7 @@ def make_co_train_step(tenants: dict, domain, membership=None, *,
         metrics = {}
         for ns in names:
             model = models[ns]
-            tokens, labels = batches[ns]["tokens"], batches[ns]["labels"]
-            B = tokens.shape[0]
+            B = batches[ns]["tokens"].shape[0]
             if B % W:
                 raise ValueError(f"tenant {ns!r}: global batch {B} does not "
                                  f"split over {W} workers")
@@ -667,8 +692,9 @@ def make_co_train_step(tenants: dict, domain, membership=None, *,
             losses = []
             for w in range(local):
                 sl = slice((first + w) * bw, (first + w + 1) * bw)
-                loss = loss_fns[ns](model, tokens[sl], labels[sl])
-                grads = dict(zip(paths, torch.autograd.grad(loss, leaves)))
+                total, loss = worker_loss(loss_fns[ns], model, batches[ns],
+                                          sl)
+                grads = dict(zip(paths, torch.autograd.grad(total, leaves)))
                 with torch.no_grad():
                     for key, (pcs, _) in pieces[ns].items():
                         _write_pieces(pcs, grads, buf[key][w])

@@ -1,1 +1,2 @@
-from .synthetic import SyntheticTokens
+from .synthetic import (PrefixedTokens, SyntheticTokens, batch_specs,
+                        frontend_embeds)

@@ -8,7 +8,10 @@ Usage:
   ... --telemetry --telemetry-out out   # spans + latency histogram
 
 The prompts are ``SyntheticTokens(cfg, batch, prompt_len, seed=7)``'s
-first batch and the weights are drawn from seed 0, as the reference's.
+first batch and the weights are drawn from seed 0, as the reference's;
+``--arch`` takes any of the ten architectures.  A frontend architecture
+(internvl2-2b, musicgen-medium) is served from its tokens alone, with no
+prefix, as the reference's launcher serves it; ``generate`` takes one.
 The prefill's logits give the first token; each of the ``decode_steps - 1``
 decode steps gives one more.  The decode chain is queued without a host
 sync and synchronized once at its end.
@@ -29,8 +32,9 @@ import time
 
 def generate(engine, model, prompts, decode_steps: int, *,
              greedy: bool = True, temperature: float = 1.0,
-             generator=None) -> dict:
-    """Prefill ``prompts`` (B, T) int64 on the model's device, then decode
+             generator=None, extra_embeds=None) -> dict:
+    """Prefill ``prompts`` (B, T) int64 on the model's device, after a
+    frontend's ``extra_embeds`` (B, F, d) when given, then decode
     ``decode_steps - 1`` tokens.  Greedy takes the argmax; otherwise a
     token is drawn from softmax(logits / temperature) with ``generator``.
     Returns ``tokens`` (B, decode_steps) int32 on the device, the first
@@ -60,7 +64,7 @@ def generate(engine, model, prompts, decode_steps: int, *,
     t0 = time.perf_counter()
     with tracer.span("prefill", batch=prompts.shape[0],
                      prompt_len=prompts.shape[1]):
-        logits, cache = prefill_step(model, prompts)
+        logits, cache = prefill_step(model, prompts, extra_embeds)
         sync()
     t_prefill = time.perf_counter() - t0
     registry.histogram("serve.latency").observe(t_prefill, phase="prefill")

@@ -11,6 +11,11 @@ cross-pod leg ``--wire-format-dcn`` may encode.  gloo ranks may share one
 card (their collectives go through host memory); NCCL needs a card a
 rank.
 
+``--arch`` takes any of the reference's ten architectures
+(``configs/registry.py``); as the reference's launcher, it trains a
+frontend architecture (internvl2-2b, musicgen-medium) on its tokens alone,
+with no prefix of frontend embeddings (``data.PrefixedTokens`` adds one).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
       --steps 3 --batch 8 --seq 512 --workers 4

@@ -75,9 +75,10 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 def dense_init(shape: tuple[int, ...], dtype: torch.dtype, *,
                generator: torch.Generator | None, device,
                fan_in: int | None = None) -> torch.Tensor:
-    """Normal(0, 1/fan_in) weights drawn in f32 from ``generator``."""
+    """Normal(0, 1/fan_in) weights drawn in f32 from ``generator`` (scaled
+    in place: one f32 copy at a time, 17.9 GB for arctic-480b's experts)."""
     fan_in = fan_in if fan_in is not None else shape[-2] if len(shape) >= 2 else shape[-1]
     std = fan_in ** -0.5
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)

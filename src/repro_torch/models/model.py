@@ -35,7 +35,24 @@ cache in place; ``DecoderLM.decode`` takes one recurrence step a layer in
 plain tensor ops, as the reference decodes, and updates the cache in
 place.
 
-The MoE, hybrid and modality branches are ROADMAP.md queue A item 8.
+The ``moe`` family (grok-1-314b, arctic-480b) replaces the block's MLP
+by top-k experts (``models/moe.py``), arctic's beside a dense residual
+MLP; each block's load-balance loss is returned beside x, and the
+forward's ``aux`` is their mean over layers.  The ``hybrid`` family
+(hymba-1.5b) runs attention and a selective SSM (``models/ssm.py``) on the
+same normed input, norms each and adds half their sum; its layers are
+sliding-window but for the first, every ``global_layer_every``-th and the
+last, and its decode cache adds the SSM state ``ssm_S`` (L, B, H, N, hd)
+beside the KV ring, whose capacity is the context capped at
+``GLOBAL_DECODE_CAP``.  The state is stored in the scan's output dtype
+(the activation and parameter dtypes promoted: f32 for hymba), the dtype
+the reference's cache holds after a decode step; the prefill writes it
+rounded through ``cache_dtype``, as the reference's prefill stores it, so
+every decode step starts from the reference's values.  The ``vlm`` and
+``audio`` frontends (internvl2-2b, musicgen-medium) are dense decoders
+whose input starts with ``extra_embeds`` (B, F, d), precomputed
+embeddings concatenated before the tokens' in the forward and the prefill
+(never at decode).
 """
 from __future__ import annotations
 
@@ -51,18 +68,14 @@ from ..configs.base import ModelConfig
 from ..kernels.decode_attn import ops as decode_ops
 from ..kernels.swa_attn import ops as swa_ops
 from .attention import blockwise_attention
-from . import rwkv
+from . import moe, rwkv
 from .layers import (apply_rope, dense_init, full_f32_matmuls, matmul,
                      rms_norm, swiglu)
+from .ssm import ssm_branch
 
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "ssm") or cfg.n_experts or cfg.frontend
-            or cfg.global_layer_every):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: only the dense and ssm decoders are ported "
-            f"(family {cfg.family!r}); the others are ROADMAP.md queue A "
-            f"item 8")
+# hybrid global-attention layers decode against a capped cache
+# (StreamingLLM-style) when the context exceeds this
+GLOBAL_DECODE_CAP = 32_768
 
 
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
@@ -76,20 +89,32 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 def cache_capacity(cfg: ModelConfig, seq_len: int) -> int:
     """KV-cache slots per layer for decode at context ``seq_len``: the
-    context where a layer attends to all of it, else the largest window."""
-    _check_supported(cfg)
+    context where a layer attends to all of it (a hybrid's capped at
+    ``GLOBAL_DECODE_CAP``), else the largest window."""
     if cfg.attn_free:
         return 0
     wins = layer_windows(cfg)
-    cap = seq_len if (wins == 0).any() else min(seq_len, int(wins.max()))
+    if (wins == 0).any():
+        cap = seq_len if cfg.global_layer_every == 0 else \
+            min(seq_len, GLOBAL_DECODE_CAP)
+    else:
+        cap = min(seq_len, int(wins.max()))
     return max(cap, 1)
+
+
+def ssm_state_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The hybrid's SSM state dtype: the scan's output, the activation
+    and parameter dtypes promoted."""
+    return torch.promote_types(getattr(torch, cfg.dtype),
+                               getattr(torch, cfg.param_dtype))
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                dtype=torch.bfloat16, device="cuda") -> dict:
     """Decode cache for a context of ``seq_len`` tokens (ring buffers):
     ``k``/``v`` (L, B, C, kv, hd) zeros in ``dtype``, ``pos`` (L, B, C)
-    int32 all -1, ``next`` the host int 0.  For the ssm family, whose
+    int32 all -1, ``next`` the host int 0; a hybrid adds ``ssm_S`` (L, B,
+    H, N, hd) zeros in ``ssm_state_dtype``.  For the ssm family, whose
     state does not grow with the context: ``S`` (L, B, H, hd, hd) f32,
     ``x_prev_att`` (L, B, 1, d) in the activation dtype and ``x_prev_ffn``
     (L, B, 1, d) f32, all zeros (``dtype`` does not apply: these are the
@@ -106,13 +131,18 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                                           dtype=torch.float32, device=device),
                 "next": 0}
     C = cache_capacity(cfg, seq_len)
-    return {"k": torch.zeros((L, batch, C, kv, hd), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((L, batch, C, kv, hd), dtype=dtype,
-                             device=device),
-            "pos": torch.full((L, batch, C), -1, dtype=torch.int32,
+    cache = {"k": torch.zeros((L, batch, C, kv, hd), dtype=dtype,
                               device=device),
-            "next": 0}
+             "v": torch.zeros((L, batch, C, kv, hd), dtype=dtype,
+                              device=device),
+             "pos": torch.full((L, batch, C), -1, dtype=torch.int32,
+                               device=device),
+             "next": 0}
+    if cfg.family == "hybrid":
+        cache["ssm_S"] = torch.zeros(
+            (L, batch, cfg.n_heads, cfg.ssm_state, hd),
+            dtype=ssm_state_dtype(cfg), device=device)
+    return cache
 
 
 def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator],
@@ -120,7 +150,6 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator],
     """A fresh parameter tree with the reference's names, shapes and
     init scales (the random bits differ: the reference draws from JAX's
     threefry, the port from ``generator``)."""
-    _check_supported(cfg)
     dt = getattr(torch, cfg.param_dtype)
     d, ff, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
     nh, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -155,13 +184,35 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator],
             ck=stack((d, ff)), cv=stack((ff, d), fan_in=ff), cr=stack((d, d)),
         )
     else:
+        E = cfg.n_experts
         blocks = dict(
             ln1=ones(L, d), ln2=ones(L, d),
             wq=stack((d, nh * hd)), wk=stack((d, kv * hd)),
             wv=stack((d, kv * hd)), wo=stack((nh * hd, d), fan_in=nh * hd),
-            w1=stack((d, ff)), w3=stack((d, ff)),
-            w2=stack((ff, d), fan_in=ff),
         )
+        if E:
+            def experts(a, b):
+                return dense_init((L, E, a, b), dt, generator=generator,
+                                  device=device, fan_in=a)
+            blocks.update(router=stack((d, E)), moe_w1=experts(d, ff),
+                          moe_w3=experts(d, ff), moe_w2=experts(ff, d))
+        if not E or cfg.dense_residual:
+            blocks.update(w1=stack((d, ff)), w3=stack((d, ff)),
+                          w2=stack((ff, d), fan_in=ff))
+        if cfg.family == "hybrid":
+            dssm, N = nh * hd, cfg.ssm_state
+            a_log = torch.log(torch.linspace(1.0, 16.0, nh,
+                                             dtype=torch.float32,
+                                             device=device)).to(dt)
+            blocks.update(
+                ln_attn=ones(L, dssm), ln_ssm=ones(L, dssm),
+                w_in=stack((d, dssm)), w_gate=stack((d, dssm)),
+                w_dt=stack((d, nh)), dt_bias=full(0.0, L, nh),
+                a_log=full(0.0, L, nh) + a_log[None, :],
+                w_B=stack((d, N)), w_C=stack((d, N)),
+                w_out=dense_init((L, dssm, d), dt, generator=generator,
+                                 device=device, fan_in=dssm),
+            )
     params = {
         "embed": dense_init((V, d), dt, generator=generator, device=device,
                             fan_in=d),
@@ -200,25 +251,69 @@ def _attend(cfg: ModelConfig, bp: dict, x: torch.Tensor, window: int,
     return matmul(out.reshape(B, T, -1), bp["wo"])
 
 
-def _mlp_tail(cfg: ModelConfig, bp: dict, x: torch.Tensor) -> torch.Tensor:
-    """The block after its attention: x + MLP(norm(x)), in the activation
-    dtype."""
+def _mlp(cfg: ModelConfig, bp: dict, x: torch.Tensor):
+    """The MLP or the experts (and arctic's dense residual MLP beside
+    them) on the normed x; returns (out, aux): aux is the experts' f32
+    load-balance loss, None without experts."""
+    if not cfg.n_experts:
+        return swiglu(x, bp["w1"], bp["w3"], bp["w2"]), None
+    B, T, d = x.shape
+    y, aux = moe.moe_mlp(x.reshape(B * T, d), bp["router"], bp["moe_w1"],
+                         bp["moe_w3"], bp["moe_w2"], top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor)
+    y = y.reshape(B, T, d)
+    if cfg.dense_residual:
+        y = y + swiglu(x, bp["w1"], bp["w3"], bp["w2"])
+    return y, aux
+
+
+def _mlp_tail(cfg: ModelConfig, bp: dict, x: torch.Tensor):
+    """The block after its attention: (x + MLP(norm(x)) in the activation
+    dtype, aux as ``_mlp`` returns it)."""
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    x = x + swiglu(h, bp["w1"], bp["w3"], bp["w2"])
-    return x.to(getattr(torch, cfg.dtype))
+    y, aux = _mlp(cfg, bp, h)
+    return (x + y).to(getattr(torch, cfg.dtype)), aux
+
+
+def _hybrid_mix(cfg: ModelConfig, bp: dict, x: torch.Tensor,
+                a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The hybrid's parallel heads: x + (norm(a) + norm(s)) / 2."""
+    a = rms_norm(a, bp["ln_attn"], cfg.norm_eps)
+    s = rms_norm(s, bp["ln_ssm"], cfg.norm_eps)
+    return x + 0.5 * (a + s)
+
+
+def _hybrid_cached(cfg: ModelConfig, bp: dict, x: torch.Tensor,
+                   h: torch.Tensor, a: torch.Tensor, S: torch.Tensor,
+                   round_to: torch.dtype) -> torch.Tensor:
+    """The hybrid's parallel heads at prefill or decode: the SSM on h from
+    the cached state S, which takes the new state in place, rounded
+    through ``round_to``."""
+    s, S_new = ssm_branch(bp, h, cfg, S)
+    S.copy_(S_new.to(round_to))
+    return _hybrid_mix(cfg, bp, x, a, s)
 
 
 def _block(cfg: ModelConfig, bp: dict, x: torch.Tensor, window: int,
-           q_pos: torch.Tensor) -> torch.Tensor:
-    """One dense decoder block; returns x in the activation dtype."""
+           q_pos: torch.Tensor):
+    """One attention decoder block (dense, moe, hybrid, the frontends'),
+    the hybrid's SSM from the zero state; returns (x in the activation
+    dtype, aux)."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    x = x + _attend(cfg, bp, h, window, q_pos)
+    a = _attend(cfg, bp, h, window, q_pos)
+    if cfg.family == "hybrid":
+        S = torch.zeros((x.shape[0], cfg.n_heads, cfg.ssm_state, cfg.hd),
+                        dtype=x.dtype, device=x.device)
+        s, _ = ssm_branch(bp, h, cfg, S)
+        x = _hybrid_mix(cfg, bp, x, a, s)
+    else:
+        x = x + a
     return _mlp_tail(cfg, bp, x)
 
 
-def _ssm_block(cfg: ModelConfig, bp: dict, x: torch.Tensor) -> torch.Tensor:
+def _ssm_block(cfg: ModelConfig, bp: dict, x: torch.Tensor):
     """One RWKV6 block from the zero state (the training forward); returns
-    x in the activation dtype."""
+    (x in the activation dtype, None)."""
     B = x.shape[0]
     S = torch.zeros((B, cfg.n_heads, cfg.hd, cfg.hd), dtype=x.dtype,
                     device=x.device)
@@ -227,7 +322,7 @@ def _ssm_block(cfg: ModelConfig, bp: dict, x: torch.Tensor) -> torch.Tensor:
     x = x + y
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     x = x + rwkv.channel_mix(bp, h)
-    return x.to(getattr(torch, cfg.dtype))
+    return x.to(getattr(torch, cfg.dtype)), None
 
 
 def _fill_ring(ck: torch.Tensor, cv: torch.Tensor, cpos: torch.Tensor,
@@ -265,7 +360,6 @@ class DecoderLM(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  params: Optional[dict] = None):
         super().__init__()
-        _check_supported(cfg)
         full_f32_matmuls()
         self.cfg = cfg
         if params is None:
@@ -289,24 +383,48 @@ class DecoderLM(nn.Module):
     def lm_head_weight(self) -> torch.Tensor:
         return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
 
-    def forward(self, tokens: torch.Tensor, *, remat: bool = True
-                ) -> torch.Tensor:
-        """tokens: (B, T) int.  Returns the final-normed hidden state
-        (B, T, d); the LM head is applied by the loss."""
+    def forward(self, tokens: torch.Tensor, *,
+                extra_embeds: Optional[torch.Tensor] = None,
+                remat: bool = True, with_aux: bool = False):
+        """tokens: (B, T) int; ``extra_embeds``: (B, F, d) frontend
+        embeddings put before the tokens' (the sequence is then F + T
+        long).  Returns the final-normed hidden state (B, F + T, d) (the
+        LM head is applied by the loss), and with ``with_aux`` also the
+        mean over layers of the experts' load-balance loss, an f32 scalar
+        (0 without experts)."""
         cfg = self.cfg
-        x = self.embed[tokens].to(getattr(torch, cfg.dtype))
+        x = self._embed(tokens, extra_embeds)
         q_pos = torch.arange(x.shape[1], device=x.device)
         wins = layer_windows(cfg)
+        auxs = []
         for i, bp in enumerate(self._layers()):
             if cfg.family == "ssm":
                 fn, args = _ssm_block, (cfg, bp, x)
             else:
                 fn, args = _block, (cfg, bp, x, int(wins[i]), q_pos)
             if remat:
-                x = checkpoint(fn, *args, use_reentrant=False)
+                x, aux = checkpoint(fn, *args, use_reentrant=False)
             else:
-                x = fn(*args)
-        return rms_norm(x, self.final_norm, cfg.norm_eps)
+                x, aux = fn(*args)
+            auxs.append(aux)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        if not with_aux:
+            return x
+        if cfg.n_experts:
+            return x, torch.stack(auxs).mean()
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def _embed(self, tokens: torch.Tensor,
+               extra_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        """The tokens' embeddings in the activation dtype, after the
+        frontend's when given."""
+        x = self.embed[tokens].to(getattr(torch, self.cfg.dtype))
+        if extra_embeds is None:
+            return x
+        if self.cfg.family == "ssm":
+            raise ValueError(f"{self.cfg.arch_id}: the ssm family takes no "
+                             f"frontend embeddings")
+        return torch.cat([extra_embeds.to(x.dtype), x], dim=1)
 
     def _layers(self) -> list[dict]:
         """Each layer's parameters: views of the stacks."""
@@ -315,21 +433,26 @@ class DecoderLM(nn.Module):
                 for i in range(self.cfg.n_layers)]
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, *, max_new_tokens: int = 0,
+    def prefill(self, tokens: torch.Tensor, *,
+                extra_embeds: Optional[torch.Tensor] = None,
+                max_new_tokens: int = 0,
                 cache_dtype=torch.bfloat16) -> tuple[torch.Tensor, dict]:
-        """Process a prompt (B, T) and return (the final-normed hidden
-        state (B, T, d), a cache ready for decode).  The cache holds
-        ``T + max_new_tokens`` slots a layer (capped at the window), so a
+        """Process a prompt (B, T), after ``extra_embeds`` (B, F, d) when
+        given, and return (the final-normed hidden state (B, F + T, d), a
+        cache ready for decode).  The cache holds ``F + T +
+        max_new_tokens`` slots a layer (capped at the window), so a
         full-attention model does not evict prompt tokens while it
         generates.  Attention runs through ``swa_attn.ops.swa_attention``
         once a layer, on the f32 q/k/v (the cache holds them in
-        ``cache_dtype``).  The ssm family's cache has no slots; its scan
-        runs through ``rwkv_scan.ops.rwkv_scan`` once a layer."""
+        ``cache_dtype``); a hybrid's SSM runs from the zero state and its
+        last state is stored rounded through ``cache_dtype``.  The ssm
+        family's cache has no slots; its scan runs through
+        ``rwkv_scan.ops.rwkv_scan`` once a layer."""
         cfg = self.cfg
-        B, T = tokens.shape
+        x = self._embed(tokens, extra_embeds)
+        B, T = x.shape[:2]
         cache = init_cache(cfg, B, T + max_new_tokens, dtype=cache_dtype,
                            device=tokens.device)
-        x = self.embed[tokens].to(getattr(torch, cfg.dtype))
         if cfg.family == "ssm":
             return self._ssm_layers(x, cache, use_kernel=True), cache
         q_pos = torch.arange(T, device=x.device)
@@ -338,29 +461,34 @@ class DecoderLM(nn.Module):
             h = rms_norm(x, bp["ln1"], cfg.norm_eps)
             q, k, v = _qkv(cfg, bp, h, q_pos)
             a = swa_ops.swa_attention(q, k, v, window=int(wins[i]))
-            x = x + matmul(a.reshape(B, T, -1), bp["wo"])
+            a = matmul(a.reshape(B, T, -1), bp["wo"])
             _fill_ring(cache["k"][i], cache["v"][i], cache["pos"][i], k, v)
-            x = _mlp_tail(cfg, bp, x)
+            if cfg.family == "hybrid":
+                x = _hybrid_cached(cfg, bp, x, h, a, cache["ssm_S"][i],
+                                   cache_dtype)
+            else:
+                x = x + a
+            x, _ = _mlp_tail(cfg, bp, x)
         cache["next"] = T
         return rms_norm(x, self.final_norm, cfg.norm_eps), cache
 
     @torch.inference_mode()
     def decode(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
         """One token a row, tokens (B, 1), against ``cache``, which is
-        updated in place (k/v/pos at slot ``next % C`` of every layer, and
-        ``next``).  Returns the final-normed hidden state (B, 1, d).
-        Attention runs through ``decode_attn.ops.decode_attention`` once a
-        layer; the ssm family takes one recurrence step a layer instead."""
+        updated in place (k/v/pos at slot ``next % C`` of every layer, a
+        hybrid's ``ssm_S``, and ``next``).  Returns the final-normed hidden
+        state (B, 1, d).  Attention runs through
+        ``decode_attn.ops.decode_attention`` once a layer; the ssm family
+        takes one recurrence step a layer instead."""
         cfg = self.cfg
         B, T = tokens.shape
         if T != 1:
             raise ValueError(f"decode takes one token a row, got {T}")
+        x = self._embed(tokens, None)
         if cfg.family == "ssm":
-            x = self.embed[tokens].to(getattr(torch, cfg.dtype))
             return self._ssm_layers(x, cache, use_kernel=False)
         nxt = cache["next"]
         slot = nxt % cache["k"].shape[2]
-        x = self.embed[tokens].to(getattr(torch, cfg.dtype))
         q_pos = torch.arange(nxt, nxt + 1, device=x.device)
         qp = torch.full((B,), nxt, dtype=torch.int32, device=x.device)
         wins = layer_windows(cfg)
@@ -373,8 +501,13 @@ class DecoderLM(nn.Module):
             cpos[:, slot] = nxt
             a = decode_ops.decode_attention(q, ck, cv, cpos, qp,
                                             window=int(wins[i]))
-            x = x + matmul(a.reshape(B, 1, -1), bp["wo"])
-            x = _mlp_tail(cfg, bp, x)
+            a = matmul(a.reshape(B, 1, -1), bp["wo"])
+            if cfg.family == "hybrid":
+                S = cache["ssm_S"][i]
+                x = _hybrid_cached(cfg, bp, x, h, a, S, S.dtype)
+            else:
+                x = x + a
+            x, _ = _mlp_tail(cfg, bp, x)
         cache["next"] = nxt + 1
         return rms_norm(x, self.final_norm, cfg.norm_eps)
 

@@ -106,13 +106,17 @@ def test_blockwise_attention_matches_reference(window):
 
 
 def test_unported_families_raise():
+    """The families this once found unported (hymba's config, a model
+    with experts) now resolve and build: neither call raises."""
     from repro_torch.models import DecoderLM
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("hymba-1.5b")
-    moe = dataclasses.replace(get_arch("llama3.2-1b"), family="moe",
-                              n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecoderLM(moe, device="cpu")
+    assert dataclasses.asdict(get_arch("hymba-1.5b")) == dataclasses.asdict(
+        ARCHS["hymba-1.5b"])
+    moe = dataclasses.replace(port_reduced(get_arch("llama3.2-1b")),
+                              family="moe", n_experts=4, top_k=2)
+    model = DecoderLM(moe, device="cpu")
+    assert tuple(model.blocks["moe_w1"].shape) == (2, 4, 256, 768)
+    x, aux = model(torch.zeros((1, 8), dtype=torch.long), with_aux=True)
+    assert x.shape == (1, 8, 256) and float(aux.detach()) > 0
 
 
 @pytest.mark.parametrize("arch", ["granite-3-8b", "minitron-8b", "rwkv6-3b"])

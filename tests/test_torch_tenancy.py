@@ -549,7 +549,8 @@ def push_loss(G: np.ndarray):
         w = int(tokens[0, 0])
         flat = torch.cat([t.reshape(-1)
                           for _, t in leaf_paths(model.param_tree())])
-        return (flat * G[w]).sum()
+        loss = (flat * G[w]).sum()
+        return loss, loss
     return lambda: loss_fn
 
 
