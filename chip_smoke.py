@@ -353,7 +353,26 @@
    updates fall under half an ulp); every other leaf must change.
    Where a hymba step and a grok step spend their time is
    ``scripts/torch_step_profile.py``'s work, not this script's.
-18. Prints the kernels line, then the device line last.
+18. Weight decay, gradient accumulation and the fsdp_stream strategy:
+   (a) agg_opt_chunks, multi_agg_opt_chunks, adam_opt_chunks and
+   dequant_agg_opt_chunks with decay 1e-4 and 0.1 bitwise against their
+   plain versions (f32 and bf16, a ragged length, NaN and Inf in p and g,
+   g a strip of a wider buffer, the windowed form, B7 on a window strip of
+   every shard with inv_n and the divisor 3), B1 and B2 with decay 0.1 at
+   the main paths' shapes bitwise too, and each of the four timed with and
+   without decay in this call (off, on, on, off); (b) full llama3.2-1b, 4
+   stacked workers, batch 8 x 512, through ``fit``: Nesterov with decay
+   (3 steps), Adam with decay (2), Nesterov with decay over int8 in 5
+   windows (2), ``microbatch=2`` (2) and fsdp_stream Nesterov (3, one
+   agg_opt_chunks a leaf), each run again for one step and bitwise equal,
+   launches exact; fsdp_stream held within 3e-4 (loss) and 2e-4 (sampled
+   parameters) of the sharded_ps W=4 path of this call, beside its step
+   ms and peak; (c) rwkv6-3b at 4 workers under fsdp_stream (2 steps: its
+   sharded_ps gradient rows do not fit the card); (d) reduced card-vs-CPU
+   steps with decay (Nesterov, Adam), ``microbatch=2`` and fsdp_stream
+   with decay (Nesterov, Adam) within phase 3's bounds, two card runs
+   bitwise.
+19. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 card and refuses to run without one.
@@ -1710,8 +1729,9 @@ def main_path(torch, workers: int, steps: int, expect: dict,
              if comm is not None else "")
     exchange_s = exchange_timer(torch, engine) if time_exchange else []
     model, opt = engine.init_state()
-    windows = [effective_windows(g, tc.pipeline_windows)
-               for g in engine.chunk_plan.groups]
+    # fsdp_stream has no chunk domain: its rule runs leaf by leaf
+    groups = engine.chunk_plan.groups if engine.chunk_plan else ()
+    windows = [effective_windows(g, tc.pipeline_windows) for g in groups]
     want_w = want_windows or tc.pipeline_windows
     check(windows == [want_w] * len(windows),
           f"{tc.pipeline_windows} windows asked for, {windows} take effect, "
@@ -1721,7 +1741,6 @@ def main_path(torch, workers: int, steps: int, expect: dict,
     state = TrainState(params=model, opt=opt)
     del opt          # fit replaces state.opt; a second reference would
     #                  keep the first step's slots alive through the run
-    groups = engine.chunk_plan.groups
     rule = {"nesterov": f"momentum {tc.momentum}",
             "adam": f"b1 {tc.adam_b1}, b2 {tc.adam_b2}, eps {tc.adam_eps}",
             "sgd": "no momentum"}[optimizer]
@@ -1730,7 +1749,7 @@ def main_path(torch, workers: int, steps: int, expect: dict,
         sup = TrainSupervisor(engine, SupervisorConfig(
             sanity=SanityConfig(allow_injection=True), demote_after=2),
             faults=faults, log_fn=log)
-    n_tree = sum(g.total for g in engine.chunk_plan.groups)
+    n_tree = sum(t.numel() for _, t in leaf_paths(model.param_tree()))
     membership_fn = None
     if dead is not None:
         members = Membership.full(workers).leave(dead)
@@ -1748,10 +1767,12 @@ def main_path(torch, workers: int, steps: int, expect: dict,
         f"windows {tc.pipeline_windows} (effective {windows}), flat "
         f"residency {tc.flat_residency}, chunk-ready "
         f"{tc.overlap_backward}; "
-        f"groups "
-        + ", ".join(f"{g.key}: {g.total:,} -> {g.padded:,} "
-                    f"({g.n_chunks} chunks of {g.chunk_elems})"
-                    for g in groups))
+        + (f"groups " + ", ".join(f"{g.key}: {g.total:,} -> {g.padded:,} "
+                                  f"({g.n_chunks} chunks of {g.chunk_elems})"
+                                  for g in groups) if groups else
+           f"{tc.strategy}: the rule leaf by leaf, no chunk domain")
+        + (f"; weight decay {tc.weight_decay}" if tc.weight_decay else "")
+        + (f"; microbatch {tc.microbatch}" if tc.microbatch > 1 else ""))
     before = {p: bit_sum(torch, t) for p, t in leaf_paths(model.param_tree())}
     init_print = fingerprint(torch, model)
     data = (PrefixedTokens if cfg.frontend else SyntheticTokens)(
@@ -1841,7 +1862,7 @@ def main_path(torch, workers: int, steps: int, expect: dict,
         kept = [p for p in kept if p not in scales]
     check(not kept, f"parameters {kept} did not change")
     for name, count in launches.items():
-        want = expect.get(name, 0) * steps * len(groups)
+        want = expect.get(name, 0) * steps * max(len(groups), 1)
         check(count == want, f"{where}{name} launched {count} times on "
                              f"the {arch} {workers}-worker {optimizer} "
                              f"{wire} path, want {want}")
@@ -5077,6 +5098,337 @@ def families_phase(torch, count, kernels: dict) -> None:
         f"{time.perf_counter() - t_train:.1f})")
 
 
+# 18. weight decay through the rule kernels, gradient accumulation and
+# the fsdp_stream strategy (module docstring)
+DECAYS = (1e-4, 0.1)             # the decay coefficients the kernels take
+DECAY_N = 8192 * 37 + 100        # the small cases: a ragged length
+FSDP = dict(strategy="fsdp_stream")
+FSDP_PARAM_ATOL, FSDP_LOSS_ATOL = 2e-4, 3e-4    # check_engine.py's bounds
+# (label, steps, rule, TrainConfig fields, launches a step (None: one
+# agg_opt_chunks a leaf, the fsdp_stream update))
+DECAY_PATHS = (
+    ("decay 0.1 W=4", 3, "nesterov", dict(weight_decay=0.1),
+     {"multi_agg_opt_chunks": 1}),
+    ("decay 0.1 W=4", 2, "adam", dict(weight_decay=0.1),
+     {"adam_opt_chunks": 1}),
+    (f"decay 0.1 int8 windows {WINDOWS_W4} W=4", 2, "nesterov",
+     dict(weight_decay=0.1, wire_format="int8",
+          pipeline_windows=WINDOWS_W4), None),
+    ("microbatch 2 W=4", 2, "nesterov", dict(microbatch=2),
+     {"multi_agg_opt_chunks": 1}),
+    ("fsdp_stream W=4", STEPS, "nesterov", FSDP, None),
+)
+# the reduced card-vs-CPU cases: (rule, TrainConfig fields)
+DECAY_REF_CASES = (
+    ("nesterov", dict(weight_decay=0.1)), ("adam", dict(weight_decay=0.1)),
+    ("nesterov", dict(microbatch=2)),
+    ("nesterov", dict(FSDP, weight_decay=0.1)),
+    ("adam", dict(FSDP, weight_decay=0.1)),
+)
+
+
+def decay_small_cases(torch, lr: float, mu: float, ce: int) -> dict:
+    """B1, B2, B4 and B7 with decay against their plain versions, bitwise:
+    f32 and bf16, a ragged length, NaN and Inf in p and g, the stacked g a
+    strip of a wider buffer read in place (rows 4096 elements further
+    apart), the windowed form (p' into a given buffer, the slots in
+    place), B7 on a window's strip of every shard.  {kernel: worst ulp}."""
+    from repro_torch.core.pipeline import own_strips
+    from repro_torch.kernels.agg_opt import ops
+    from repro_torch.kernels.agg_opt.ref import (adam_opt_ref, agg_opt_ref,
+                                                 dequant_agg_opt_ref,
+                                                 multi_agg_opt_ref)
+    from repro_torch.kernels.quant import quantize_int8
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    n, W, lo = DECAY_N, WORKERS, 1024
+    worst = {k: 0 for k in ("agg_opt_chunks", "multi_agg_opt_chunks",
+                            "adam_opt_chunks", "dequant_agg_opt_chunks")}
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                * scale).to(dtype)
+
+    def hold(name, got, want, what):
+        err, ulp = compare(torch, got, want)
+        worst[name] = max(worst[name], ulp)
+        check(ulp == 0, f"{name} with decay ({what}) differs from its "
+                        f"plain version (max_ulp {ulp})")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for wd in DECAYS:
+            what = f"{dtype}, wd {wd}"
+            p, m = rnd(n, dtype=dtype), rnd(n, dtype=dtype)
+            p[5], p[17], p[101] = float("nan"), float("inf"), -float("inf")
+            # rows of whole 16-byte vectors in bf16 too, lo + 4096 wider
+            buf = rnd(W, -(-n // 64) * 64 + lo + 4096, scale=1e-2,
+                      dtype=dtype)
+            buf[:, lo::7] = 0
+            buf[2, lo + 23] = float("inf")
+            g = buf[:, lo:lo + n]
+            kw = dict(lr=lr, momentum=mu, weight_decay=wd)
+            hold("agg_opt_chunks", ops.fused_agg_opt(p, g[0], m, **kw),
+                 agg_opt_ref(p, g[0], m, **kw), what)
+            hold("multi_agg_opt_chunks",
+                 ops.fused_multi_agg_opt(p, g, m, **kw),
+                 multi_agg_opt_ref(p, g, m, **kw), what + ", strip")
+            # the windowed form: p' into a given buffer, m in place
+            po, mi = torch.empty_like(p), m.clone()
+            ops.fused_multi_agg_opt(p, g, mi, p_out=po, chunk_elems=ce,
+                                    divisor=torch.tensor([3.0], device=dev),
+                                    **kw)
+            hold("multi_agg_opt_chunks", (po, mi), multi_agg_opt_ref(
+                p, g, m, divisor=torch.tensor([3.0], device=dev), **kw),
+                what + ", p_out, divisor 3")
+            v, k1, k2 = (rnd(n, dtype=dtype).abs(),
+                         torch.rand(n, device=dev, generator=gen),
+                         torch.rand(n, device=dev, generator=gen))
+            k1[::5] = 0
+            akw = dict(lr=ADAM_LR, eps=1e-8, weight_decay=wd)
+            for gg, label in ((g[0], "W=1"), (g, "W=4 strip")):
+                want = adam_opt_ref(p, gg, m, v, k1, k2, **akw)
+                slots = [t.clone() for t in (m, v, k1, k2)]
+                got = ops.fused_adam_opt(p, gg, *slots, **akw)
+                hold("adam_opt_chunks", got, want, f"{what}, {label}")
+            # B7 on window 1 of 2 of every shard of S = 4, in place
+            S, L = W, 4 * ce
+            Lw = L // 2
+            pd, md = rnd(S * L, dtype=dtype), rnd(S * L, dtype=dtype)
+            pd[3] = float("inf")
+            own_buf = rnd(S, S * L, scale=1e-2, dtype=dtype)
+            strip = lambda t: t.view(S, L)[:, Lw:]        # noqa: E731
+            own = own_strips(own_buf, 2, 1)
+            q, sc = quantize_int8(rnd(S * Lw, scale=1e-2), chunk_elems=ce)
+            for div in (None, torch.tensor([3.0], device=dev)):
+                dkw = dict(lr=lr, momentum=mu, inv_n=1 / S, chunk_elems=ce,
+                           divisor=div, weight_decay=wd)
+                want = dequant_agg_opt_ref(strip(pd), q, sc, own, strip(md),
+                                           **dkw)
+                po, mi = torch.empty_like(pd), md.clone()
+                ops.fused_dequant_agg_opt(strip(pd), q, sc, own, strip(mi),
+                                          p_out=strip(po), **dkw)
+                hold("dequant_agg_opt_chunks", (strip(po), strip(mi)), want,
+                     f"{what}, window strip, divisor {div is not None}")
+    torch.cuda.synchronize()
+    log(f"18a. B1, B2, B4 and B7 with decay {DECAYS} bitwise against their "
+        f"plain versions: f32 and bf16, n {DECAY_N} (ragged), NaN/Inf in p "
+        f"and g, g a strip of a wider buffer, the windowed form, B7 on a "
+        f"window strip of 4 shards, inv_n and divisor 3")
+    return worst
+
+
+def decay_kernel_phase(torch, padded: dict, ce: int, lr: float, mu: float,
+                       kernels: dict) -> None:
+    """18a. The four kernels with decay: the small bitwise cases, then at
+    the main paths' shapes B1 and B2 with decay 0.1 bitwise against their
+    plain versions, and each kernel timed with and without decay in this
+    call, interleaved (off, on, on, off; CUDA events, median of 10 each).
+    The bound does not move: p is read already."""
+    from repro_torch.kernels.agg_opt import ops
+    from repro_torch.kernels.agg_opt.ref import agg_opt_ref, multi_agg_opt_ref
+    from repro_torch.kernels.quant import quantize_int8
+    worst = decay_small_cases(torch, lr, mu, ce)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(180)
+    nw, n1 = padded[WORKERS], padded[1]
+
+    def normal(*shape, std):
+        return torch.empty(*shape, device=dev).normal_(0, std, generator=gen)
+
+    def timed(name, fn):
+        """fn(wd) timed off, on, on, off: (ms without, ms with decay)."""
+        off, on = [], []
+        for wd in (0.0, 0.1, 0.1, 0.0):
+            (on if wd else off).append(median_ms(torch, lambda: fn(wd),
+                                                 reps=10))
+        kernels[name].update(decay_ms=statistics.median(on),
+                             nodecay_ms_same_call=statistics.median(off),
+                             decay_max_ulp=worst[name])
+        log(f"18a. {name}: {statistics.median(off):.3f} ms without decay, "
+            f"{statistics.median(on):.3f} ms with decay 0.1 (runs "
+            f"{[round(x, 3) for x in off]} / {[round(x, 3) for x in on]}); "
+            f"{(statistics.median(on) / statistics.median(off) - 1) * 100:+.2f}%"
+            f"; the row's {kernels[name]['ms']:.3f} ms, bound "
+            f"{kernels[name]['bound_ms']:.3f} ms")
+
+    p, m = normal(nw, std=0.02), normal(nw, std=1e-3)
+    g = normal(WORKERS, nw, std=1e-3)
+    kw = dict(lr=lr, momentum=mu, weight_decay=0.1)
+    for name, kern, plain, gg, pp, mm in (
+            ("agg_opt_chunks", ops.fused_agg_opt, agg_opt_ref, g[0, :n1],
+             p[:n1], m[:n1]),
+            ("multi_agg_opt_chunks", ops.fused_multi_agg_opt,
+             multi_agg_opt_ref, g, p, m)):
+        got = kern(pp, gg, mm, **kw)
+        want = plain(pp, gg, mm, **kw)
+        err, ulp = compare(torch, got, want)
+        del got, want
+        check(ulp == 0, f"{name} with decay 0.1 at {tuple(gg.shape)} differs "
+                        f"from its plain version (max_ulp {ulp})")
+        log(f"18a. {name} with decay 0.1, g {tuple(gg.shape)} f32: max_abs "
+            f"{err:.3e} max_ulp {ulp}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(name, lambda wd, kern=kern, pp=pp, gg=gg, mm=mm: kern(
+            pp, gg, mm, lr=lr, momentum=mu, weight_decay=wd))
+    # B7 over the whole W=4 domain, the owners' rows on g's block diagonal
+    q, sc = quantize_int8(g[1], chunk_elems=ce)
+    po = torch.empty_like(p)
+    timed("dequant_agg_opt_chunks", lambda wd: ops.fused_dequant_agg_opt(
+        p, q, sc, g, m, lr=lr, momentum=mu, inv_n=1 / WORKERS,
+        chunk_elems=ce, p_out=po, weight_decay=wd))
+    del q, sc, po, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    # B4 at W=4, the slots in place (their values do not matter to time)
+    slots = [normal(nw, std=1e-3), normal(nw, std=1e-3).abs(),
+             torch.full((nw,), 0.1, device=dev),
+             torch.full((nw,), 1e-3, device=dev)]
+    po = torch.empty_like(p)
+    timed("adam_opt_chunks", lambda wd: ops.fused_adam_opt(
+        p, g, *slots, lr=ADAM_LR, p_out=po, weight_decay=wd))
+    del p, g, slots, po
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decay_reference_phase(torch, rule: str, fields: dict) -> None:
+    """18d. One 4-worker step of a reduced llama3.2-1b with ``fields``
+    (decay, microbatch, fsdp_stream): the card twice (bitwise equal) and
+    the CPU once (plain versions), from the same weights, within the
+    earlier phases' bounds (loss 1e-3; Nesterov parameters 1e-4 and
+    momentum 1e-2; Adam at eps 1e-3 within lr * |dg| / eps)."""
+    from repro_torch.configs import TrainConfig, get_arch, reduced
+    from repro_torch.core import PHubEngine, StackedComm
+    from repro_torch.core.chunking import leaf_paths
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import DecoderLM
+    cfg = reduced(get_arch(ARCH))
+    kw = dict(loss_chunk=64, **fields)
+    if rule == "adam":
+        kw.update(optimizer="adam", lr=ADAM_LR, adam_eps=ADAM_REF_EPS)
+    tc = TrainConfig(**kw)
+    data = SyntheticTokens(cfg, BATCH, 64, seed=0)
+    out = []                    # the CPU's run, then the card's two
+    init = None
+    for dev in ("cpu", "cuda", "cuda"):
+        eng = PHubEngine(cfg, tc, StackedComm(WORKERS), device=dev)
+        if init is None:
+            model, opt = eng.init_state()
+            init = tree_to(model.param_tree(), "cpu")
+        else:
+            model = DecoderLM(cfg, device=dev, params=tree_to(init, dev))
+            opt = eng.init_opt()
+        model, opt, met = eng.make_train_step()(model, opt,
+                                                 data.torch_batch(0, dev))
+        # Nesterov's and Adam's m: {dtype: {"m": rows}}, or fsdp_stream's
+        # {"m": tree}
+        moms = [t for p, t in leaf_paths(opt)
+                if p.startswith("['m']") or p.endswith("['m']")]
+        out.append(
+            (float(met["loss"]),
+             [t.detach().to("cpu", copy=True)
+              for _, t in leaf_paths(model.param_tree())],
+             [t.to("cpu", copy=True) for t in moms]))
+    (l_c, p_c, m_c), (l_g, p_g, m_g), (l_g2, p_g2, m_g2) = out
+    same = l_g == l_g2 and all(torch.equal(a, b) for a, b in
+                               zip(p_g + m_g, p_g2 + m_g2))
+    check(same, f"reduced {rule} {fields}: two card steps differ")
+    dloss = abs(l_g - l_c)
+    dparam = max(float((a - b).abs().max()) for a, b in zip(p_g, p_c))
+    dmom = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(m_g, m_c))
+    log(f"18d. reduced {ARCH} {WORKERS} workers, {rule} {fields}, card vs "
+        f"CPU: |dloss| {dloss:.3e}, max |dparam| {dparam:.3e}, max |dm| "
+        f"{dmom:.3e}; two card runs bitwise: {same}")
+    check(dloss <= 1e-3, f"card loss differs from CPU loss by {dloss}")
+    if rule == "nesterov":
+        check(dparam <= 1e-4 and dmom <= 1e-2,
+              f"card step differs from CPU step: params {dparam}, "
+              f"momentum {dmom}")
+        return
+    dg = dmom / (1 - tc.adam_b1)
+    lim = tc.lr * dg / tc.adam_eps * 1.01 + 1e-6
+    check(dg <= 1e-2 and dparam <= lim,
+          f"card Adam step differs from CPU step: params {dparam} > {lim}")
+
+
+def decay_phase(torch, count, kernels: dict, runs: dict, padded: dict,
+                ce: int, smi: str) -> None:
+    """18. Weight decay, gradient accumulation and fsdp_stream (module
+    docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import param_specs
+    from repro_torch.core.chunking import leaf_paths
+    from repro_torch.configs import TrainConfig
+    t_phase = time.perf_counter()
+    tc = TrainConfig()
+    decay_kernel_phase(torch, padded, ce, tc.lr, tc.momentum, kernels)
+    t_kern = time.perf_counter()
+    leaves = {a: len(leaf_paths(param_specs(get_arch(a))))
+              for a in (ARCH, SSM_ARCH)}
+    mono = runs["nesterov W=4"]
+    for label, steps, rule, fields, expect in DECAY_PATHS:
+        fields = dict(fields)
+        wire = fields.pop("wire_format", "identity")
+        if expect is None:
+            expect = (INT8_W4_WINDOWS if wire == "int8"
+                      else {"agg_opt_chunks": leaves[ARCH]})
+        run = main_path(torch, WORKERS, steps, expect, rule, wire,
+                        pipeline=fields)
+        again = main_path(torch, WORKERS, 1, expect, rule, wire,
+                          pipeline=fields)
+        key = f"{rule} {label}"
+        count(key, run["launches"])
+        count(key + " (again)", again["launches"])
+        check(again["losses"][0] == run["losses"][0]
+              and same_fingerprint(torch, again["prints"][0],
+                                   run["prints"][0]),
+              f"{key}: a second run's first step differs")
+        runs[key] = run
+        log(f"18b. {key}: losses {run['losses']}, step ms "
+            f"{[round(x, 3) for x in run['step_ms']]}, tokens/s "
+            f"{[round(BATCH * SEQ / (x / 1e3)) for x in run['step_ms']]}, "
+            f"peak GiB {[round(x, 3) for x in run['peak_gib']]}; a second "
+            f"run's first step bitwise equal ({again['step_ms'][0]:.1f} ms)")
+    fs = runs[f"nesterov fsdp_stream W=4"]
+    dloss = max(abs(a - b) for a, b in zip(fs["losses"], mono["losses"]))
+    dparam = max(float((xa - xb).abs().max())
+                 for (_, _, _, xa), (_, _, _, xb) in
+                 zip(fs["prints"][0], mono["prints"][0]))
+    bitwise = all(same_fingerprint(torch, a, b)
+                  for a, b in zip(fs["prints"], mono["prints"]))
+    log(f"18b. fsdp_stream W=4 against the sharded_ps W=4 path of this call "
+        f"(nesterov W=4): |dloss| {dloss:.3e} over {STEPS} steps, sampled "
+        f"|dparam| after step 0 {dparam:.3e}, every step bitwise: {bitwise};"
+        f" step ms {[round(x, 3) for x in fs['step_ms']]} against "
+        f"{[round(x, 3) for x in mono['step_ms']]}, peak GiB "
+        f"{[round(x, 3) for x in fs['peak_gib']]} against "
+        f"{[round(x, 3) for x in mono['peak_gib']]} ({smi})")
+    check(dloss <= FSDP_LOSS_ATOL and dparam <= FSDP_PARAM_ATOL,
+          f"fsdp_stream W=4 differs from sharded_ps W=4: loss {dloss}, "
+          f"params {dparam}")
+    t_llama = time.perf_counter()
+    # rwkv6-3b at W=4: its sharded_ps exchange rows do not fit the card
+    run = main_path(torch, WORKERS, 2, {"agg_opt_chunks": leaves[SSM_ARCH]},
+                    "nesterov", pipeline=FSDP, arch=SSM_ARCH)
+    count(f"{SSM_ARCH} nesterov fsdp_stream W=4", run["launches"])
+    log(f"18c. {SSM_ARCH} fsdp_stream W=4: loss {run['losses']}, step ms "
+        f"{[round(x, 3) for x in run['step_ms']]}, tokens/s "
+        f"{[round(BATCH * SEQ / (x / 1e3)) for x in run['step_ms']]}, peak "
+        f"GiB {[round(x, 3) for x in run['peak_gib']]} ({smi})")
+    t_rwkv = time.perf_counter()
+    for rule, fields in DECAY_REF_CASES:
+        decay_reference_phase(torch, rule, fields)
+    log(f"18. the decay/microbatch/fsdp_stream phase took "
+        f"{time.perf_counter() - t_phase:.1f} s (kernels "
+        f"{t_kern - t_phase:.1f}, llama paths {t_llama - t_kern:.1f}, "
+        f"{SSM_ARCH} {t_rwkv - t_llama:.1f}, reduced checks "
+        f"{time.perf_counter() - t_rwkv:.1f})")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5260,6 +5612,7 @@ def main() -> None:
     resize_phase(torch, count)
     characterization_phase(torch, count, kernels, smi.splitlines()[0])
     families_phase(torch, count, kernels)
+    decay_phase(torch, count, kernels, runs, padded, ce, smi.splitlines()[0])
     for k in kernels.values():
         if "tol" in k:            # checked against its tolerance above
             k["verdict"] = "within_tol"

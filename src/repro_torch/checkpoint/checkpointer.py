@@ -390,9 +390,43 @@ def _params_from(engine, params) -> dict:
     return params
 
 
+def _fsdp_opt_from(engine, opt: dict, step: int) -> dict:
+    """An fsdp_stream engine's ``{slot: tree}`` state on its device, each
+    leaf read by its path (the reference's restore), checked against the
+    engine's slots and the model's leaves."""
+    flat = _flatten(opt)
+    specs = param_specs(engine.cfg)
+    want = _flatten({s.name: specs for s in engine.exchange_slots})
+    slots = {s.name: s for s in engine.exchange_slots}
+    out = {}
+    for path, spec in want.items():
+        dtype = slots[path.split("/", 1)[0]].resolve_dtype(spec.dtype)
+        if path not in flat:
+            raise ValueError(
+                f"checkpoint step_{step} has no opt slot {path!r}; it was "
+                f"written by another optimizer or strategy than the "
+                f"engine's ({engine.tc.optimizer!r}, fsdp_stream: slots "
+                f"{list(engine.sopt.slot_names)})")
+        t = flat[path]
+        if t.dtype != dtype or tuple(t.shape) != tuple(spec.shape):
+            raise ValueError(f"opt slot {path!r}: {t.dtype} "
+                             f"{tuple(t.shape)}, the engine's {dtype} "
+                             f"{tuple(spec.shape)}")
+        out[path] = t.to(engine.device)
+    extra = set(flat) - set(want)
+    if extra:
+        raise ValueError(
+            f"checkpoint step_{step} carries opt slots {sorted(extra)} the "
+            f"engine's fsdp_stream state does not hold")
+    return _unflatten(out)
+
+
 def _opt_from(engine, opt: dict, step: int) -> dict:
     """The engine's optimizer state {dtype: {slot: (S, state_len)}} on its
-    device, from the snapshot's slots, element for element."""
+    device, from the snapshot's slots, element for element (an
+    fsdp_stream engine's ``{slot: tree}`` by leaf path)."""
+    if engine.chunk_plan is None:
+        return _fsdp_opt_from(engine, opt, step)
     flat = _flatten(opt)
     out, consumed = {}, set()
     for g in engine.chunk_plan.groups:

@@ -3,17 +3,18 @@
 ``ModelConfig`` is the reference's (``repro/configs/base.py``) field for
 field, so one architecture means the same widths in both packages.
 ``TrainConfig`` keeps only the fields this port implements: the
-sharded_ps, hierarchical, allreduce and centralized_ps exchanges, the
-three rules of the sharded-optimizer protocol (Nesterov, SGD, Adam)
-without weight decay, whose fused aggregate+update always runs through the
-rule's CUDA kernel (the reference's ``use_pallas``/``fused_agg_opt``
-switches have no counterpart), the wire format of the exchange and of the
+sharded_ps, hierarchical, allreduce, centralized_ps and fsdp_stream
+exchanges, the three rules of the sharded-optimizer protocol (Nesterov,
+SGD, Adam) with the reference's ``weight_decay`` (Nesterov and Adam; the
+reference's SGD takes none), whose fused aggregate+update always runs
+through the rule's CUDA kernel (the reference's ``use_pallas``/
+``fused_agg_opt`` switches have no counterpart), gradient accumulation
+over ``microbatch`` steps, the wire format of the exchange and of the
 hierarchical strategy's cross-pod (DCN) tier, and the gradient processing
 pipeline's windows, chunk-ready dispatch and flat parameter residency.
-The reference's other knobs (microbatching, ``dp_over_model``, the
-fsdp_stream strategy, weight decay, ``grad_clip``) are queued in
-ROADMAP.md and are not fields here (``strategy="fsdp_stream"`` raises), so
-a config cannot ask for them and be silently ignored.
+The reference's other knobs (``dp_over_model``: the stacked Comm has no
+``model`` axis; ``grad_clip``, a field the reference never reads) are not
+fields here, so a config cannot ask for them and be silently ignored.
 """
 from __future__ import annotations
 
@@ -110,13 +111,16 @@ class TrainConfig:
     """Optimization + parameter-exchange (PHub) configuration."""
     optimizer: str = "nesterov"       # nesterov (the paper's) | sgd | adam
     lr: float = 1e-2
-    momentum: float = 0.9             # nesterov only; weight decay: ROADMAP
+    momentum: float = 0.9             # nesterov only
+    weight_decay: float = 0.0         # g + wd * p before the rule: nesterov
+                                      # and adam (the reference's sgd takes
+                                      # none, so sgd ignores it)
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
 
     # --- PHub exchange (the paper's contribution) ---
-    # allreduce | sharded_ps | centralized_ps | hierarchical
+    # allreduce | sharded_ps | centralized_ps | hierarchical | fsdp_stream
     strategy: str = "sharded_ps"
     chunk_size_bytes: int = 32 * 1024 # paper default: 32 KB (§3.2.3)
     # the dtype a chunk travels in (core/wire.py): identity | bf16 | f16 |
@@ -163,6 +167,9 @@ class TrainConfig:
                                       # flatten/unflatten round trip
 
     # --- memory policy ---
+    microbatch: int = 1               # gradient-accumulation steps per
+                                      # exchange (activations shrink 1/k;
+                                      # one PHub exchange per global batch)
     remat: bool = True                # activation checkpointing on blocks
     loss_chunk: int = 1024            # chunked cross-entropy block (tokens)
 

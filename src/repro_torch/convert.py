@@ -14,7 +14,9 @@ co-scheduler's packed optimizer state of a ``TenantPackedDomain`` across
 (the reference's ``{dtype: {slot: (mo, S, Lr) or (mo, padded)}}`` over
 its domain, the port's stacked ``(S, state_len)`` over the same layout),
 so both packages can start a co-scheduled step from the same momentum.
-``cache_from_numpy`` takes the reference's decode cache (``init_cache`` /
+``fsdp_opt_from_numpy`` takes an fsdp_stream engine's state (``{slot:
+parameter tree}``, the reference's ``opt_state_shapes`` there) leaf for
+leaf.  ``cache_from_numpy`` takes the reference's decode cache (``init_cache`` /
 ``prefill``'s ``cache``: a KV ring, a hybrid's with its SSM state, or the
 ssm family's state) and returns the port's, ``next`` as a host int.
 bfloat16 arrays (numpy's ``ml_dtypes`` extension type) are carried bit for
@@ -114,6 +116,49 @@ def _slots_from_numpy(groups, opt: dict, slots, device) -> dict:
             res[name] = _tensor(a.reshape(g.n_shards, g.shard_len), device)
         out[g.key] = res
     return out
+
+
+def fsdp_opt_from_numpy(cfg: ModelConfig, opt: dict, *, slots=None,
+                        device="cuda") -> dict:
+    """The reference's fsdp_stream optimizer state ``{slot: tree}`` (each
+    leaf the parameter's shape) -> the port's, the same tree of tensors.
+    ``slots``: the engine's ``exchange_slots`` to check the slot names
+    and each leaf's dtype against, or None."""
+    want = dict(leaf_paths(param_specs(cfg)))
+    if slots is not None and set(opt) != {s.name for s in slots}:
+        raise ValueError(f"slots {sorted(opt)} are not the engine's "
+                         f"{[s.name for s in slots]}")
+    out = {}
+    for name, tree in opt.items():
+        got = dict(leaf_paths(tree))
+        if set(got) != set(want):
+            raise ValueError(f"slot {name}: leaf paths differ from the "
+                             f"model's")
+        spec = {s.name: s for s in slots or ()}.get(name)
+        leaves = {}
+        for path, a in got.items():
+            t = _tensor(a, device)
+            if tuple(t.shape) != tuple(want[path].shape) or (
+                    spec is not None
+                    and t.dtype != spec.resolve_dtype(want[path].dtype)):
+                raise ValueError(f"{name}{path}: {t.dtype} "
+                                 f"{tuple(t.shape)} does not fit the "
+                                 f"leaf {tuple(want[path].shape)}")
+            leaves[path] = t
+        out[name] = _nest(leaves)
+    return out
+
+
+def _nest(flat: dict) -> dict:
+    """{"['blocks']['wq']": v} -> {"blocks": {"wq": v}}."""
+    tree: dict = {}
+    for path, v in flat.items():
+        keys = [k.strip("'") for k in path[1:-1].split("][")]
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = v
+    return tree
 
 
 def cache_from_numpy(cfg: ModelConfig, cache: dict, *,

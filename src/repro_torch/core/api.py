@@ -272,8 +272,9 @@ class PHubConnectionManager:
         with get_tracer().span("exchange/push_pull", ns=handle.namespace):
             out = self._dispatch(svc.steps[key], model, opt, batch)
         reg = get_registry()
-        if reg.enabled:
-            t = self._solo_step_traffic(svc, handle.namespace)
+        t = self._solo_step_traffic(svc, handle.namespace) \
+            if reg.enabled else None
+        if t:                           # fsdp_stream: no chunk traffic
             reg.counter("exchange.bytes").inc(
                 t["push_bytes"] + t["pull_bytes"],
                 tenant=handle.namespace, basis="raw")
@@ -289,6 +290,9 @@ class PHubConnectionManager:
         t = self._traffic_cache.get(ns)
         if t is None:
             eng = svc.engine
+            if eng.chunk_plan is None:       # fsdp_stream: no chunk domain
+                self._traffic_cache[ns] = {}
+                return {}
             groups = eng.chunk_plan.groups
             padded = sum(g.padded * g.dtype.itemsize for g in groups)
             wire_b = cost_model.wire_bytes_for_groups(
@@ -474,7 +478,8 @@ class PHubConnectionManager:
         self._traffic_cache.clear()
         for svc in self._services.values():
             svc.steps.clear()
-            svc.engine.client.release_buffers()
+            if svc.engine.client is not None:
+                svc.engine.client.release_buffers()
         if self._co is not None:
             self._co.gbuf.clear()
         self._co_memo.clear()
@@ -488,9 +493,11 @@ class PHubConnectionManager:
             if states and ns in states:
                 out[ns] = migrate_engine_state(old_eng, new_eng,
                                                *states[ns])
-                solo_traffic[ns] = cost_model.rebalance_traffic(
-                    plan_rebalance(old_eng.chunk_plan, new_eng.chunk_plan),
-                    new_eng.exchange_slots)
+                if old_eng.chunk_plan is not None:
+                    solo_traffic[ns] = cost_model.rebalance_traffic(
+                        plan_rebalance(old_eng.chunk_plan,
+                                       new_eng.chunk_plan),
+                        new_eng.exchange_slots)
             self._services[ns].engine = new_eng
         world = new_comm.n_workers
         self._membership = (self._membership.resized(world)

@@ -21,7 +21,9 @@ the reference's ``flat_rank`` over ``("pod", "data")``.  The shard layout
 (``n_shards``, ``state_len``) follows the strategy: W shards for
 sharded_ps (flat across pods), D for hierarchical (the in-pod shards; the
 P owners of shard j hold the same update), one for allreduce and
-centralized_ps.  ``ProcessGroupComm`` builds two kinds of subgroup when
+centralized_ps (and fsdp_stream, which has no chunk domain: the
+reference's ``ExchangeContext.n_shards`` gives it 1 too).
+``ProcessGroupComm`` builds two kinds of subgroup when
 P > 1: each pod's D ranks (``over="pod"``: the hierarchical push, pull and
 int8 ring) and the P ranks that share a data index (``over="cross"``:
 ``cross_gather``, the cross-pod leg on the owner shard); every rank
@@ -55,11 +57,11 @@ def _shard_layout(n_workers: int, pods: int, strategy: str) -> int:
         return n_workers
     if strategy == "hierarchical":
         return n_workers // pods
-    if strategy in ("allreduce", "centralized_ps"):
+    if strategy in ("allreduce", "centralized_ps", "fsdp_stream"):
+        # the full-vector strategies; fsdp_stream has no chunk shard
+        # matrix at all (its leaves are split, not its chunk domain)
         return 1
-    raise NotImplementedError(
-        f"strategy {strategy!r} has no worker layout yet (ROADMAP.md queue "
-        f"A item 5b)")
+    raise ValueError(f"unknown exchange strategy {strategy!r}")
 
 
 def _check_pods(n_workers: int, pods: int) -> None:

@@ -59,6 +59,34 @@ monolithic tree-resident step bitwise.
 The reported loss is the mean over the workers, as the reference's
 ``pmean``.
 
+Gradient accumulation (``TrainConfig.microbatch`` = k > 1, the reference's
+``_local_grads``): each worker's slice splits into k microbatches in order,
+and its gradient accumulates as ``a + g / k`` in f32 (an f32 scratch for a
+bf16 leaf, cast to the leaf's dtype once at the end) and its loss as
+``sum(loss / k)``; the exchange runs once a step on the accumulated rows.
+Every path takes it: the stacked step in every mode, a process-group rank
+(local work only) and the co-step (each tenant its own k).  Under
+chunk-ready dispatch with k > 1 the last worker's gradient is the sum of
+its microbatches, so its rows join after its backward, as under the gate.
+
+The ``fsdp_stream`` strategy (the reference's ``fsdp`` layout,
+``core/sharding.py``) has no chunk domain.  The reference splits each large
+leaf over ``data``, all-gathers a layer's shards in the forward (the Pull)
+and reduce-scatters its gradient in the backward (the Push).  On the
+stacked Comm the W shards of a leaf lie side by side and are the whole
+leaf, so the Pull is the identity; each worker's backward accumulates into
+one gradient a leaf (``.grad``, in worker order: the Push reduced inside
+the backward, never W rows); then, leaf by leaf, ``g / N`` and the rule
+through its CUDA kernel on the flattened leaf (``agg_opt_chunks``,
+``sgd_opt_chunks`` or ``adam_opt_chunks`` at W = 1, the ragged tail
+masked), replicated and split leaves alike (the reference's ``psum / N``).
+The optimizer state is ``{slot: tree}``, the reference's
+``opt_state_shapes``; the parameters are re-pointed at the kernel's p'.
+It refuses what the reference refuses: flat residency, windows,
+chunk-ready dispatch and encoded wires, a membership that is not all live,
+the sanity gate, the zero-compute step, ``PHubClient`` and co-scheduling;
+over a process group it raises (ROADMAP.md queue A item 4b).
+
 Over a process group (``core/comm.py::ProcessGroupComm``, one worker a
 process, ``launch/dist.py``) the step is the same with one local worker:
 this rank takes its slice ``[rank*B/W, (rank+1)*B/W)`` of the global batch
@@ -134,14 +162,19 @@ from ..configs.base import ModelConfig, TrainConfig
 from ..kernels.agg_opt.ops import fused_health_scan
 from ..kernels.agg_opt.ref import sqrt_rn
 from ..models import DecoderLM, chunked_cross_entropy, param_specs
-from ..optim.protocol import RuleBinding, make_combined_update, \
-    make_run_update, union_slots
+from ..optim.protocol import RuleBinding, _tree_map, \
+    make_combined_update, make_run_update, make_sharded_optimizer, \
+    union_slots
 from . import chunking
 from .client import PHubClient, dispatched
 from .comm import require_stacked
-from .exchange import check_strategy
+from .exchange import check_strategy, check_wire
 from .pipeline import check_pipeline
-from .wire import exchange_extra_slots
+from .sharding import plan_params
+from .wire import exchange_extra_slots, make_dcn_wire_format, \
+    make_wire_format
+
+FSDP = "fsdp_stream"
 
 
 class PHubEngine:
@@ -151,16 +184,34 @@ class PHubEngine:
         check_strategy(tc.strategy)
         self.cfg, self.tc, self.comm = cfg, tc, comm
         self.device = torch.device(device)
+        specs = param_specs(cfg)
+        # the reference's parameter layout over its (pod, data, model) mesh
+        sizes = {"data": comm.pod_size, "model": 1}
+        axes = ("data", "model")
+        if comm.pods > 1:
+            sizes["pod"], axes = comm.pods, ("pod",) + axes
+        self.plan = plan_params(specs, mesh_axes=axes, axis_sizes=sizes,
+                                layout="fsdp" if tc.strategy == FSDP
+                                else "replicated")
+        self._side = None
+        if tc.strategy == FSDP:
+            require_stacked(comm, "the fsdp_stream strategy")
+            self.wire = make_wire_format(tc)
+            self.wire_dcn = make_dcn_wire_format(tc)
+            check_wire(tc.strategy, self.wire, self.wire_dcn)
+            # no chunk domain: the rule runs leaf by leaf
+            self.client = self.chunk_plan = self.store_layout = None
+            self.sopt = make_sharded_optimizer(tc)
+            self.exchange_slots = self.sopt.slots
+            return
         # the exchange, its slots and its buffers are the client's
-        self.client = PHubClient(tc, comm, device=device).register(
-            param_specs(cfg))
+        self.client = PHubClient(tc, comm, device=device).register(specs)
         self.chunk_plan = self.client.plan
         self.sopt = self.client.sopt
         self.wire, self.wire_dcn = self.client.wire, self.client.wire_dcn
         self.exchange_slots = self.client.exchange_slots
         self.store_layout = chunking.build_store_layout(self.chunk_plan, {},
                                                         1)
-        self._side = None
 
     # ------------------------------------------------------------------ state
 
@@ -172,7 +223,14 @@ class PHubEngine:
     def init_opt(self) -> dict:
         """Zero optimizer slots (``PHubClient.init_state``): {dtype_name:
         {slot_name: (rows, state_len)}}, ``wire_ef`` last under an encoded
-        wire or DCN tier."""
+        wire or DCN tier; under fsdp_stream {slot_name: tree of zeros like
+        the parameters}, each leaf in its slot's dtype."""
+        if self.tc.strategy == FSDP:
+            return {s.name: _tree_map(
+                        lambda p, s=s: torch.zeros(
+                            p.shape, dtype=s.resolve_dtype(p.dtype),
+                            device=self.device), param_specs(self.cfg))
+                    for s in self.exchange_slots}
         return self.client.init_state()
 
     def init_model(self, seed: int | None = None) -> DecoderLM:
@@ -256,6 +314,45 @@ class PHubEngine:
                 return loss, loss
             return loss + cfg.router_aux_weight * aux, loss
         return loss_fn
+
+    def local_grads(self, loss_fn, model: DecoderLM, batch: dict, sl: slice,
+                    leaves) -> tuple:
+        """(total, loss, grads) of one worker's slice ``sl`` of ``batch``,
+        ``grads`` a tuple over ``leaves``: with ``tc.microbatch`` k > 1 the
+        reference's accumulation (``_local_grads``): k microbatches of the
+        slice in order, ``a + g / k`` in f32 for a bf16 leaf (cast back
+        once) and in the leaf's dtype otherwise, ``total`` and ``loss``
+        summed as ``x / k`` in f32.  The divisions are by a 0-dim tensor
+        on the device (correctly rounded, as the reference's)."""
+        k = self.tc.microbatch
+        if k <= 1:
+            total, loss = worker_loss(loss_fn, model, batch, sl)
+            return total, loss, torch.autograd.grad(total, leaves)
+        n = sl.stop - sl.start
+        if n % k:
+            # the reference's reshape of the slice into (k, n // k, ...)
+            raise TypeError(f"cannot reshape a worker slice of {n} rows "
+                            f"into {k} microbatches of {n // k}")
+        mb = n // k
+        k_t = torch.tensor(float(k), dtype=torch.float32, device=self.device)
+        tot_a = torch.zeros((), dtype=torch.float32, device=self.device)
+        loss_a = torch.zeros((), dtype=torch.float32, device=self.device)
+        acc = [torch.zeros(l.shape, dtype=(torch.float32
+                                           if l.dtype == torch.bfloat16
+                                           else l.dtype), device=l.device)
+               for l in leaves]
+        for i in range(k):
+            part = slice(sl.start + i * mb, sl.start + (i + 1) * mb)
+            total, loss = worker_loss(loss_fn, model, batch, part)
+            grads = torch.autograd.grad(total, leaves)
+            with torch.no_grad():
+                for a, g in zip(acc, grads):
+                    a.add_(g / k_t)
+            del grads
+            tot_a = tot_a + total.detach().float() / k_t
+            loss_a = loss_a + loss.detach().float() / k_t
+        return tot_a, loss_a, tuple(a.to(l.dtype)
+                                    for a, l in zip(acc, leaves))
 
     def update_fn(self, group):
         """The fused agg+opt for one dtype group, through the rule's CUDA
@@ -380,6 +477,8 @@ class PHubEngine:
         W = self.comm.n_workers
         local = self.comm.local_workers()
         first = self.comm.rank * local       # this process's first worker
+        if self.tc.strategy == FSDP:
+            return self._make_fsdp_step(membership, sanity)
         if sanity is not None:
             require_stacked(self.comm, "the sanity gate")
         if self.tc.overlap_backward:
@@ -394,10 +493,12 @@ class PHubEngine:
             mask_t = torch.from_numpy(mask).to(self.device)
             divisor = self.client.live_divisor(live)
         # chunk-ready dispatch needs the last worker's push to join as it
-        # is: the gate judges the whole backward, and an excluded worker's
-        # row must stay zero
+        # is: the gate judges the whole backward, an excluded worker's row
+        # must stay zero, and k microbatches' gradient is whole only after
+        # the last one
         chunk_ready = (self.tc.overlap_backward and sanity is None
-                       and (mask is None or mask[-1] == 1))
+                       and (mask is None or mask[-1] == 1)
+                       and self.tc.microbatch <= 1)
         gbuf = self.grad_buffers()
 
         def step(model: DecoderLM, opt: dict, batch: dict, health=None):
@@ -410,8 +511,8 @@ class PHubEngine:
             losses = []
             for w in range(local - 1 if chunk_ready else local):
                 sl = slice((first + w) * bw, (first + w + 1) * bw)
-                total, loss = worker_loss(loss_fn, model, batch, sl)
-                grads = torch.autograd.grad(total, leaves)
+                _, loss, grads = self.local_grads(loss_fn, model, batch, sl,
+                                                  leaves)
                 chunking.flatten_leaves(cp, dict(zip(paths, grads)),
                                         out={k: v[w] for k, v in gbuf.items()})
                 del grads
@@ -441,6 +542,83 @@ class PHubEngine:
 
         return dispatched(step)
 
+    def _make_fsdp_step(self, membership, sanity):
+        """The fsdp_stream step (module docstring): every worker's backward
+        into one gradient a leaf, then ``g / N`` and the rule's kernel leaf
+        by leaf.  Refuses the gate and a membership that is not all live
+        with the reference's errors."""
+        if membership is not None and not membership.all_live:
+            raise ValueError(
+                "elastic membership needs a chunk-domain strategy: "
+                "fsdp_stream reduce-scatters gradients inside the backward "
+                "scan, before the push site where the worker mask applies")
+        if sanity is not None:
+            raise ValueError(
+                "gradient sanity masking needs a chunk-domain strategy: "
+                "fsdp_stream reduce-scatters gradients inside the backward "
+                "scan, before the push site where the health gate applies")
+        W, tc = self.comm.n_workers, self.tc
+        loss_fn = self.build_loss_fn()
+        names = self.sopt.slot_names
+        coefs = self.sopt.coefs(tc)
+        updates = {}                    # by dtype: the rule's kernel
+        n_t = torch.tensor(float(W), dtype=torch.float32, device=self.device)
+
+        def update(leaf_dtype):
+            if leaf_dtype not in updates:
+                ce = tc.chunk_size_bytes // torch.empty(
+                    (), dtype=leaf_dtype).element_size()
+                updates[leaf_dtype] = self.sopt.kernel_update(ce, coefs)
+            return updates[leaf_dtype]
+
+        def step(model: DecoderLM, opt: dict, batch: dict):
+            B = batch["tokens"].shape[0]
+            if B % W:
+                raise ValueError(f"global batch {B} does not split over "
+                                 f"{W} workers")
+            bw = B // W
+            paths, leaves = zip(*chunking.leaf_paths(model.param_tree()))
+            for leaf in leaves:
+                leaf.grad = None
+            losses, acc = [], None
+            for w in range(W):
+                sl = slice(w * bw, (w + 1) * bw)
+                if tc.microbatch <= 1:
+                    # the backward adds into .grad in worker order
+                    total, loss = worker_loss(loss_fn, model, batch, sl)
+                    total.backward()
+                else:
+                    _, loss, grads = self.local_grads(loss_fn, model, batch,
+                                                      sl, leaves)
+                    with torch.no_grad():
+                        if acc is None:
+                            acc = list(grads)
+                        else:
+                            for a, g in zip(acc, grads):
+                                a.add_(g)
+                    del grads
+                losses.append(loss.detach())
+            if acc is None:
+                acc = [leaf.grad for leaf in leaves]
+            metrics = {"loss": torch.stack(losses).mean()}
+            slot_leaves = [dict(chunking.leaf_paths(opt[n])) for n in names]
+            with torch.no_grad():
+                for i, (path, leaf) in enumerate(zip(paths, leaves)):
+                    g = acc[i].div_(n_t)
+                    acc[i] = None
+                    leaf.grad = None
+                    p = leaf.detach()
+                    p2 = torch.empty_like(p)
+                    update(p.dtype)(p.view(-1), g.view(-1),
+                                    tuple(s[path].view(-1)
+                                          for s in slot_leaves),
+                                    p_out=p2.view(-1))
+                    del g
+                    leaf.data = p2
+            return model, opt, metrics
+
+        return dispatched(step)
+
     def make_zero_compute_step(self, membership=None):
         """ZeroComputeEngine (§4.4): the exchange of a train step with the
         forward and backward replaced by a synthetic push, the reference's
@@ -453,7 +631,7 @@ class PHubEngine:
         excluded workers' rows are zeroed, the mean divided by the live
         count.  Flat residency raises, as in the reference (its step
         covers the tree-state chunk strategies)."""
-        if self.tc.flat_residency:
+        if self.tc.strategy == FSDP or self.tc.flat_residency:
             raise ValueError("zero-compute step covers the tree-state chunk "
                              "strategies")
         local = self.comm.local_workers()
@@ -692,9 +870,9 @@ def make_co_train_step(tenants: dict, domain, membership=None, *,
             losses = []
             for w in range(local):
                 sl = slice((first + w) * bw, (first + w + 1) * bw)
-                total, loss = worker_loss(loss_fns[ns], model, batches[ns],
-                                          sl)
-                grads = dict(zip(paths, torch.autograd.grad(total, leaves)))
+                _, loss, grads = tenants[ns].local_grads(
+                    loss_fns[ns], model, batches[ns], sl, leaves)
+                grads = dict(zip(paths, grads))
                 with torch.no_grad():
                     for key, (pcs, _) in pieces[ns].items():
                         _write_pieces(pcs, grads, buf[key][w])

@@ -52,7 +52,10 @@ The identity wire's path at one window is here
 (``core/pipeline.py::run_exchange`` dispatches here or to the windowed
 exchange); an encoded wire takes ``core/pipeline.py::run_wire_exchange``
 and an encoded DCN tier ``core/pipeline.py::run_dcn_exchange``.
-fsdp_stream is ROADMAP.md queue A item 5b.
+fsdp_stream has no chunk domain: its step reduces each leaf's gradient
+inside the workers' backwards and runs the rule leaf by leaf
+(``core/engine.py``), on the stacked Comm only (over a process group it is
+ROADMAP.md queue A item 4b).
 """
 from __future__ import annotations
 
@@ -66,8 +69,6 @@ from .pipeline import (PIPELINED_STRATEGIES, check_stacked, mean_divisor,
 
 STRATEGIES = ("allreduce", "sharded_ps", "centralized_ps", "hierarchical",
               "fsdp_stream")
-PORTED_STRATEGIES = ("allreduce", "sharded_ps", "centralized_ps",
-                     "hierarchical")
 
 # update_fn(p, g, slots, divisor=None, p_out=None, at=0) -> (p', slots'):
 # the protocol's fused rule, taking g pre-aggregated or stacked (W, n), the
@@ -79,14 +80,10 @@ UpdateFn = Callable[..., tuple[torch.Tensor, tuple]]
 
 
 def check_strategy(strategy: str) -> None:
-    """Raise unless ``strategy`` is one the port runs."""
+    """Raise unless ``strategy`` is one the port runs (all five)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown exchange strategy {strategy!r}; "
                          f"expected one of {STRATEGIES}")
-    if strategy not in PORTED_STRATEGIES:
-        raise NotImplementedError(
-            f"strategy {strategy!r} is not ported yet (ROADMAP.md queue A "
-            f"item 5b)")
 
 
 def check_wire(strategy: str, wire, wire_dcn=None) -> None:

@@ -279,6 +279,8 @@ def check_resizable(old_eng, new_eng) -> None:
             f"({old_eng.tc.exchange_signature()} -> "
             f"{new_eng.tc.exchange_signature()}); a resize migrates state "
             f"across rack sizes, not across exchange configurations")
+    if old_eng.chunk_plan is None:
+        return                  # fsdp_stream: the leaves are the state
     old_groups = {g.key: g for g in old_eng.chunk_plan.groups}
     for g in new_eng.chunk_plan.groups:
         for spec in new_eng.exchange_slots:
@@ -306,8 +308,14 @@ def migrate_engine_state(old_eng, new_eng, model, opt: dict):
     allocated: the peak is the state plus one slot, not twice the state.
     Under flat residency the store moves too and the model's parameters
     are re-pointed at the new one; otherwise the parameter tree stays
-    where it is.  Returns (model, opt)."""
+    where it is.  An fsdp_stream service's state is its leaves, the same
+    at every rack size: it comes back as it is.  Returns (model, opt)."""
     check_resizable(old_eng, new_eng)
+    if old_eng.chunk_plan is None:
+        # fsdp_stream: the parameters and {slot: tree} are whole leaves on
+        # the card at any rack size (the reference re-lays the same
+        # leaves out over its new mesh), so nothing moves
+        return model, opt
     plan = plan_rebalance(old_eng.chunk_plan, new_eng.chunk_plan)
     if old_eng.tc.flat_residency:
         store = model.flat_store

@@ -31,8 +31,14 @@
 // and for dequant_agg_opt_chunks, with the int8 ring partial q, its chunk's
 // f32 scale s and the owner's own gradient row g_own,
 //   g = (q * s + g_own) * inv_n   (or / d, d = *divisor),
-// then the Nesterov update;
-// then every result is stored in its input's dtype (f32 or bf16, RNE; Adam's
+// then the Nesterov update.  Under weight decay (wd != 0, Nesterov, Adam and
+// the int8 tail; the reference's ShardedOptimizer._decayed) the rule takes
+//   g = g + wd * p     (p in f32; the product, then the sum, each rounded)
+// in place of g, after the mean (or the decode, the owner's add and the
+// scale) and before the rule, Adam's alive test included.  At wd == 0 the
+// term is skipped, not added as 0 * p (0 * inf is NaN), so the kernels keep
+// the bits they had without it.  p is read already, so decay adds no bytes.
+// Then every result is stored in its input's dtype (f32 or bf16, RNE; Adam's
 // k1/k2 are always f32).  The gradient g of the three rules has the dtype
 // of p, or is f32 in a bf16 group: the decoded int8 wire partial, which the
 // int8 wire hands SGD and Adam as a mean in f32 (core/pipeline.py).  Every
@@ -193,6 +199,14 @@ __device__ __forceinline__ void worker_mean4(const G* __restrict__ g,
   for (int k = 0; k < 4; ++k) acc[k] = __fdiv_rn(acc[k], d);
 }
 
+// g = g + wd * p for 4 elements, or g as it is at wd == 0.
+__device__ __forceinline__ void decay4(float gg[4], const float pv[4],
+                                       float wd) {
+  if (wd == 0.0f) return;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) gg[k] = __fadd_rn(gg[k], __fmul_rn(wd, pv[k]));
+}
+
 // m2 = mu * m + g; p2 = p - lr * (g + mu * m2), for 4 elements in place.
 __device__ __forceinline__ void nesterov4(float pv[4], float mv[4],
                                           const float gg[4], float lr,
@@ -214,7 +228,7 @@ agg_opt_kernel(const T* __restrict__ p, const G* __restrict__ g,
                const T* m, T* __restrict__ p_out, T* m_out, int64_t n,
                int64_t row_stride, int n_workers,
                const float* __restrict__ divisor, int chunk_elems, float lr,
-               float mu) {
+               float mu, float wd) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
   const int valid = chunk_valid(base, n, chunk_elems);
   const float d = mean_divisor(divisor, n_workers);
@@ -225,6 +239,7 @@ agg_opt_kernel(const T* __restrict__ p, const G* __restrict__ g,
     worker_mean4(g, off, row_stride, n_workers, d, gg, cnt);
     load4(m + off, mv, cnt);
     load4(p + off, pv, cnt);
+    decay4(gg, pv, wd);
     nesterov4(pv, mv, gg, lr, mu);
     store4(p_out + off, pv, cnt);
     store4(m_out + off, mv, cnt);
@@ -263,7 +278,8 @@ adam_opt_kernel(const T* __restrict__ p, const G* __restrict__ g,
                 float* __restrict__ k2, T* __restrict__ p_out, int64_t n,
                 int64_t row_stride, int n_workers,
                 const float* __restrict__ divisor, int chunk_elems, float lr,
-                float b1, float c1, float b2, float c2, float eps) {
+                float b1, float c1, float b2, float c2, float eps,
+                float wd) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
   const int valid = chunk_valid(base, n, chunk_elems);
   const float d = mean_divisor(divisor, n_workers);
@@ -277,6 +293,7 @@ adam_opt_kernel(const T* __restrict__ p, const G* __restrict__ g,
     load4(k1 + off, k1v, cnt);
     load4(k2 + off, k2v, cnt);
     load4(p + off, pv, cnt);
+    decay4(gg, pv, wd);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const bool alive = (gg[k] != 0.0f) || (k1v[k] != 0.0f);
@@ -325,7 +342,7 @@ dequant_agg_opt_kernel(const T* __restrict__ p, const int8_t* __restrict__ q,
                        T* __restrict__ p_out, T* m_out, int64_t row_len,
                        int64_t pm_stride, int64_t own_stride,
                        int chunk_elems, float lr, float mu, float inv_n,
-                       const float* __restrict__ divisor) {
+                       const float* __restrict__ divisor, float wd) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * chunk_elems;
   const int64_t row = base / row_len;
   const int64_t col = base - row * row_len;
@@ -347,6 +364,7 @@ dequant_agg_opt_kernel(const T* __restrict__ p, const int8_t* __restrict__ q,
     }
     load4(m + at + i, mv);
     load4(p + at + i, pv);
+    decay4(gg, pv, wd);
     nesterov4(pv, mv, gg, lr, mu);
     store4(p_out + at + i, pv);
     store4(m_out + at + i, mv);
@@ -409,7 +427,7 @@ unsigned n_blocks(long long n, int chunk_elems) {
 int dispatch(const void* p, const void* g, const void* m, void* p_out,
              void* m_out, long long n, int chunk_elems, int n_workers,
              long long g_row_stride, int dtype, float lr, float mu,
-             const void* divisor, void* stream) {
+             float wd, const void* divisor, void* stream) {
   return with_dtypes(dtype, [&](auto tt, auto tg) {
     using T = typename decltype(tt)::type;
     using G = typename decltype(tg)::type;
@@ -418,7 +436,7 @@ int dispatch(const void* p, const void* g, const void* m, void* p_out,
         static_cast<const T*>(p), static_cast<const G*>(g),
         static_cast<const T*>(m), static_cast<T*>(p_out),
         static_cast<T*>(m_out), n, g_row_stride, n_workers,
-        static_cast<const float*>(divisor), chunk_elems, lr, mu);
+        static_cast<const float*>(divisor), chunk_elems, lr, mu, wd);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -426,13 +444,14 @@ int dispatch(const void* p, const void* g, const void* m, void* p_out,
 }  // namespace
 
 // n: elements of p (and of each row of g); the wrapper has checked the
-// rest.  m_out may be m.
+// rest.  m_out may be m.  wd: the weight decay, 0 for none (here and in
+// multi_agg_opt_chunks, adam_opt_chunks and dequant_agg_opt_chunks).
 extern "C" int agg_opt_chunks(const void* p, const void* g, const void* m,
                               void* p_out, void* m_out, long long n,
                               int chunk_elems, int dtype, float lr, float mu,
-                              void* stream) {
+                              float wd, void* stream) {
   return dispatch(p, g, m, p_out, m_out, n, chunk_elems, 1, n, dtype, lr, mu,
-                  nullptr, stream);
+                  wd, nullptr, stream);
 }
 
 // g_row_stride: elements from one worker's row of g to the next, here and
@@ -442,10 +461,10 @@ extern "C" int multi_agg_opt_chunks(const void* p, const void* g,
                                     const void* m, void* p_out, void* m_out,
                                     long long n, int chunk_elems,
                                     int n_workers, long long g_row_stride,
-                                    int dtype, float lr, float mu,
+                                    int dtype, float lr, float mu, float wd,
                                     const void* divisor, void* stream) {
   return dispatch(p, g, m, p_out, m_out, n, chunk_elems, n_workers,
-                  g_row_stride, dtype, lr, mu, divisor, stream);
+                  g_row_stride, dtype, lr, mu, wd, divisor, stream);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 for p, g (and Adam's m, v), 2 = a
@@ -472,7 +491,8 @@ extern "C" int adam_opt_chunks(const void* p, const void* g, void* m, void* v,
                                int chunk_elems, int n_workers,
                                long long g_row_stride, int dtype, float lr,
                                float b1, float c1, float b2, float c2,
-                               float eps, const void* divisor, void* stream) {
+                               float eps, float wd, const void* divisor,
+                               void* stream) {
   return with_dtypes(dtype, [&](auto tt, auto tg) {
     using T = typename decltype(tt)::type;
     using G = typename decltype(tg)::type;
@@ -482,7 +502,7 @@ extern "C" int adam_opt_chunks(const void* p, const void* g, void* m, void* v,
         static_cast<T*>(m), static_cast<T*>(v), static_cast<float*>(k1),
         static_cast<float*>(k2), static_cast<T*>(p_out), n, g_row_stride,
         n_workers, static_cast<const float*>(divisor), chunk_elems, lr, b1,
-        c1, b2, c2, eps);
+        c1, b2, c2, eps, wd);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -498,7 +518,8 @@ extern "C" int dequant_agg_opt_chunks(const void* p, const void* q,
                                       long long pm_stride,
                                       long long own_stride, int dtype,
                                       float lr, float mu, float inv_n,
-                                      const void* divisor, void* stream) {
+                                      float wd, const void* divisor,
+                                      void* stream) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return with_dtypes(dtype, [&](auto tt, auto) {
     using T = typename decltype(tt)::type;
@@ -508,7 +529,7 @@ extern "C" int dequant_agg_opt_chunks(const void* p, const void* q,
         static_cast<const float*>(scales), static_cast<const T*>(g_own),
         static_cast<const T*>(m), static_cast<T*>(p_out),
         static_cast<T*>(m_out), row_len, pm_stride, own_stride, chunk_elems,
-        lr, mu, inv_n, static_cast<const float*>(divisor));
+        lr, mu, inv_n, static_cast<const float*>(divisor), wd);
     return static_cast<int>(cudaGetLastError());
   });
 }

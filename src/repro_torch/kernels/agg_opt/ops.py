@@ -27,6 +27,10 @@ window's strip of every shard, p's runs and the owners' rows read in
 place; the health kernel takes whole chunks (a zero-padded copy
 otherwise).
 
+The Nesterov, Adam and int8-tail wrappers take ``weight_decay`` (``g +
+wd * p`` before the rule, ``ref.decayed``; 0, the default, leaves the term
+out), rounded to f32 on the host as ``lr`` and ``momentum`` are.
+
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
 the kernel, and a library that cannot be built or loaded raises.
 ``LAUNCHES`` counts the kernel launches of each entry point (plain-version
@@ -68,16 +72,18 @@ def _lib() -> ctypes.CDLL:
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         i64 = ctypes.c_longlong
         for name, args in (
-                ("agg_opt_chunks", [vp] * 5 + [i64, i32, i32, f32, f32, vp]),
+                ("agg_opt_chunks",
+                 [vp] * 5 + [i64, i32, i32, f32, f32, f32, vp]),
                 ("multi_agg_opt_chunks",
-                 [vp] * 5 + [i64, i32, i32, i64, i32, f32, f32, vp, vp]),
+                 [vp] * 5 + [i64, i32, i32, i64, i32, f32, f32, f32, vp,
+                             vp]),
                 ("sgd_opt_chunks",
                  [vp] * 3 + [i64, i32, i32, i64, i32, f32, vp, vp]),
                 ("adam_opt_chunks",
-                 [vp] * 7 + [i64, i32, i32, i64, i32] + [f32] * 6
+                 [vp] * 7 + [i64, i32, i32, i64, i32] + [f32] * 7
                  + [vp, vp]),
                 ("dequant_agg_opt_chunks",
-                 [vp] * 7 + [i64, i32, i64, i64, i64, i32] + [f32] * 3
+                 [vp] * 7 + [i64, i32, i64, i64, i64, i32] + [f32] * 4
                  + [vp, vp]),
                 ("health_chunks", [vp] * 2 + [i64, i32, i32, vp])):
             fn = getattr(lib, name)
@@ -205,7 +211,7 @@ def _call(name: str, device, *args) -> None:
 
 
 def _nesterov(name: str, p, g, m, lr: float, momentum: float,
-              chunk_elems: int, divisor_ptr, p_out):
+              weight_decay: float, chunk_elems: int, divisor_ptr, p_out):
     """Launch a Nesterov kernel; with ``p_out`` m is updated in place."""
     for t in (p, m):
         _check_aligned(t)
@@ -218,7 +224,7 @@ def _nesterov(name: str, p, g, m, lr: float, momentum: float,
             m2.data_ptr(), p.numel(), _lane(chunk_elems)]
     if name == "multi_agg_opt_chunks":
         args += [g.shape[0], stride]
-    args += [_DTYPE_CODE[p.dtype, g.dtype], lr, momentum]
+    args += [_DTYPE_CODE[p.dtype, g.dtype], lr, momentum, weight_decay]
     if name == "multi_agg_opt_chunks":
         args.append(divisor_ptr)
     _call(name, p.device, *args)
@@ -238,7 +244,8 @@ def _plain_nesterov(ref, p_out, m, *args, **kw):
 
 def fused_agg_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
                   lr: float, momentum: float, chunk_elems: int = 8192,
-                  p_out: torch.Tensor | None = None):
+                  p_out: torch.Tensor | None = None,
+                  weight_decay: float = 0.0):
     """Flat fused Nesterov update. p/g/m: (n,). Returns (p', m'); with
     ``p_out``, p' is written there and m updated in place."""
     if _check(p, g, (m,), p_out=p_out):
@@ -246,15 +253,16 @@ def fused_agg_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
                          "workers go to fused_multi_agg_opt")
     if p.device.type == "cpu":
         return _plain_nesterov(agg_opt_ref, p_out, m, p, g, m, lr=lr,
-                               momentum=momentum)
-    return _nesterov("agg_opt_chunks", p, g, m, lr, momentum, chunk_elems,
-                     None, p_out)
+                               momentum=momentum, weight_decay=weight_decay)
+    return _nesterov("agg_opt_chunks", p, g, m, lr, momentum, weight_decay,
+                     chunk_elems, None, p_out)
 
 
 def fused_multi_agg_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
                         lr: float, momentum: float, chunk_elems: int = 8192,
                         divisor: torch.Tensor | None = None,
-                        p_out: torch.Tensor | None = None):
+                        p_out: torch.Tensor | None = None,
+                        weight_decay: float = 0.0):
     """Tall aggregation: g is (W, n) worker gradients, its rows
     ``g.stride(0)`` apart; the worker mean (over W, or ``divisor``) and the
     Nesterov update run in one pass per chunk.  Returns (p', m'); with
@@ -264,9 +272,10 @@ def fused_multi_agg_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
     dptr = _divisor_ptr(divisor, p, True)
     if p.device.type == "cpu":
         return _plain_nesterov(multi_agg_opt_ref, p_out, m, p, g, m, lr=lr,
-                               momentum=momentum, divisor=divisor)
+                               momentum=momentum, divisor=divisor,
+                               weight_decay=weight_decay)
     return _nesterov("multi_agg_opt_chunks", p, g, m, lr, momentum,
-                     chunk_elems, dptr, p_out)
+                     weight_decay, chunk_elems, dptr, p_out)
 
 
 def fused_sgd_opt(p: torch.Tensor, g: torch.Tensor, *, lr: float,
@@ -296,7 +305,8 @@ def fused_adam_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                    lr: float, b1: float = 0.9, b2: float = 0.999,
                    eps: float = 1e-8, chunk_elems: int = 8192,
                    divisor: torch.Tensor | None = None,
-                   p_out: torch.Tensor | None = None):
+                   p_out: torch.Tensor | None = None,
+                   weight_decay: float = 0.0):
     """Flat fused Adam update with per-position bias-correction state
     k1/k2 (f32); g is (n,) or stacked (W, n) (rows ``g.stride(0)``
     apart), averaged over the workers (divided by W, or ``divisor``) in
@@ -307,7 +317,7 @@ def fused_adam_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     slots = (m, v, k1, k2)
     if p.device.type == "cpu":
         new = adam_opt_ref(p, g, m, v, k1, k2, lr=lr, b1=b1, b2=b2, eps=eps,
-                           divisor=divisor)
+                           divisor=divisor, weight_decay=weight_decay)
         for s, s2 in zip(slots, new[1:]):
             s.copy_(s2)
         return (new[0] if p_out is None else p_out.copy_(new[0]), *slots)
@@ -319,7 +329,7 @@ def fused_adam_opt(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
           *(s.data_ptr() for s in slots), p2.data_ptr(), p.numel(),
           _lane(chunk_elems), g.shape[0] if stacked else 1, stride,
           _DTYPE_CODE[p.dtype, g.dtype], lr, b1, 1 - b1, b2, 1 - b2, eps,
-          dptr)
+          weight_decay, dptr)
     return (p2, *slots)
 
 
@@ -365,7 +375,8 @@ def fused_dequant_agg_opt(p: torch.Tensor, q: torch.Tensor,
                           m: torch.Tensor, *, lr: float, momentum: float,
                           inv_n: float, chunk_elems: int = 8192,
                           divisor: torch.Tensor | None = None,
-                          p_out: torch.Tensor | None = None):
+                          p_out: torch.Tensor | None = None,
+                          weight_decay: float = 0.0):
     """Fused int8-wire dequant + mean + Nesterov: ``g = (q * s + g_own) *
     inv_n`` per chunk of ``chunk_elems`` (the wire's chunk, one scale
     each), or ``/ divisor`` (a one-element f32 tensor on p's device, the
@@ -418,7 +429,8 @@ def fused_dequant_agg_opt(p: torch.Tensor, q: torch.Tensor,
     if p.device.type == "cpu":
         p2, m2 = dequant_agg_opt_ref(pr, q, scales, own, mr, lr=lr,
                                      momentum=momentum, inv_n=inv_n,
-                                     chunk_elems=ce, divisor=divisor)
+                                     chunk_elems=ce, divisor=divisor,
+                                     weight_decay=weight_decay)
         if por is None:
             return p2.view(p.shape), m2.view(m.shape)
         por.copy_(p2)
@@ -440,7 +452,8 @@ def fused_dequant_agg_opt(p: torch.Tensor, q: torch.Tensor,
     _call("dequant_agg_opt_chunks", p.device, pr.data_ptr(), q.data_ptr(),
           scales.data_ptr(), own.data_ptr(), mr.data_ptr(), por.data_ptr(),
           m_out.data_ptr(), n // ce, ce, Lr, pr.stride(0), own.stride(0),
-          _DTYPE_CODE[p.dtype, p.dtype], lr, momentum, inv_n, dptr)
+          _DTYPE_CODE[p.dtype, p.dtype], lr, momentum, inv_n, weight_decay,
+          dptr)
     if p_out is not None:
         return p_out, m
     return por.view(p.shape), m_out.view(m.shape)

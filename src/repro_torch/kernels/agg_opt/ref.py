@@ -23,6 +23,12 @@ the same values give the same bits whatever the stride.
 contiguous, as the block diagonal of the stacked buffer
 (``block_diagonal``) or as a window's runs, and a divisor too.  They are
 functional: the slots they are given are not written.
+Nesterov, Adam and the int8 tail take ``weight_decay`` (the reference's
+``ShardedOptimizer._decayed``): ``g + wd * p`` on the f32 gradient, after
+the worker mean (or the decode, the owner's add and the scale) and before
+the rule, as two rounded operations, the product and then the sum; at 0 the
+term is left out (``0 * inf`` would be NaN), so the rules keep the bits
+they had without it.
 ``health_chunks_ref`` is the health kernel's sum of squares per chunk,
 added in the kernel's order step by step; ``health_scan_ref`` the
 reference's oracle, one ``torch.sum``.
@@ -59,25 +65,36 @@ def _grad32(p: torch.Tensor, g: torch.Tensor,
     return worker_mean(g, divisor) if g.dim() == p.dim() + 1 else g.float()
 
 
-def _nesterov(p, g32, m, lr, momentum):
+def decayed(g32: torch.Tensor, p: torch.Tensor,
+            weight_decay: float) -> torch.Tensor:
+    """``g32 + wd * p`` in f32 (p cast up), or ``g32`` itself at 0."""
+    if not weight_decay:
+        return g32
+    return g32 + weight_decay * p.float()
+
+
+def _nesterov(p, g32, m, lr, momentum, weight_decay=0.0):
+    g32 = decayed(g32, p, weight_decay)
     m2 = momentum * m.float() + g32
     p2 = p.float() - lr * (g32 + momentum * m2)
     return p2.to(p.dtype), m2.to(m.dtype)
 
 
 def agg_opt_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
-                lr: float, momentum: float):
+                lr: float, momentum: float, weight_decay: float = 0.0):
     """Nesterov update of p/m by the pre-aggregated gradient g (same
     shape).  Returns (p', m')."""
-    return _nesterov(p, g.float(), m, lr, momentum)
+    return _nesterov(p, g.float(), m, lr, momentum, weight_decay)
 
 
 def multi_agg_opt_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
                       lr: float, momentum: float,
-                      divisor: torch.Tensor | None = None):
+                      divisor: torch.Tensor | None = None,
+                      weight_decay: float = 0.0):
     """Tall aggregation: g is (W, *p.shape) worker gradients, averaged over
     dim 0, then the same update.  Returns (p', m')."""
-    return _nesterov(p, worker_mean(g, divisor), m, lr, momentum)
+    return _nesterov(p, worker_mean(g, divisor), m, lr, momentum,
+                     weight_decay)
 
 
 def sgd_opt_ref(p: torch.Tensor, g: torch.Tensor, *, lr: float,
@@ -89,13 +106,15 @@ def sgd_opt_ref(p: torch.Tensor, g: torch.Tensor, *, lr: float,
 def adam_opt_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                  v: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor, *,
                  lr: float, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, divisor: torch.Tensor | None = None):
+                 eps: float = 1e-8, divisor: torch.Tensor | None = None,
+                 weight_decay: float = 0.0):
     """``adam_opt_chunks``' body: the textbook EMAs ``b*m + (1-b)*g``, the
     k1/k2 bias-correction tick gated to positions that have seen gradient
     (``alive``, taken on the aggregated g), the epsilon-hat step
     ``((lr*(1/k1'))*sqrt(k2')*m') / (sqrt(v') + eps*sqrt(k2'))`` and its
-    mask to +0 where ``k1' == 0``.  Returns (p', m', v', k1', k2')."""
-    g32 = _grad32(p, g, divisor)
+    mask to +0 where ``k1' == 0``; ``weight_decay`` enters before all of
+    them, ``alive`` included.  Returns (p', m', v', k1', k2')."""
+    g32 = decayed(_grad32(p, g, divisor), p, weight_decay)
     c1, c2 = 1 - b1, 1 - b2
     m32, v32, k1f, k2f = m.float(), v.float(), k1.float(), k2.float()
     alive = (g32 != 0) | (k1f != 0)
@@ -138,7 +157,8 @@ def dequant_agg_opt_ref(p: torch.Tensor, q: torch.Tensor,
                         scales: torch.Tensor, g_own: torch.Tensor,
                         m: torch.Tensor, *, lr: float, momentum: float,
                         inv_n: float, chunk_elems: int,
-                        divisor: torch.Tensor | None = None):
+                        divisor: torch.Tensor | None = None,
+                        weight_decay: float = 0.0):
     """``dequant_agg_opt_chunks``' body: ``g = (q * s + g_own) * inv_n``
     with ``s`` the chunk's scale (or ``/ divisor``, a one-element f32
     tensor: the sanity gate's live count), then the Nesterov update.  p
@@ -155,7 +175,8 @@ def dequant_agg_opt_ref(p: torch.Tensor, q: torch.Tensor,
            * scales.float()[:, None]).reshape(-1)
     g = deq + own.float()
     g = g / divisor if divisor is not None else g * inv_n
-    p2, m2 = _nesterov(p.reshape(-1), g, m.reshape(-1), lr, momentum)
+    p2, m2 = _nesterov(p.reshape(-1), g, m.reshape(-1), lr, momentum,
+                       weight_decay)
     return p2.view(p.shape), m2.view(m.shape)
 
 

@@ -1,7 +1,7 @@
 """Training launcher for the PyTorch port.
 
 Runs PHub's train step (``--strategy`` sharded_ps, hierarchical,
-allreduce or centralized_ps) with W workers stacked on one device
+allreduce, centralized_ps or fsdp_stream) with W workers stacked on one device
 (``--workers W``), or one worker in each of N processes over
 ``torch.distributed`` (``--nproc N --backend gloo|nccl``, the counterpart
 of the reference's ``--devices``; ``launch/dist.py``).  ``--pods P`` lays
@@ -25,6 +25,7 @@ Usage:
   ... --chaos --workers 4           # seeded kill/slow/rejoin membership
   ... --workers 4 --windows 5 --overlap   # windowed exchange, chunk-ready
   ... --nproc 2 --backend gloo      # one worker a process (gloo)
+  ... --workers 4 --strategy fsdp_stream   # one gradient a leaf, no rows
   ... --workers 4 --pods 2 --strategy hierarchical --wire-format-dcn int8
                                     # PHub's rack deployment, int8 DCN tier
   ... --tenants 2 --workers 2       # N jobs co-scheduled on one packed
@@ -49,8 +50,11 @@ the measured exchange as one row.  The training run's own state and
 losses are the same with the flags on or off, and the launcher restores
 the null telemetry pair before it returns.
 
-Values the port does not implement (fsdp_stream, another architecture, a
-batch that does not split over the workers) raise.
+Values the port does not implement (fsdp_stream over ``--nproc``: ROADMAP.md
+queue A item 4b; another architecture, a batch that does not split over
+the workers) raise.  Under fsdp_stream ``--telemetry`` keeps no
+zero-compute probe (the strategy has no chunk domain), as the reference's
+launcher.
 """
 from __future__ import annotations
 
@@ -116,7 +120,7 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--strategy", default="sharded_ps",
                     help="sharded_ps | hierarchical | allreduce | "
-                         "centralized_ps")
+                         "centralized_ps | fsdp_stream")
     ap.add_argument("--chunk-kb", type=int, default=32)
     ap.add_argument("--windows", type=int, default=1,
                     help="pipeline windows per dtype group")
@@ -187,6 +191,11 @@ def main(argv=None):
     args.argv = list(argv) if argv is not None else None
     check_tenants(args)
     if args.nproc > 1 or args.backend is not None:
+        if args.strategy == "fsdp_stream":
+            raise NotImplementedError(
+                f"the fsdp_stream strategy over a process group ("
+                f"{args.backend or 'gloo'}, {args.nproc} ranks) is not "
+                f"ported yet (ROADMAP.md queue A item 4b)")
         if args.telemetry:
             raise SystemExit("--telemetry traces this process: run it with "
                              "stacked workers (--workers), not --nproc")
@@ -239,8 +248,9 @@ def _train(comm, device, args):
     engine = PHubEngine(cfg, tc, comm, device=device)
     params, opt = engine.init_state()
     data = SyntheticTokens(cfg, args.batch, args.seq, seed=tc.seed)
-    windows = [effective_windows(g, tc.pipeline_windows)
-               for g in engine.chunk_plan.groups]
+    windows = ([effective_windows(g, tc.pipeline_windows)
+                for g in engine.chunk_plan.groups]
+               if engine.chunk_plan is not None else [])
     procs = ("" if isinstance(comm, StackedComm) else
              f" ({comm.n_workers} processes, {comm.backend})")
     say(f"[train] arch={cfg.arch_id} params={cfg.n_params() / 1e6:.1f}M "
@@ -328,9 +338,12 @@ def _run_probes(engine, model, opt, data, args, reps: int = 3) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.clone()
+                for k, v in tree.items()}
+
     def copies():
-        return copy.deepcopy(model), {k: {n: t.clone() for n, t in d.items()}
-                                      for k, d in opt.items()}
+        return copy.deepcopy(model), clone(opt)
 
     calib = None
     if args.calibrate:
@@ -357,7 +370,7 @@ def _run_probes(engine, model, opt, data, args, reps: int = 3) -> dict:
     try:
         zstep = engine.make_zero_compute_step()
     except ValueError:
-        zstep = None                 # flat residency: no zero-compute step
+        zstep = None                 # flat residency or fsdp_stream: none
     if zstep is not None:
         m, o = copies()
         m, o = zstep(m, o)
@@ -376,7 +389,7 @@ def _run_probes(engine, model, opt, data, args, reps: int = 3) -> dict:
         # against the ring, the codec's share), this fixes the level the
         # engine's exchange reaches
         pred0 = telemetry.predicted_phases(engine, topo)
-        if exchange_s and pred0["comm_s"] > 0:
+        if exchange_s and pred0 and pred0["comm_s"] > 0:
             s = exchange_s / pred0["comm_s"]
             topo = dataclasses.replace(
                 topo, bw_ici=topo.ici_bandwidth / s,

@@ -50,8 +50,13 @@ where a strip starts in the packed group (``at=``); the solo rules ignore
 that.  At every position it computes what the tenant's solo step computes
 there, so a co-scheduled tenant equals its solo run bitwise.
 
-Weight decay is not ported: none of the kernels has a ``+wd*p`` term, and a
-rule without its kernel would leave the card's one route through them.
+Weight decay is the reference's: a frozen field of the rule
+(``weight_decay``), so two tenants that differ only in it are two rules,
+and ``_decayed`` adds ``wd * p`` to the gradient before Nesterov's and
+Adam's update (SGD's has no such term, as in the reference).  The kernels
+take it as one more coefficient (``kernels/agg_opt``): B1, B2, B4 and the
+int8 tail B7 add the term after the mean, so a decayed update still runs in
+the rule's CUDA kernel on the card.
 """
 from __future__ import annotations
 
@@ -86,7 +91,11 @@ class SlotSpec:
 @dataclass(frozen=True)
 class ShardedOptimizer:
     """Base protocol.  Subclasses define ``name``, ``slots``,
-    ``coef_names``, ``update`` and ``kernel_update``."""
+    ``coef_names``, ``update`` and ``kernel_update``; frozen-dataclass
+    equality is the rule's identity (a static field such as
+    ``weight_decay`` that differs makes another rule)."""
+    weight_decay: float = 0.0
+
     name: ClassVar[str] = "base"
     slots: ClassVar[tuple[SlotSpec, ...]] = ()
     coef_names: ClassVar[tuple[str, ...]] = ()
@@ -120,6 +129,13 @@ class ShardedOptimizer:
         rule has no such kernel."""
         return None
 
+    def _decayed(self, p, g):
+        """``g + wd * p`` (p cast to g's dtype, wd in it as JAX's weakly
+        typed scalar), or ``g`` at no decay."""
+        if self.weight_decay:
+            return g + _const(self.weight_decay, g) * p.to(g.dtype)
+        return g
+
 
 @dataclass(frozen=True)
 class NesterovOptimizer(ShardedOptimizer):
@@ -131,7 +147,7 @@ class NesterovOptimizer(ShardedOptimizer):
     def update(self, p, g, slots, coefs):
         (m,) = slots
         lr, mu = coefs
-        g32 = g.to(m.dtype)
+        g32 = self._decayed(p, g.to(m.dtype))
         m2 = mu * m + g32
         p2 = p - (lr * (g32 + mu * m2)).to(p.dtype)
         return p2, (m2,)
@@ -139,17 +155,20 @@ class NesterovOptimizer(ShardedOptimizer):
     def kernel_update(self, chunk_elems, coefs):
         from ..kernels.agg_opt.ops import fused_agg_opt, fused_multi_agg_opt
         lr, mu = coefs
+        wd = self.weight_decay
 
         def upd(p, g, slots, divisor=None, p_out=None, at=None):
             if g.dim() == p.dim() + 1:
                 p2, m2 = fused_multi_agg_opt(
                     p, g, slots[0], lr=lr, momentum=mu,
-                    chunk_elems=chunk_elems, divisor=divisor, p_out=p_out)
+                    chunk_elems=chunk_elems, divisor=divisor, p_out=p_out,
+                    weight_decay=wd)
             elif divisor is not None:
                 raise ValueError("a divisor needs stacked worker gradients")
             else:
                 p2, m2 = fused_agg_opt(p, g, slots[0], lr=lr, momentum=mu,
-                                       chunk_elems=chunk_elems, p_out=p_out)
+                                       chunk_elems=chunk_elems, p_out=p_out,
+                                       weight_decay=wd)
             return p2, (m2,)
         return upd
 
@@ -163,14 +182,16 @@ class NesterovOptimizer(ShardedOptimizer):
             p2, m2 = fused_dequant_agg_opt(
                 p, q, scales, g_own, slots[0], lr=lr, momentum=mu,
                 inv_n=inv_n, chunk_elems=chunk_elems, divisor=divisor,
-                p_out=p_out)
+                p_out=p_out, weight_decay=self.weight_decay)
             return p2, (m2,)
         return upd
 
 
 @dataclass(frozen=True)
 class SGDOptimizer(ShardedOptimizer):
-    """Stateless SGD: zero slots, the exchange carries no optimizer state."""
+    """Stateless SGD: zero slots, the exchange carries no optimizer state.
+    Its rule has no decay term (the reference's neither), so a
+    ``weight_decay`` given to it changes nothing."""
     name = "sgd"
     slots = ()
     coef_names = ("lr",)
@@ -213,7 +234,7 @@ class AdamOptimizer(ShardedOptimizer):
         m, v, k1, k2 = slots
         (lr,) = coefs
         b1, b2 = self.b1, self.b2
-        g = g.to(m.dtype)
+        g = self._decayed(p, g.to(m.dtype))
         alive = (g != 0) | (k1 != 0)
         k1n = torch.where(alive, b1 * k1 + (1 - b1), k1)
         k2n = torch.where(alive, b2 * k2 + (1 - b2), k2)
@@ -235,7 +256,8 @@ class AdamOptimizer(ShardedOptimizer):
             p2, *slots2 = fused_adam_opt(p, g, *slots, lr=lr, b1=self.b1,
                                          b2=self.b2, eps=self.eps,
                                          chunk_elems=chunk_elems,
-                                         divisor=divisor, p_out=p_out)
+                                         divisor=divisor, p_out=p_out,
+                                         weight_decay=self.weight_decay)
             return p2, tuple(slots2)
         return upd
 
@@ -247,11 +269,12 @@ OPTIMIZERS = {"nesterov": NesterovOptimizer, "sgd": SGDOptimizer,
 def make_sharded_optimizer(tc) -> ShardedOptimizer:
     """TrainConfig -> protocol instance (static fields bound here)."""
     if tc.optimizer == "nesterov":
-        return NesterovOptimizer()
+        return NesterovOptimizer(weight_decay=tc.weight_decay)
     if tc.optimizer == "sgd":
         return SGDOptimizer()
     if tc.optimizer == "adam":
-        return AdamOptimizer(b1=tc.adam_b1, b2=tc.adam_b2, eps=tc.adam_eps)
+        return AdamOptimizer(weight_decay=tc.weight_decay, b1=tc.adam_b1,
+                             b2=tc.adam_b2, eps=tc.adam_eps)
     raise ValueError(f"unknown optimizer {tc.optimizer!r}; expected one of "
                      f"{tuple(OPTIMIZERS)}")
 

@@ -34,9 +34,12 @@ def predicted_phases(engine, topo, compute_s: float = 0.0) -> dict:
     """``cost_model.predicted_step_seconds`` for one engine's exchange over
     the caller's ``topo``: the join key of the attribution table.  Returns
     the predicted dict plus the (strategy, windows, wire) identity it was
-    computed for.  ``topo`` None raises: the port has no default
+    computed for; None when the engine has no chunk domain (fsdp_stream),
+    as the reference's.  ``topo`` None raises: the port has no default
     topology."""
     from ..core import cost_model
+    if engine.chunk_plan is None:
+        return None
     if topo is None:
         raise ValueError(
             "predicted_phases needs an explicit RackTopology: the port "

@@ -233,8 +233,12 @@ def test_attach_rejects_another_dcn_wire_and_another_comm():
         cm.attach_service(hB)
     with pytest.raises(ValueError, match="different Comm"):
         cm.attach_service(hC)
-    with pytest.raises(NotImplementedError, match="fsdp_stream"):
-        _create(cm, "D", tc=dataclasses.replace(TC, strategy="fsdp_stream"))
+    # an fsdp_stream service is created; it has no chunk domain to pack,
+    # so attaching it raises, as the reference's does
+    hD = _create(cm, "D", tc=dataclasses.replace(TC, strategy="fsdp_stream"))
+    with pytest.raises(ValueError, match="chunk domain"):
+        cm.attach_service(hD)
+    assert cm.attached == ("A",)
 
 
 def test_co_step_caches_and_accounts():

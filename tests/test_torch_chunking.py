@@ -97,5 +97,11 @@ def test_stacked_comm_matches_exchange_context(W, strategy):
 
 
 def test_stacked_comm_rejects_unported_strategies():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5b"):
-        StackedComm(4).n_shards("fsdp_stream")
+    """fsdp_stream has no chunk shard matrix: one row, as the reference's
+    ExchangeContext gives it; an unknown strategy raises."""
+    ctx = ExchangeContext(data_axes=("data",),
+                          axis_sizes={"data": 4, "model": 1})
+    assert StackedComm(4).n_shards("fsdp_stream") == \
+        ctx.n_shards("fsdp_stream") == 1
+    with pytest.raises(ValueError, match="unknown exchange strategy"):
+        StackedComm(4).n_shards("ring_of_rings")

@@ -181,13 +181,12 @@ def test_kernel_update_equals_plain_rule_bitwise(W):
 @pytest.mark.parametrize("W", [1, 4])
 def test_engine_update_goes_through_the_kernel_wrapper(W):
     """The engine's update has one path, the kernel's entry point for the
-    worker count (its plain version on the CPU); weight decay, which the
-    kernel has no term for, is not a TrainConfig field."""
+    worker count (its plain version on the CPU), weight decay included:
+    the kernel's ``+wd*p`` term against the plain versions'."""
     _, pcfg = _cfgs()
-    with pytest.raises(TypeError, match="weight_decay"):
-        TrainConfig(weight_decay=0.1)
-    eng = PHubEngine(pcfg, TrainConfig(lr=LR, momentum=MU), StackedComm(W),
-                     device="cpu")
+    wd = 0.1
+    eng = PHubEngine(pcfg, TrainConfig(lr=LR, momentum=MU, weight_decay=wd),
+                     StackedComm(W), device="cpu")
     rng = np.random.default_rng(W)
     p, m = (torch.from_numpy(rng.standard_normal(3000).astype(np.float32))
             for _ in range(2))
@@ -195,10 +194,15 @@ def test_engine_update_goes_through_the_kernel_wrapper(W):
     got_p, (got_m,) = eng.update_fn(eng.chunk_plan.groups[0])(
         p, g[0] if W == 1 else g, (m,))
     if W == 1:
-        ref_p, ref_m = agg_opt_ref(p, g[0], m, lr=LR, momentum=MU)
+        ref_p, ref_m = agg_opt_ref(p, g[0], m, lr=LR, momentum=MU,
+                                   weight_decay=wd)
+        plain_p, _ = agg_opt_ref(p, g[0], m, lr=LR, momentum=MU)
     else:
-        ref_p, ref_m = multi_agg_opt_ref(p, g, m, lr=LR, momentum=MU)
+        ref_p, ref_m = multi_agg_opt_ref(p, g, m, lr=LR, momentum=MU,
+                                         weight_decay=wd)
+        plain_p, _ = multi_agg_opt_ref(p, g, m, lr=LR, momentum=MU)
     assert torch.equal(got_p, ref_p) and torch.equal(got_m, ref_m)
+    assert not torch.equal(got_p, plain_p), "the decay term did nothing"
 
 
 def test_launcher_runs_on_cpu_and_rejects_what_is_not_ported():
@@ -206,8 +210,13 @@ def test_launcher_runs_on_cpu_and_rejects_what_is_not_ported():
     losses = main(["--reduced", "--device", "cpu", "--steps", "2",
                    "--batch", "4", "--seq", "16", "--workers", "2"])
     assert len(losses) == 2 and all(np.isfinite(losses))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5b"):
-        main(["--reduced", "--device", "cpu", "--strategy", "fsdp_stream"])
+    losses = main(["--reduced", "--device", "cpu", "--steps", "2",
+                   "--batch", "4", "--seq", "16", "--workers", "2",
+                   "--strategy", "fsdp_stream"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4b"):
+        main(["--reduced", "--device", "cpu", "--nproc", "2",
+              "--strategy", "fsdp_stream"])
     losses = main(["--arch", "grok-1-314b", "--reduced", "--device", "cpu",
                    "--steps", "1", "--batch", "4", "--seq", "16",
                    "--workers", "2"])

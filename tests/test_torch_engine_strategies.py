@@ -263,8 +263,10 @@ def test_pod_rows_add_in_data_order():
 
 def test_strategy_and_layout_refusals():
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        PHubEngine(cfg, TrainConfig(strategy="fsdp_stream"), StackedComm(2),
+    with pytest.raises(ValueError, match="flat_residency requires a "
+                                         "chunk-domain strategy"):
+        PHubEngine(cfg, TrainConfig(strategy="fsdp_stream",
+                                    flat_residency=True), StackedComm(2),
                    device="cpu")
     with pytest.raises(ValueError, match="hierarchical"):
         PHubEngine(cfg, TrainConfig(wire_format_dcn="int8"),

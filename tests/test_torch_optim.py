@@ -306,9 +306,16 @@ def test_make_sharded_optimizer_returns_each_rule():
     assert tuple(pproto.OPTIMIZERS) == tuple(jproto.OPTIMIZERS)
     with pytest.raises(ValueError, match="unknown optimizer"):
         pproto.make_sharded_optimizer(TrainConfig(optimizer="lamb"))
-    for field in ("weight_decay", "grad_clip"):
-        with pytest.raises(TypeError, match=field):
-            TrainConfig(**{field: 0.1})
+    # weight decay reaches Nesterov and Adam, not SGD (the reference's
+    # make_sharded_optimizer builds SGDOptimizer() without it)
+    for name in ("nesterov", "sgd", "adam"):
+        tc = TrainConfig(optimizer=name, weight_decay=0.1)
+        got = pproto.make_sharded_optimizer(tc)
+        want = jproto.make_sharded_optimizer(tc)
+        assert got.weight_decay == want.weight_decay
+        assert got.weight_decay == (0.0 if name == "sgd" else 0.1)
+    with pytest.raises(TypeError, match="grad_clip"):
+        TrainConfig(grad_clip=0.1)
 
 
 @pytest.mark.parametrize("bad", ["k_dtype", "m_dtype", "alias", "shape"])
