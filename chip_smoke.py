@@ -372,7 +372,24 @@
    steps with decay (Nesterov, Adam), ``microbatch=2`` and fsdp_stream
    with decay (Nesterov, Adam) within phase 3's bounds, two card runs
    bitwise.
-19. Prints the kernels line, then the device line last.
+19. PHub's exchange autotuner (``tune_phase``), full llama3.2-1b at 4
+   stacked workers, every output in a temporary directory: (a) this
+   card's topology calibrated (``launch/tune.py``'s
+   ``calibrate_topology``: the probes at ``CARD_PROBE_ELEMS`` a row); (b)
+   the 111 candidates of the space ranked on it (the host time printed);
+   (c) ``autotune`` times the top 3 and the incumbent (sharded_ps, 1
+   window, identity, 32 KB, 1x4) at 2 warm-up and 5 timed steps, plus
+   two pinned candidates whatever the ranking, int8 on one pod in 4
+   windows at 64 KB (3 effective) and hierarchical 2x2 in 1 window at
+   32 KB on the identity wire (so B6a/B6b/B7 and B2's pod stride run
+   here), and lint-gates
+   the winner; every timed candidate is linted (R1/R3/R5): predicted and
+   measured us, peak GiB and the verdict of each; (d) a second request
+   hits the cache (nothing timed, linted or launched); (e)
+   ``launch/train.py --auto-tune`` on that cache trains 2 steps, its
+   losses, parameters and launches bitwise equal to the winner's flags
+   given directly.
+20. Prints the kernels line, then the device line last.
 
 Any failed check raises and the script exits non-zero.  It needs one CUDA
 card and refuses to run without one.
@@ -5429,6 +5446,220 @@ def decay_phase(torch, count, kernels: dict, runs: dict, padded: dict,
         f"{time.perf_counter() - t_rwkv:.1f})")
 
 
+# 19. the exchange autotuner (module docstring): the full llama3.2-1b W=4
+# space on this card's calibration, the top candidates and the incumbent
+# timed and every timed candidate linted, the cache, --auto-tune
+TUNE_SPACE_W4 = 111              # the reference's count at 4 devices
+TUNE_TOP_K, TUNE_WARMUP, TUNE_STEPS = 3, 2, 5
+TUNE_TRAIN_STEPS = 2
+# timed and linted whatever the ranking says (its predictions tie within
+# 0.1 us, so a pick from it follows the calibration's noise): int8 at
+# 64 KB, whose shard of full llama3.2-1b splits into 3 of the 4 windows
+# asked (no chunk size of the space gives 4: 8 and 32 KB give 1), and
+# hierarchical 2x2 over the identity wire, B2 through its pod stride
+TUNE_PINNED = (("sharded_ps", 4, "int8", None, 64 * 1024, 1, 4),
+               ("hierarchical", 1, "identity", None, 32 * 1024, 2, 2))
+TUNE_INT8_WINDOWS = 3
+TUNE_KERNELS = ("multi_agg_opt_chunks", "quantize_chunks",
+                "dequantize_chunks", "dequant_agg_opt_chunks")
+
+
+def tune_label(c) -> str:
+    return (f"{c.strategy} W={c.pipeline_windows} wire={c.wire_format}/"
+            f"{c.wire_format_dcn or '-'} chunk={c.chunk_size_bytes // 1024}KB"
+            f" {c.pods}x{c.data}")
+
+
+def tune_train(torch, args: list) -> tuple:
+    """``launch/train.py`` on ``args``: (losses, the parameters'
+    fingerprint after its last step, launches), ``fit``'s final state
+    caught on its way out."""
+    import repro_torch.training as training
+    from repro_torch.launch.train import main as train_main
+    real_fit, states = training.fit, []
+
+    def fit(*a, **k):
+        state = real_fit(*a, **k)
+        states.append(fingerprint(torch, state.params))
+        return state
+    training.fit = fit
+    reset_all_launches()
+    try:
+        losses = train_main(args)
+    finally:
+        training.fit = real_fit
+    launches = all_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, states[-1], launches
+
+
+def tune_phase(torch, count, smi: str) -> None:
+    """19. The exchange autotuner (module docstring)."""
+    import tempfile
+
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.core.chunking import build_plan
+    from repro_torch.core.pipeline import effective_windows
+    from repro_torch.launch.tune import calibrate_topology
+    from repro_torch.models import param_specs
+    from repro_torch.tuning import (Candidate, autotune, enumerate_space,
+                                    lint_candidate, rank_candidates,
+                                    time_candidate)
+    from repro_torch.tuning.tuner import _incumbent
+    t_phase = time.perf_counter()
+    like = param_specs(get_arch(ARCH))
+    tc = TrainConfig()
+    total = {}
+
+    def tally(label, launches):
+        count(label, launches)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as d:
+        # (a) this card's topology at W=4, saved beside the cache
+        reset_all_launches()
+        t0 = time.perf_counter()
+        topo = calibrate_topology(WORKERS, "cuda", d, say=log)
+        tally("19 calibration probes", all_launches())
+        t_cal = time.perf_counter() - t0
+        # (b) the whole space ranked on it, host arithmetic only
+        space = enumerate_space(WORKERS)
+        check(len(space) == TUNE_SPACE_W4,
+              f"19: {len(space)} candidates at W={WORKERS}, want "
+              f"{TUNE_SPACE_W4}")
+        t0 = time.perf_counter()
+        ranked = rank_candidates(like, space, topo)
+        rank_s = time.perf_counter() - t0
+        log(f"19 (b) {len(space)} candidates ranked in {rank_s:.6f} s on "
+            f"the host ({len(ranked)} priced), on {topo}; top 5: "
+            + "; ".join(f"{tune_label(c)} {p['seconds'] * 1e6:.1f} us"
+                        for c, p in ranked[:5]))
+        extra = tuple(Candidate(*c) for c in TUNE_PINNED)
+        pred = dict(ranked)
+        check(all(c in pred for c in extra),
+              f"19: a pinned candidate {extra} is not priced")
+        (g8,) = build_plan(like, chunk_bytes=extra[0].chunk_size_bytes,
+                           n_shards=WORKERS).groups
+        check(effective_windows(g8, extra[0].pipeline_windows)
+              == TUNE_INT8_WINDOWS,
+              f"19: the int8 candidate does not run "
+              f"{TUNE_INT8_WINDOWS} windows")
+        timed, verdicts = {}, {}
+
+        def timer(c):
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            reset_all_launches()
+            us = time_candidate(like, c, steps=TUNE_STEPS,
+                                warmup=TUNE_WARMUP, device="cuda")
+            launches = all_launches()
+            timed[c] = {"us": us, "launches": launches, "base_gib": base,
+                        "peak_gib": torch.cuda.max_memory_allocated()
+                        / 2**30}
+            tally(f"19 timed {tune_label(c)}", launches)
+            return us
+
+        def linter(c):
+            if c not in verdicts:
+                reset_all_launches()
+                t0 = time.perf_counter()
+                verdicts[c] = lint_candidate(c, arch=ARCH, d_model=0,
+                                             device="cuda")
+                verdicts[c]["lint_s"] = time.perf_counter() - t0
+                tally(f"19 lint {tune_label(c)}", all_launches())
+                gc.collect()
+                torch.cuda.empty_cache()
+            return verdicts[c]
+
+        # (c) time the top 3 and the incumbent, lint-gate the winner
+        t0 = time.perf_counter()
+        report = autotune(like, tc, WORKERS, topo=topo, top_k=TUNE_TOP_K,
+                          steps=TUNE_STEPS, warmup=TUNE_WARMUP, cache_dir=d,
+                          arch=ARCH, d_model=0, device="cuda", timer=timer,
+                          linter=linter, log=log)
+        t_tune = time.perf_counter() - t0
+        for c in extra:
+            if c not in timed:
+                timer(c)
+        for c in timed:
+            linter(c)
+        inc = _incumbent(tc, WORKERS)
+        check(inc in timed, f"19: the incumbent {inc} was not timed")
+        check(report["lint"].get("ok") and not report["cache_hit"],
+              f"19: the winner is not lint-green: {report['lint']}")
+        win = report["candidate"]
+        for c, t in sorted(timed.items(), key=lambda ct: ct[1]["us"]):
+            v = verdicts[c]
+            log(f"19 (c) {tune_label(c)}: predicted "
+                f"{pred[c]['seconds'] * 1e6:.1f} us, measured "
+                f"{t['us']:.1f} us (median of {TUNE_STEPS}, ratio "
+                f"{t['us'] / (pred[c]['seconds'] * 1e6):.3f}), peak "
+                f"{t['peak_gib']:.3f} GiB ({t['base_gib']:.3f} before), "
+                f"lint {'green' if v.get('ok') else 'RED'} in "
+                f"{v['lint_s']:.1f} s (errors {v.get('errors')}, warnings "
+                f"{[w['message'] for w in v.get('warnings', [])]}), "
+                f"launches {t['launches']}"
+                + (" <- winner" if c.to_dict() == win else "")
+                + (" <- incumbent" if c == inc else "") + f" ({smi})")
+        i_us = timed[inc]["us"]
+        log(f"19 (c) winner {win} measured {report['measured_us']:.1f} us "
+            f"against the incumbent's {i_us:.1f} us "
+            f"({report['measured_us'] / i_us - 1:+.2%}); autotune took "
+            f"{t_tune:.1f} s, {report['timed_candidates']} timed, "
+            f"rejected {len(report['rejected'])}")
+        # (d) a second request hits the cache: nothing timed or launched
+        reset_all_launches()
+
+        def refuse(c):
+            raise AssertionError(f"19: the cache hit timed or linted {c}")
+        again = autotune(like, tc, WORKERS, topo=None, cache_dir=d,
+                         device="cuda", timer=refuse, linter=refuse,
+                         log=log)
+        check(again["cache_hit"] and again["timed_candidates"] == 0
+              and again["candidate"] == win
+              and not any(all_launches().values()),
+              f"19 (d): the second call did not hit the cache: {again}")
+        # (e) --auto-tune on the seeded cache against the winner's flags
+        base = ["--arch", ARCH, "--workers", str(WORKERS), "--steps",
+                str(TUNE_TRAIN_STEPS), "--batch", str(BATCH), "--seq",
+                str(SEQ), "--log-every", "1", "--device", "cuda"]
+        t0 = time.perf_counter()
+        tuned = tune_train(torch, base + ["--auto-tune", "--tune-cache-dir",
+                                          d])
+        flags = ["--strategy", win["strategy"], "--windows",
+                 str(win["pipeline_windows"]), "--wire-format",
+                 win["wire_format"], "--chunk-kb",
+                 str(win["chunk_size_bytes"] // 1024), "--pods",
+                 str(win["pods"])]
+        if win["wire_format_dcn"]:
+            flags += ["--wire-format-dcn", win["wire_format_dcn"]]
+        direct = tune_train(torch, base + flags)
+        t_train = time.perf_counter() - t0
+        for label, run in (("--auto-tune", tuned), ("direct", direct)):
+            tally(f"19 launch/train.py {label}", run[2])
+            check(len(run[0]) == TUNE_TRAIN_STEPS
+                  and all(math.isfinite(x) for x in run[0]),
+                  f"19 (e) {label}: losses {run[0]}")
+        check(tuned[0] == direct[0]
+              and same_fingerprint(torch, tuned[1], direct[1])
+              and tuned[2] == direct[2],
+              f"19 (e): --auto-tune's run differs from the winner's flags "
+              f"given directly: losses {tuned[0]} vs {direct[0]}")
+        log(f"19 (e) launch/train.py --auto-tune (cache hit) and {flags}: "
+            f"losses {tuned[0]}, parameters and launches {tuned[2]} "
+            f"bitwise equal ({t_train:.1f} s for both)")
+    for name in TUNE_KERNELS:
+        check(total.get(name, 0) > 0, f"19: {name} never launched")
+    log(f"19. the autotuner phase took {time.perf_counter() - t_phase:.1f} "
+        f"s (calibration {t_cal:.1f}, ranking {rank_s:.3f}, autotune "
+        f"{t_tune:.1f}, train {t_train:.1f}); its launches {total}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5613,6 +5844,7 @@ def main() -> None:
     characterization_phase(torch, count, kernels, smi.splitlines()[0])
     families_phase(torch, count, kernels)
     decay_phase(torch, count, kernels, runs, padded, ce, smi.splitlines()[0])
+    tune_phase(torch, count, smi.splitlines()[0])
     for k in kernels.values():
         if "tol" in k:            # checked against its tolerance above
             k["verdict"] = "within_tol"

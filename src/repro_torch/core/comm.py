@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import datetime
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -75,12 +75,94 @@ def _check_pods(n_workers: int, pods: int) -> None:
 @dataclass(frozen=True)
 class StackedComm:
     """W workers on one device, stacked along dim 0: P pods of D, row w
-    the worker (pod w // D, data w % D)."""
+    the worker (pod w // D, data w % D).
+
+    ``hops``: the one record of the link traffic the stacked exchange
+    stands in for, {(op, kind, tier): {"calls", "bytes": {dtype: n}}}.
+    The exchange (``core/exchange.py``, ``core/pipeline.py``) calls
+    ``record`` once a hop of a collective it replaces, with the tensors
+    worker 0 receives on that hop: over an encoded wire the payload each
+    executed ring hop, gather or pull actually encoded; over the identity
+    wire, where one stacked pass reads every row and no hop runs, the
+    strips that pass reads from the other workers' rows, laid out as a
+    ring's hops (``record_scatter``, ``record_gather``,
+    ``record_all_reduce``).  ``traffic`` (by kind and tier, split by
+    dtype: the rack lint's R1 and R5, ``analysis/rules.py``) and ``stats``
+    (by operation, ``ProcessGroupComm.stats``'s schema; seconds 0: nothing
+    crosses a link) are views of it.  Recording reads shapes only: it
+    changes no value."""
     n_workers: int
     pods: int = 1
+    hops: dict = field(default_factory=dict, compare=False, repr=False)
 
     def __post_init__(self):
         _check_pods(self.n_workers, self.pods)
+
+    def record(self, op: str, kind: str, tier: str, parts) -> None:
+        """One hop of a stand-in collective: ``parts``, the tensors (or
+        views) worker 0 receives on it."""
+        h = self.hops.setdefault((op, kind, tier), {"calls": 0, "bytes": {}})
+        h["calls"] += 1
+        for t in parts:
+            name = str(t.dtype).replace("torch.", "")
+            h["bytes"][name] = (h["bytes"].get(name, 0)
+                                + t.numel() * t.element_size())
+
+    def record_scatter(self, op: str, kind: str, tier: str, rows,
+                       n: int) -> None:
+        """A ring reduce-scatter over the ``n`` members' ``rows`` (dim 0)
+        as member 0 receives it: piece 0 of every other member's row (each
+        row cut in n along its dim 0), one hop each."""
+        for k in range(1, n):
+            self.record(op, kind, tier, (rows[k].tensor_split(n)[0],))
+
+    def record_gather(self, op: str, kind: str, tier: str, parts,
+                      n: int) -> None:
+        """A ring all-gather over ``n`` members as member 0 receives it:
+        each tensor of ``parts`` cut in n along dim 0, the n - 1 pieces
+        that are not its own, one hop each."""
+        for k in range(1, n):
+            self.record(op, kind, tier,
+                        tuple(t.tensor_split(n)[k] for t in parts))
+
+    def record_all_reduce(self, op: str, kind: str, tier: str, rows,
+                          n: int) -> None:
+        """A ring all-reduce over the ``n`` members' ``rows``: their
+        reduce-scatter, then the all-gather of member 0's row (the sums
+        come back in its layout)."""
+        self.record_scatter(op, kind, tier, rows, n)
+        self.record_gather(op, kind, tier, (rows[0],), n)
+
+    @property
+    def traffic(self) -> dict:
+        """{kind: {tier: {dtype: bytes}}}: worker 0's link bytes."""
+        out: dict = {}
+        for (_, kind, tier), h in self.hops.items():
+            by_dtype = out.setdefault(kind, {}).setdefault(tier, {})
+            for dt, b in h["bytes"].items():
+                by_dtype[dt] = by_dtype.get(dt, 0) + b
+        return out
+
+    @property
+    def stats(self) -> dict:
+        """{op: {"calls", "bytes", "seconds"}}, as ``ProcessGroupComm``'s
+        (calls are hops; seconds 0)."""
+        out: dict = {}
+        for (op, _, _), h in self.hops.items():
+            s = out.setdefault(op, {"calls": 0, "bytes": 0, "seconds": 0.0})
+            s["calls"] += h["calls"]
+            s["bytes"] += sum(h["bytes"].values())
+        return out
+
+    def link_bytes(self) -> dict:
+        """{kind: {"ici": bytes, "dcn": bytes}} summed over dtypes: the
+        shape of the cost model's ``runtime_by_kind``."""
+        return {kind: {tier: sum(tiers.get(tier, {}).values())
+                       for tier in ("ici", "dcn")}
+                for kind, tiers in self.traffic.items()}
+
+    def reset_stats(self) -> None:
+        self.hops.clear()
 
     @property
     def pod_size(self) -> int:

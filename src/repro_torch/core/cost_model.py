@@ -19,7 +19,8 @@
 All of it is host arithmetic, equal to the reference's on the same
 inputs.  The port carries no default topology: a ``RackTopology`` holds
 only what its caller measured or chose (the reference's default is a CPU
-calibration of its tuner, ROADMAP.md queue A item 9b).
+calibration of its tuner; the port's tuner, ``tuning/cost.py``, ranks on
+the card's own calibration).
 """
 from __future__ import annotations
 

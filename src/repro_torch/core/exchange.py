@@ -65,7 +65,7 @@ import torch
 
 from .comm import ProcessGroupComm
 from .pipeline import (PIPELINED_STRATEGIES, check_stacked, mean_divisor,
-                       pipelined_exchange, pod_rows_)
+                       pipelined_exchange, pod_rows_, ring_tier)
 
 STRATEGIES = ("allreduce", "sharded_ps", "centralized_ps", "hierarchical",
               "fsdp_stream")
@@ -128,25 +128,55 @@ def exchange_group(comm, g: torch.Tensor, p: torch.Tensor,
                                       n_live, strategy=strategy)
         return _process_group_baseline(comm, g, p, slots, update_fn, n_live,
                                        strategy)
+    # p' into a new buffer and every slot updated in place: the state is
+    # the step's own, as the reference's donated buffers (rack lint R3)
+    p_out = torch.empty_like(p)
     if comm.n_workers == 1:
         # the reduce-scatter over one worker is the identity, and /1 (or
         # /max(n_live, 1) = /1) is exact: the reference's path into
         # agg_opt_chunks
-        return update_fn(p, g[0], slots, at=0)
+        return update_fn(p, g[0], slots, p_out=p_out, at=0)
     if strategy == "hierarchical":
         # the in-pod partials into each pod's row d = 0, then one launch
         # over the P partial rows: the cross-pod sum in pod order, / N
-        rows = pod_rows_(g, comm.pods)
-        return update_fn(p, rows, slots, divisor=mean_divisor(
-            comm.n_workers if n_live is None else n_live, g.device), at=0)
+        P, D = comm.pods, comm.pod_size
+        rows = pod_rows_(g, P, on_hop=lambda parts: comm.record(
+            "push", "reduce-scatter", "ici", parts))
+        # the cross-pod all-reduce of worker 0's shard
+        comm.record_all_reduce("cross_reduce", "all-reduce", "dcn",
+                               rows[:, :p.numel() // D], P)
+        out = update_fn(p, rows, slots, divisor=mean_divisor(
+            comm.n_workers if n_live is None else n_live, g.device),
+            p_out=p_out, at=0)
+        comm.record_gather("pull", "all-gather", "ici", (out[0],), D)
+        return out
     # sharded_ps: shard s owns the contiguous run [s*L, (s+1)*L) of every
     # row, so one tall-aggregation pass over the whole domain equals the S
     # per-shard (sum over workers, /W, update) passes of the reference;
     # allreduce and centralized_ps have one shard, the same pass
+    _record_flat(comm, strategy, g)
     if n_live is None:
-        return update_fn(p, g, slots, at=0)
-    return update_fn(p, g, slots, divisor=mean_divisor(n_live, g.device),
-                     at=0)
+        out = update_fn(p, g, slots, p_out=p_out, at=0)
+    else:
+        out = update_fn(p, g, slots, divisor=mean_divisor(n_live, g.device),
+                        p_out=p_out, at=0)
+    if strategy == "sharded_ps":
+        comm.record_gather("pull", "all-gather", ring_tier(comm, strategy),
+                           (out[0],), comm.n_workers)
+    return out
+
+
+def _record_flat(comm, strategy: str, g: torch.Tensor) -> None:
+    """The collective the flat stacked pass over the rows ``g`` stands in
+    for: sharded_ps's reduce-scatter over W shards, allreduce's ring
+    all-reduce (centralized_ps's incast has no traffic model and is not
+    recorded)."""
+    W = comm.n_workers
+    if strategy == "sharded_ps":
+        comm.record_scatter("push", "reduce-scatter",
+                            ring_tier(comm, strategy), g, W)
+    elif strategy == "allreduce":
+        comm.record_all_reduce("all_reduce", "all-reduce", "ici", g, W)
 
 
 def _process_group_baseline(comm: ProcessGroupComm, g, p, slots, update_fn,

@@ -143,6 +143,14 @@ def tiers(comm, strategy: str) -> tuple[int, int]:
     return 1, comm.n_shards(strategy)
 
 
+def ring_tier(comm, strategy: str) -> str:
+    """The tier a chunk strategy's ring and pull cross: sharded_ps's ring
+    spans the pods when there are several ("dcn"), hierarchical's stays
+    inside one ("ici"), as the cost model prices them."""
+    return ("dcn" if strategy == "sharded_ps" and comm.pods > 1
+            else "ici")
+
+
 def effective_windows(group, requested: int) -> int:
     """Largest window count <= ``requested`` that splits the shard into a
     whole number of chunks (windows respect chunk boundaries, so the fused
@@ -176,14 +184,16 @@ def mean_divisor(n_live, device):
                       device=device)
 
 
-def pod_rows_(g: torch.Tensor, pods: int, windows: int = 1, w: int = 0
-              ) -> torch.Tensor:
+def pod_rows_(g: torch.Tensor, pods: int, windows: int = 1, w: int = 0,
+              on_hop: Optional[Callable] = None) -> torch.Tensor:
     """The hierarchical in-pod partials of window w: g is the (P*D, n)
     stacked buffer, pod q's rows q*D .. q*D+D-1; each pod's D rows of
     window w's strips (D shards) are added in data order into its row
     d = 0, in place, in g's dtype (D-1 adds over every pod at once).
     Returns the (P, n) view of the rows d = 0 (``D*n`` elements apart),
-    whose window-w strips now hold the pods' partials."""
+    whose window-w strips now hold the pods' partials.  ``on_hop(parts)``
+    sees each add as one in-pod hop: the strip of shard 0 that worker
+    (pod 0, d) hands its owner."""
     R, n = g.shape
     D = R // pods
     gp = g.view(pods, D, n)
@@ -193,6 +203,8 @@ def pod_rows_(g: torch.Tensor, pods: int, windows: int = 1, w: int = 0
         strips = gp.view(pods, D, D, L)[..., w * Lw:(w + 1) * Lw]
         for d in range(1, D):
             strips[:, 0].add_(strips[:, d])
+            if on_hop is not None:
+                on_hop((strips[0, d, 0],))
     return gp[:, 0]
 
 
@@ -332,7 +344,8 @@ def ring_rows(g: torch.Tensor, k: int, windows: int = 1, w: int = 0,
 
 
 def ring_reduce_scatter(g: torch.Tensor, wire, chunk_elems: int,
-                        windows: int = 1, w: int = 0, pods: int = 1
+                        windows: int = 1, w: int = 0, pods: int = 1,
+                        on_hop: Optional[Callable] = None
                         ) -> Optional[tuple]:
     """The encoded ring reduce-scatter of window w of every shard at once:
     g is the (S, padded) stacked gradient buffer, or (pods*S, padded) with
@@ -340,17 +353,24 @@ def ring_reduce_scatter(g: torch.Tensor, wire, chunk_elems: int,
     launch a hop); returns the still-encoded partial that arrives at each
     owner (the window's strips packed in one wire tuple), without the
     owner's own rows; None when S == 1 (nothing crosses a wire).  The
-    reference's ``rs_window``."""
-    S = g.shape[0] // pods
+    reference's ``rs_window``.  ``on_hop(parts)`` sees each hop's payload
+    as it is encoded: the encoded strip that owner 0 receives (packed
+    first)."""
+    R = g.shape[0]
+    S = R // pods
     if S == 1:
         return None
     parts = wire.encode(ring_rows(g, 1, windows, w, pods), chunk_elems)
+    if on_hop is not None:
+        on_hop(tuple(t.view(R, -1)[0] for t in parts))
     for k in range(2, S):
         acc = wire.decode(parts, chunk_elems)
         del parts                          # free the payload before encoding
         parts = wire.encode(add_ring_rows_(acc, g, k, windows, w, pods),
                             chunk_elems)
         del acc
+        if on_hop is not None:
+            on_hop(tuple(t.view(R, -1)[0] for t in parts))
     return parts
 
 
@@ -393,7 +413,15 @@ class WindowedExchange:
     engaged) go to the rule's kernel as P rows with divisor N.
     ``finish`` runs the encoded wire's pull: the delta of the whole domain
     plus ``residual`` encoded and decoded, the parameters written back p
-    plus the decoded delta."""
+    plus the decoded delta, and what the rounding dropped into
+    ``residual``, in place (r + (p' - p) accumulates there first: IEEE
+    addition commutes, so these are the bits of (p' - p) + r).
+
+    Each stand-in collective is recorded on the Comm, hop by hop, as
+    worker 0 receives it (``StackedComm.record``): the ring's hops and
+    the pull's all-gather on the ring's tier, the cross-pod leg on "dcn";
+    an encoded wire's from each executed hop's payload, the identity
+    wire's from the strips this window's pass reads from the other rows."""
 
     def __init__(self, comm: StackedComm, g: torch.Tensor, p: torch.Tensor,
                  slots: tuple, update_fn: Callable, windows: int,
@@ -409,7 +437,12 @@ class WindowedExchange:
         self.residual, self.fused_dequant = residual, fused_dequant
         self.divisor, self.gate = _divisors(comm, n_live, g.device,
                                             self.hier, wire)
+        self.tier = ring_tier(comm, strategy)
         self.p_out = None
+
+    def _hop(self, parts: tuple) -> None:
+        """Record one ring hop: ``parts``, what worker 0 receives."""
+        self.comm.record("ring_hop", "collective-permute", self.tier, parts)
 
     def window(self, w: int) -> None:
         if self.p_out is None:
@@ -417,10 +450,22 @@ class WindowedExchange:
         g, p, p_out, slots = self.g, self.p, self.p_out, self.slots
         P, S, W = self.P, self.S, self.windows
         if self.wire is None:
-            rows = pod_rows_(g, P, W, w) if self.hier else g
+            # the identity ring: the in-pod adds, or the other workers'
+            # strips of shard 0 this window's pass reads
+            if self.hier:
+                rows = pod_rows_(g, P, W, w, on_hop=self._hop)
+            else:
+                rows = g
+                self.comm.record_scatter(
+                    "ring_hop", "collective-permute", self.tier,
+                    [_strip(r, S, W, w) for r in g], S)
             if self.wire_dcn is not None and P > 1:
                 self._dcn_leg(rows, w)
                 return
+            if self.hier:
+                self.comm.record_all_reduce(
+                    "cross_reduce", "all-reduce", "dcn",
+                    [_strip(r, S, W, w)[0] for r in rows], P)
             exchange_window(rows, p, slots, self.update_fn, S, W, w, p_out,
                             self.divisor)
             return
@@ -435,7 +480,8 @@ class WindowedExchange:
             return
         L = p.numel() // S
         Lw = L // W
-        parts = ring_reduce_scatter(g, self.wire, self.ce, W, w)
+        parts = ring_reduce_scatter(g, self.wire, self.ce, W, w,
+                                    on_hop=self._hop)
         if self.fused_dequant is not None:
             self.fused_dequant(
                 _strip(p, S, W, w), parts, own_strips(g, W, w),
@@ -471,6 +517,7 @@ class WindowedExchange:
         res = self.residual.view(P, S, L)[..., cols]
         x = torch.add(part, res)                                # f32
         parts = self.wire_dcn.encode(x.view(-1), self.ce)
+        self._cross_gather(parts)
         res.copy_(x)                  # x - decode(x) lands there below:
         del x                         # x and its decode are never both alive
         d = self.wire_dcn.decode(parts, self.ce)
@@ -483,20 +530,34 @@ class WindowedExchange:
         rings (packed), each owner's decoded partial plus its own run, the
         cross-pod leg (identity, or the DCN tier scales-only) and the rule
         on the P rows with divisor N."""
-        g, P, W, ce = self.g, self.P, self.windows, self.ce
-        parts = ring_reduce_scatter(g, self.wire, ce, W, w, P)
+        g, P, S, W, ce = self.g, self.P, self.S, self.windows, self.ce
+        parts = ring_reduce_scatter(g, self.wire, ce, W, w, P,
+                                    on_hop=self._hop)
         if parts is None:                 # one worker a pod: its own rows
             gsum = ring_rows(g, 0, W, w, P)
         else:
             gsum = self.wire.decode(parts, ce)
             del parts
             add_ring_rows_(gsum, g, 0, W, w, P)
-        if self.wire_dcn is not None:
+        if self.wire_dcn is None:
+            # the cross-pod all-reduce of worker 0's decoded strip
+            self.comm.record_all_reduce("cross_reduce", "all-reduce", "dcn",
+                                        gsum.view(P, S, -1)[:, 0], P)
+        else:
             parts = self.wire_dcn.encode(gsum, ce)
+            self._cross_gather(parts)
             del gsum
             gsum = self.wire_dcn.decode(parts, ce)
             del parts
         self._rule_rows(gsum.view(P, -1), w)
+
+    def _cross_gather(self, parts: tuple) -> None:
+        """Record the DCN tier's all-gather of the encoded (pod, shard)
+        strips ``parts``: worker 0 receives the other pods' shard 0."""
+        P, S = self.P, self.S
+        self.comm.record_gather("cross_gather", "all-gather", "dcn",
+                                tuple(t.view(P, S, -1)[:, 0] for t in parts),
+                                P)
 
     def _rule_rows(self, rows: torch.Tensor, w: int) -> None:
         """The rule on window w's packed (P, S*Lw) rows (pod q's shard j
@@ -518,7 +579,10 @@ class WindowedExchange:
                            at=cols.start)
 
     def finish(self) -> tuple:
+        S = self.S
         if self.wire is None:
+            self.comm.record_gather("pull", "all-gather", self.tier,
+                                    (self.p_out,), S)
             if self.wire_dcn is not None:
                 return self.p_out, self.slots, self.residual
             return self.p_out, self.slots
@@ -526,9 +590,10 @@ class WindowedExchange:
         # payload is both what the residual keeps and what the workers add
         # to p
         p, ce = self.p, self.ce
-        e = (self.p_out.float() - p.float()).add_(self.residual)
+        e = self.residual.add_(self.p_out.float() - p.float())
         self.p_out = None
         parts = self.wire.encode(e, ce)
+        self.comm.record_gather("pull", "all-gather", self.tier, parts, S)
         d = self.wire.decode(parts, ce)
         del parts
         r = e.sub_(d)
@@ -659,7 +724,8 @@ def pipelined_wire_exchange(comm, g: torch.Tensor,
     where p' is p plus the decoded pull delta (not the rule's p'): what
     every worker applies after the all-gather, which is the identity on
     one card.  Over a process group g is this rank's (1, padded) row and
-    ``slots`` and ``residual`` its shard's (L,)."""
+    ``slots`` and ``residual`` its shard's (L,); residual' is written into
+    ``residual``, as the slots are updated in place."""
     ex = _windowed(comm)(comm, g, p, slots, update_fn, windows, n_live,
                          strategy=strategy, wire=wire, wire_dcn=wire_dcn,
                          chunk_elems=chunk_elems, residual=residual,
@@ -892,7 +958,7 @@ class ProcessGroupExchange:
         # pull: this shard's delta plus its carried residual encoded, the
         # words and scales gathered, every shard decoded on every rank
         ce, r, L, S = self.ce, self.r, self.L, self.S
-        e = (self.p_out.float() - self.p_sh.float()).add_(self.residual)
+        e = self.residual.add_(self.p_out.float() - self.p_sh.float())
         self.p_out = None
         parts = self.wire.pack_words(self.wire.encode(e, ce))
         gathered = tuple(comm.pull(t, t.new_empty(t.numel() * S), self.over)

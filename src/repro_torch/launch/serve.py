@@ -21,13 +21,16 @@ spans and histogram): the span ``prefill`` (ending in the prefill's
 sync), one ``decode/step`` a decode step (the host's enqueue: no sync is
 added) and the histogram ``serve.latency`` by ``phase`` (``prefill``,
 ``decode_dispatch`` a step, ``decode_total``); ``serve_trace.json`` and
-``serve_metrics.jsonl`` go to ``--telemetry-out``.  The launcher restores
+``serve_metrics.jsonl`` go to ``--telemetry-out`` (default
+``results/torch/telemetry``).  The launcher restores
 the null telemetry pair before it returns.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+from ..paths import TELEMETRY_DIR
 
 
 def generate(engine, model, prompts, decode_steps: int, *,
@@ -110,7 +113,9 @@ def main(argv=None):
                     help="trace the prefill and decode spans and the "
                          "serving-latency histogram; artifacts under "
                          "--telemetry-out")
-    ap.add_argument("--telemetry-out", default="results/telemetry")
+    ap.add_argument("--telemetry-out", default=TELEMETRY_DIR,
+                    help="artifact directory for --telemetry (default "
+                         "results/torch/telemetry)")
     args = ap.parse_args(argv)
 
     from .. import telemetry

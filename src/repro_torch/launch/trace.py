@@ -3,7 +3,7 @@
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.trace \
-      results/telemetry/trace.json
+      results/torch/telemetry/trace.json
   ... trace.json --check-model     # enforce the cost-model agreement
 
 Reading a trace

@@ -33,6 +33,8 @@ Usage:
   ... --workers 4 --telemetry --calibrate --telemetry-out out
                                     # spans, metrics, the probes and the
                                     # attribution table (below)
+  ... --workers 4 --auto-tune       # the exchange autotuner's lint-green
+                                    # winner (launch/tune.py)
 
 ``--telemetry`` (stacked workers only) traces the run (``telemetry/``):
 before the loop it times two probes on copies of the model and the
@@ -40,7 +42,8 @@ optimizer state, the zero-compute step (``probe/exchange``: the exchange
 alone, paper §4.4) and one full train step (``probe/step``), each rep
 ending in a device synchronization; it prints the attribution table
 (``telemetry/attribution.py``) and writes ``trace.json``,
-``metrics.jsonl`` and ``report.txt`` under ``--telemetry-out``.
+``metrics.jsonl`` and ``report.txt`` under ``--telemetry-out`` (default
+``results/torch/telemetry``, ``paths.py``).
 ``--calibrate`` (implies ``--telemetry``) first solves the cost model's
 constants on this card (``tuning/calibrate.py``, ``CARD_PROBE_ELEMS`` a
 worker row), anchors their level to the zero-compute probe and saves
@@ -50,8 +53,16 @@ the measured exchange as one row.  The training run's own state and
 losses are the same with the flags on or off, and the launcher restores
 the null telemetry pair before it returns.
 
-Values the port does not implement (fsdp_stream over ``--nproc``: ROADMAP.md
-queue A item 4b; another architecture, a batch that does not split over
+``--auto-tune`` (stacked workers) consults the autotuner's cache
+(``--tune-cache-dir``, default ``results/torch/tuning``) for this request
+(the baseline flags' exchange config, ``--workers``, the model, this
+device), tuning on a miss on this device's saved calibration
+(``launch/tune.py --calibrate`` makes one), refuses to train unless the
+winner is lint-green, and trains with the winner's strategy, windows,
+wires, chunk size and ``--pods``, as if those flags had been given.
+
+Values the port does not implement (fsdp_stream or ``--auto-tune`` over
+``--nproc``: ROADMAP.md queue A item 4b; another architecture, a batch that does not split over
 the workers) raise.  Under fsdp_stream ``--telemetry`` keeps no
 zero-compute probe (the strategy has no chunk domain), as the reference's
 launcher.
@@ -61,6 +72,8 @@ from __future__ import annotations
 import argparse
 import os
 import time
+
+from ..paths import TELEMETRY_DIR
 
 # a collective of --nproc that takes longer is a hung group
 COLLECTIVE_TIMEOUT_S = 1800.0
@@ -177,13 +190,27 @@ def main(argv=None):
                     help="per-phase step tracing + metrics registry: runs "
                          "the two probes, prints the attribution table and "
                          "writes trace.json / metrics.jsonl / report.txt")
-    ap.add_argument("--telemetry-out", default="results/telemetry",
-                    help="artifact directory for --telemetry")
+    ap.add_argument("--telemetry-out", default=TELEMETRY_DIR,
+                    help="artifact directory for --telemetry (default "
+                         "results/torch/telemetry)")
     ap.add_argument("--calibrate", action="store_true",
                     help="solve the cost model's constants (bw_ici, "
                          "allreduce_factor, bw_codec) on this card from "
                          "probe steps before attribution (implies "
                          "--telemetry)")
+    ap.add_argument("--auto-tune", action="store_true",
+                    help="pick strategy/windows/wires/chunk/pods with the "
+                         "exchange autotuner: consult its cache, tune on a "
+                         "miss, and refuse to train unless the winner is "
+                         "lint-green.  Overrides --strategy/--windows/"
+                         "--wire-format/--wire-format-dcn/--chunk-kb/--pods")
+    ap.add_argument("--tune-top-k", type=int, default=3,
+                    help="candidates the autotuner times on a cache miss")
+    ap.add_argument("--tune-steps", type=int, default=5,
+                    help="timed reps per autotuner candidate")
+    ap.add_argument("--tune-cache-dir", default="",
+                    help="the autotuner's cache (default "
+                         "results/torch/tuning)")
     args = ap.parse_args(argv)
     args.supervise, args.elastic = resolve_mode_flags(
         args.supervise, args.elastic, args.chaos, args.chaos_faults)
@@ -191,6 +218,11 @@ def main(argv=None):
     args.argv = list(argv) if argv is not None else None
     check_tenants(args)
     if args.nproc > 1 or args.backend is not None:
+        if args.auto_tune:
+            raise NotImplementedError(
+                "--auto-tune over a process group is not ported yet "
+                "(ROADMAP.md queue A item 4b): tune stacked workers "
+                "(--workers)")
         if args.strategy == "fsdp_stream":
             raise NotImplementedError(
                 f"the fsdp_stream strategy over a process group ("
@@ -211,34 +243,86 @@ def main(argv=None):
         return results[0]
     from .. import telemetry
     from ..core import StackedComm
+    comm = (_auto_tuned(args) if args.auto_tune
+            else StackedComm(args.workers, args.pods))
     try:
-        return _train(StackedComm(args.workers, args.pods), args.device,
-                      args)
+        return _train(comm, args.device, args)
     finally:
         if args.telemetry:
             telemetry.disable()
 
 
+def _model_config(args):
+    from ..configs import get_arch, reduced
+    cfg = get_arch(args.arch)
+    return reduced(cfg) if args.reduced else cfg
+
+
+def _train_config(args):
+    """The run's TrainConfig from the flags."""
+    from ..configs import TrainConfig
+    return TrainConfig(strategy=args.strategy, lr=args.lr,
+                       chunk_size_bytes=args.chunk_kb * 1024,
+                       wire_format=args.wire_format,
+                       wire_format_dcn=args.wire_format_dcn,
+                       pipeline_windows=args.windows,
+                       overlap_backward=args.overlap,
+                       loss_chunk=min(1024, args.seq))
+
+
+def _auto_tuned(args):
+    """Consult the exchange autotuner's cache for (the flags' exchange
+    config, --workers, the model, this device), tuning on a miss on this
+    device's saved calibration, set the flags of the lint-green winner's
+    config (``Candidate.tc_kwargs()``, ``--pods``) and return its layout
+    (``tuning.cost.context_for``).  Refuses to train on anything that did
+    not pass the rack lint."""
+    from ..models import param_specs
+    from ..tuning import DEFAULT_CACHE_DIR, Candidate, autotune, context_for
+    from .tune import saved_topology
+
+    cfg = _model_config(args)
+    W = args.workers
+    cache_dir = args.tune_cache_dir or DEFAULT_CACHE_DIR
+    report = autotune(
+        param_specs(cfg), _train_config(args), W,
+        topo=lambda: saved_topology(W, args.device, cache_dir),
+        top_k=args.tune_top_k, steps=args.tune_steps, cache_dir=cache_dir,
+        arch=args.arch, d_model=cfg.d_model if args.reduced else 0,
+        device=args.device)
+    if not report["lint"].get("ok"):
+        raise SystemExit(
+            "[train] --auto-tune: the tuned winner is not lint-green; "
+            "refusing to train on an unvetted config "
+            f"(errors: {report['lint'].get('errors')})")
+    cand = Candidate.from_dict(report["candidate"])
+    kw = cand.tc_kwargs()
+    args.strategy, args.windows = kw["strategy"], kw["pipeline_windows"]
+    args.wire_format, args.wire_format_dcn = (kw["wire_format"],
+                                              kw["wire_format_dcn"])
+    args.chunk_kb = kw["chunk_size_bytes"] // 1024
+    args.pods = cand.pods
+    src = ("cache hit" if report["cache_hit"] else
+           f"tuned, {report['timed_candidates']} candidates timed")
+    print(f"[train] auto-tune ({src}): {cand.strategy} "
+          f"W={cand.pipeline_windows} wire={cand.wire_format}/"
+          f"{cand.wire_format_dcn or '-'} "
+          f"chunk={cand.chunk_size_bytes // 1024}KB "
+          f"mesh={cand.pods}x{cand.data} key={report['key']}")
+    return context_for(cand)
+
+
 def _train(comm, device, args):
     """Build the engine over ``comm`` on ``device`` and train; returns the
     losses (rank 0 prints).  Under ``--nproc`` each rank runs it."""
-    from ..configs import TrainConfig, get_arch, reduced
     from ..core import PHubEngine, StackedComm
     from ..core.pipeline import effective_windows
     from ..data import SyntheticTokens
     from ..training import TrainState, fit
 
     say = print if comm.rank == 0 else (lambda *a, **k: None)
-    cfg = get_arch(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
-    tc = TrainConfig(strategy=args.strategy, lr=args.lr,
-                     chunk_size_bytes=args.chunk_kb * 1024,
-                     wire_format=args.wire_format,
-                     wire_format_dcn=args.wire_format_dcn,
-                     pipeline_windows=args.windows,
-                     overlap_backward=args.overlap,
-                     loss_chunk=min(1024, args.seq))
+    cfg = _model_config(args)
+    tc = _train_config(args)
     if args.telemetry:
         _enable_telemetry(cfg, tc, comm, device, args)
     if args.tenants > 1:

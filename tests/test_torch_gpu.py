@@ -222,7 +222,7 @@ def test_cuda_int8_exchange_equals_cpu_bitwise(S, rule, dtype):
         return pipelined_wire_exchange(
             StackedComm(S), g.to(dev), p.to(dev),
             tuple(t.to(dev).clone() for t in slots),
-            opt.kernel_update(ce, coefs), wire, ce, r.to(dev), fd)
+            opt.kernel_update(ce, coefs), wire, ce, r.to(dev).clone(), fd)
 
     ops.reset_launches()
     quant.reset_launches()

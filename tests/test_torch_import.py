@@ -45,7 +45,10 @@ def test_port_imports_no_jax_and_no_repro():
                  "core.api", "core.partition", "core.cost_model",
                  "telemetry.tracer", "telemetry.metrics",
                  "telemetry.attribution", "tuning.calibrate",
-                 "launch.trace"):
+                 "launch.trace", "tuning.space", "tuning.cost",
+                 "tuning.cache", "tuning.tuner", "analysis.rules",
+                 "launch.tune", "launch.mesh", "configs.phub_paper",
+                 "configs.shapes", "paths"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["leaked"] == []
 

@@ -215,7 +215,7 @@ def _port(S, rule, g, p, slots, r, ce):
     return run_wire_exchange("sharded_ps", StackedComm(S), g, p,
                              tuple(t.clone() for t in slots),
                              opt.kernel_update(ce, coefs), group,
-                             WireFormat("int8"), r, fd)
+                             WireFormat("int8"), r.clone(), fd)
 
 
 @pytest.mark.parametrize("S", [1, 2, 3, 4])
